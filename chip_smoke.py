@@ -7,17 +7,27 @@ Phases, each printed on its own line; any failure exits non-zero:
 
 1. The card: `nvidia-smi` name and power limit, torch's device name.
 2. Build the CUDA kernels from wass_tpu_torch/csrc with nvcc (sm_90a).
-3. Each kernel against its plain PyTorch version on the card, at the
-   slice's shapes (2048x1536, D = 640, 8 paths) and at a ragged shape
-   (1001x777, D = 52): bit-equal outputs, times from CUDA events.
+3. Each kernel against its plain PyTorch version on the card, bit-equal,
+   with times from CUDA events at the slice's shapes: the rectified
+   2048x1536 pair, D = 640 and 8 paths for K1/K3/K5/K7; Dw = 128 over the
+   window starts of the pair's coarse pass for K2/K4/K6.  Then at a
+   ragged shape: 1001x777, D = 52 for K1/K3/K5/K7, and 1000x776, Dw = 52
+   with random window starts (flat, rising, falling, jumps of >= Dw) for
+   K2/K4/K6.
 4. The main path: a synthetic 2048x1536 wave-field pair (rendered once and
    cached in wass_tpu_torch/_build/) written as 3 frame workdirs, then
    `python -m wass_tpu_torch.cli.main stereo <outdir>`'s entry point with
-   the stereo defaults (MAX_DISPARITY = 640).  Every frame must give a
-   plane.txt and a mesh_cam.xyzC that read back through the workdir
-   contract (wass_tpu.io, via wass_tpu_torch.testing.read_frame), a
-   trimmed-mean elevation error below 0.02 baseline units, and must have
-   launched every kernel.
+   the stereo defaults (MAX_DISPARITY = 640, the coarse-to-fine window of
+   128).  Every frame must take the windowed branch, give a plane.txt and
+   a mesh_cam.xyzC that read back through the workdir contract
+   (wass_tpu.io, via wass_tpu_torch.testing.read_frame), a trimmed-mean
+   elevation error below 0.02 baseline units, and must have launched
+   K1, K2, K3, K4 and K7.
+4b. The other branches, one frame each through SequencePipeline with a
+   config override: a forced full-range fallback (c2f_min_coverage 1.01),
+   byte-identical to a c2f_window = 0 frame (K1 + K3 + K7); the
+   left-right check (lr_max_diff 1: K1 + K5 + K7); 2 paths over the
+   windows (K2 + K6, the coarse pass on K1 + K5).
 5. A JSON line of per-kernel results, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -27,6 +37,7 @@ port's package is not next to this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,16 +46,24 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 W, H, D = 2048, 1536, 640
-RAGGED = (777, 1001, 52)  # (H, W, D)
+DW = 128  # the c2f window of the stereo defaults
+RAGGED = (777, 1001, 52)  # (H, W, D); the windowed kernels take H and W down to 776 x 1000
+RAGGED_NUM_DISP = 200  # window starts of the ragged case lie in [1, 1 + 200 - Dw]
 N_FRAMES = 3
 SCENE_SEED = 7
 ELEVATION_GATE = 0.02  # verify_meshes trimmed-mean gate, baseline units
 
 KERNELS = {
     "census_cost": ("wass_tpu_torch/csrc/census_cost.cu", "wass_tpu/stereo/sgm_pallas.py:710"),
+    "census_cost_windowed": ("wass_tpu_torch/csrc/census_cost.cu", "wass_tpu/stereo/sgm_pallas.py:808"),
     "sgm_wta_fused": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:633"),
+    "sgm_wta_fused_windowed": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:1228"),
+    "sgm_aggregate": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:313"),
+    "sgm_aggregate_windowed": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:1281"),
     "label_propagate": ("wass_tpu_torch/csrc/components.cu", "wass_tpu/ops/components_pallas.py:103"),
 }
+# Kernels each main-path run must launch (phase 4 per frame, phase 4b per run).
+WINDOWED_PATH = ("census_cost", "census_cost_windowed", "sgm_wta_fused", "sgm_wta_fused_windowed", "label_propagate")
 
 
 def log(msg: str) -> None:
@@ -79,38 +98,58 @@ def compare(name: str, kernel_out, plain_out) -> float:
     return err
 
 
+def _record(results: dict, name: str, kernel_out, plain_out, what: str) -> None:
+    err = compare(f"{name} {what}", kernel_out, plain_out)
+    results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    log(f"kernel {name} {what}: bit-equal")
+
+
+def ragged_windows(n_tiles: int, dw: int, gen) -> "torch.Tensor":
+    """Random window starts in [1, 1 + RAGGED_NUM_DISP - dw] with a flat
+    step, a rise, a fall and jumps of >= dw both ways."""
+    import torch
+
+    hi = 1 + RAGGED_NUM_DISP - dw
+    ws = torch.randint(1, hi + 1, (n_tiles,), generator=gen, dtype=torch.int32)
+    ws[1] = ws[0]
+    ws[2], ws[3], ws[4], ws[5] = 1, hi, 1, 5  # +-(hi - 1) >= dw, then a small rise
+    return ws
+
+
 def check_kernels(img_pair, dev) -> dict:
     """Phase 3: kernel vs plain at the slice's and a ragged shape."""
     import torch
 
     from wass_tpu_torch.ops import components_kernels as ck
+    from wass_tpu_torch.stereo import c2f
+    from wass_tpu_torch.stereo import sgm as plain_sgm
     from wass_tpu_torch.stereo import sgm_kernels as sk
-    from wass_tpu_torch.stereo.cost import census_cost_volume, census_transform
-    from wass_tpu_torch.stereo.sgm import sgm_wta_fused_plain
+    from wass_tpu_torch.stereo.cost import census_cost_volume, census_cost_volume_windowed, census_transform
 
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
     gen = torch.Generator().manual_seed(0)
     ragged_h, ragged_w, ragged_d = RAGGED
     cases = [
-        ("slice", torch.as_tensor(img_pair[0]), torch.as_tensor(img_pair[1]), D),
+        ("slice", torch.as_tensor(img_pair[0]), torch.as_tensor(img_pair[1]), D, DW),
         ("ragged", torch.rand((ragged_h, ragged_w), generator=gen) * 255,
-         torch.rand((ragged_h, ragged_w), generator=gen) * 255, ragged_d),
+         torch.rand((ragged_h, ragged_w), generator=gen) * 255, ragged_d, ragged_d),
     ]
-    for tag, a, b, nd in cases:
+    for tag, a, b, nd, dw in cases:
         base, match = a.to(dev, torch.float32), b.to(dev, torch.float32)
         cb, cm = census_transform(base, (7, 9), 0.8), census_transform(match, (7, 9), 0.8)
         shape = f"{tuple(base.shape)} D={nd}"
 
         cost = sk.census_cost_volume(cb, cm, nd, 1)
-        err = compare(f"census_cost {tag}", cost, census_cost_volume(cb, cm, nd, 1))
-        results["census_cost"]["max_abs_err"] = max(results["census_cost"]["max_abs_err"], err)
-        log(f"kernel census_cost {tag} {shape}: bit-equal")
+        _record(results, "census_cost", cost, census_cost_volume(cb, cm, nd, 1), f"{tag} {shape}")
 
         for dirs in (5, 8):  # the 8-path disparity feeds the label check
             disp = sk.sgm_wta_fused(cost, 8, 96, dirs, 1, 1)
-            err = compare(f"sgm_wta_fused {tag} dirs={dirs}", disp, sgm_wta_fused_plain(cost, 8, 96, dirs, 1, 1))
-            results["sgm_wta_fused"]["max_abs_err"] = max(results["sgm_wta_fused"]["max_abs_err"], err)
-            log(f"kernel sgm_wta_fused {tag} {shape} directions={dirs}: bit-equal")
+            _record(results, "sgm_wta_fused", disp, plain_sgm.sgm_wta_fused_plain(cost, 8, 96, dirs, 1, 1),
+                    f"{tag} {shape} directions={dirs}")
+
+        agg = sk.sgm_aggregate(cost, 8, 96, 8)
+        _record(results, "sgm_aggregate", agg, plain_sgm.sgm_aggregate(cost, 8, 96, 8), f"{tag} {shape} directions=8")
+        del agg
 
         # Labels of the valid-disparity mask, 4-neighbours joined where the
         # disparity steps by less than one pixel (a z-gap-like gate).
@@ -122,33 +161,92 @@ def check_kernels(img_pair, dev) -> dict:
         conn_v[1:] = (valid[1:] & valid[:-1] & ((disp[:-1] - disp[1:]).abs() < 1)).to(torch.uint8)
         conn_h[:, 1:] = (valid[:, 1:] & valid[:, :-1] & ((disp[:, :-1] - disp[:, 1:]).abs() < 1)).to(torch.uint8)
         k_lab = ck.propagate_labels(init, conn_v, conn_h, 24)
-        err = compare(f"label_propagate {tag}", k_lab, ck.propagate_labels_plain(init, conn_v, conn_h, 24))
-        results["label_propagate"]["max_abs_err"] = max(results["label_propagate"]["max_abs_err"], err)
-        n_comp = int(torch.unique(k_lab[valid]).numel())
-        log(f"kernel label_propagate {tag} {tuple(valid.shape)}: bit-equal ({n_comp} components)")
+        _record(results, "label_propagate", k_lab, ck.propagate_labels_plain(init, conn_v, conn_h, 24),
+                f"{tag} {tuple(valid.shape)} ({int(torch.unique(k_lab[valid]).numel())} components)")
+
+        # The windowed kernels: the slice's windows come from the pair's
+        # coarse pass, the ragged ones are random.
+        if tag == "slice":
+            disp_c = c2f.coarse_disparity(base, match, nd, 1, 8, 96, 8, (7, 9), 1, 4)
+            ws, cov, offband = c2f.compute_row_windows(disp_c, 4, nd, 1, dw)
+            wcb, wcm = cb, cm
+            log(f"slice windows: coverage {float(cov):.4f} offband {float(offband):.5f}, "
+                f"starts {int(ws.min())}..{int(ws.max())}")
+        else:
+            h8, w8 = ragged_h // 8 * 8, ragged_w // 8 * 8
+            wcb, wcm = cb[:h8, :w8].contiguous(), cm[:h8, :w8].contiguous()
+            ws = ragged_windows(h8 // 8, dw, gen).to(dev)
+        wshape = f"{tuple(wcb.shape[:2])} Dw={dw}"
+        wcost = sk.census_cost_volume_windowed(wcb, wcm, ws, dw)
+        _record(results, "census_cost_windowed", wcost, census_cost_volume_windowed(wcb, wcm, ws, dw),
+                f"{tag} {wshape}")
+        for dirs in (5, 8):
+            _record(results, "sgm_wta_fused_windowed", sk.sgm_wta_fused_windowed(wcost, ws, 8, 96, dirs, 1),
+                    plain_sgm.sgm_wta_fused_windowed_plain(wcost, ws, 8, 96, dirs, 1), f"{tag} {wshape} directions={dirs}")
+        _record(results, "sgm_aggregate_windowed", sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 8),
+                plain_sgm.sgm_aggregate_windowed(wcost, ws, 8, 96, 8), f"{tag} {wshape} directions=8")
 
         if tag == "slice":  # times at the main path's shapes
-            t = results
-            t["census_cost"]["ms"] = cuda_ms(lambda: sk.census_cost_volume(cb, cm, nd, 1), 5)
-            t["census_cost"]["plain_ms"] = cuda_ms(lambda: census_cost_volume(cb, cm, nd, 1))
-            t["sgm_wta_fused"]["ms"] = cuda_ms(lambda: sk.sgm_wta_fused(cost, 8, 96, 8, 1, 1), 3)
-            t["sgm_wta_fused"]["plain_ms"] = cuda_ms(lambda: sgm_wta_fused_plain(cost, 8, 96, 8, 1, 1))
-            t["label_propagate"]["ms"] = cuda_ms(lambda: ck.propagate_labels(init, conn_v, conn_h, 24), 3)
-            t["label_propagate"]["plain_ms"] = cuda_ms(lambda: ck.propagate_labels_plain(init, conn_v, conn_h, 24))
-            for name in KERNELS:
-                log(f"time {name} {shape}: kernel {t[name]['ms']:.3f} ms, plain {t[name]['plain_ms']:.3f} ms")
-        del cost
+            timed = {
+                "census_cost": (lambda: sk.census_cost_volume(cb, cm, nd, 1),
+                                lambda: census_cost_volume(cb, cm, nd, 1), 5),
+                "census_cost_windowed": (lambda: sk.census_cost_volume_windowed(cb, cm, ws, dw),
+                                         lambda: census_cost_volume_windowed(cb, cm, ws, dw), 5),
+                "sgm_wta_fused": (lambda: sk.sgm_wta_fused(cost, 8, 96, 8, 1, 1),
+                                  lambda: plain_sgm.sgm_wta_fused_plain(cost, 8, 96, 8, 1, 1), 3),
+                "sgm_wta_fused_windowed": (lambda: sk.sgm_wta_fused_windowed(wcost, ws, 8, 96, 8, 1),
+                                           lambda: plain_sgm.sgm_wta_fused_windowed_plain(wcost, ws, 8, 96, 8, 1), 3),
+                "sgm_aggregate": (lambda: sk.sgm_aggregate(cost, 8, 96, 8),
+                                  lambda: plain_sgm.sgm_aggregate(cost, 8, 96, 8), 3),
+                "sgm_aggregate_windowed": (lambda: sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 8),
+                                           lambda: plain_sgm.sgm_aggregate_windowed(wcost, ws, 8, 96, 8), 3),
+                "label_propagate": (lambda: ck.propagate_labels(init, conn_v, conn_h, 24),
+                                    lambda: ck.propagate_labels_plain(init, conn_v, conn_h, 24), 3),
+            }
+            for name, (kernel, plain, reps) in timed.items():
+                results[name]["ms"] = cuda_ms(kernel, reps)
+                results[name]["plain_ms"] = cuda_ms(plain)
+                log(f"time {name} {shape if 'windowed' not in name else wshape}: "
+                    f"kernel {results[name]['ms']:.3f} ms, plain {results[name]['plain_ms']:.3f} ms")
+        del cost, wcost
         torch.cuda.empty_cache()
     return results
 
 
-def run_main_path(seq: Path, scene) -> dict:
-    """Phase 4: the stereo CLI over N_FRAMES workdirs, with checks."""
+def c2f_line(wd: Path) -> str:
+    for line in (wd / "wass_stereo_log.txt").read_text().splitlines():
+        if "c2f window coverage:" in line:
+            return line.split("[INFO] ", 1)[-1]
+    return ""
+
+
+def check_frame(i, wd: Path, scene, required, gate: bool) -> dict:
+    """A reconstructed frame: outputs read back, kernels launched, error."""
     import numpy as np
 
+    from wass_tpu_torch.testing import read_frame, trimmed_elevation_error
+
+    plane, mesh, per_frame = read_frame(wd)
+    missing = [k for k in required if per_frame.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"frame {i}: kernels not launched: {missing} ({per_frame})")
+    if not np.all(np.isfinite(plane)):
+        raise AssertionError(f"frame {i}: no plane (plane_ok false)")
+    if mesh.shape[1] != 3 or len(mesh) < (0.5 if gate else 0.1) * W * H or not np.isfinite(mesh).all():
+        raise AssertionError(f"frame {i}: mesh of shape {mesh.shape} is too small or not finite")
+    err = trimmed_elevation_error(scene, mesh, plane)
+    log(f"frame {i}: {len(mesh)} points, plane {' '.join(f'{v:.6f}' for v in plane)}, "
+        f"trimmed-mean elevation error {err:.5f} (gate {ELEVATION_GATE if gate else 'none'}), "
+        f"{c2f_line(wd) or 'no c2f'}, launches {per_frame}")
+    if gate and not err < ELEVATION_GATE:
+        raise AssertionError(f"frame {i}: elevation error {err} >= {ELEVATION_GATE}")
+    return per_frame
+
+
+def run_main_path(seq: Path, scene) -> dict:
+    """Phase 4: the stereo CLI over N_FRAMES workdirs, with checks."""
     import wass_tpu_torch
     from wass_tpu_torch.cli.main import main as cli_main
-    from wass_tpu_torch.testing import read_frame, trimmed_elevation_error
 
     wass_tpu_torch.reset_launch_counts()
     t0 = time.time()
@@ -164,20 +262,58 @@ def run_main_path(seq: Path, scene) -> dict:
     if len(wds) != N_FRAMES:
         raise AssertionError(f"expected {N_FRAMES} workdirs, found {len(wds)}")
     for i, wd in enumerate(wds):
-        plane, mesh, per_frame = read_frame(wd)
-        missing = [k for k in KERNELS if per_frame.get(k, 0) < 1]
-        if missing:
-            raise AssertionError(f"frame {i}: kernels not launched: {missing} ({per_frame})")
-        if not np.all(np.isfinite(plane)):
-            raise AssertionError(f"frame {i}: no plane (plane_ok false)")
-        if mesh.shape[1] != 3 or len(mesh) < 0.5 * W * H or not np.isfinite(mesh).all():
-            raise AssertionError(f"frame {i}: mesh of shape {mesh.shape} is too small or not finite")
-        err = trimmed_elevation_error(scene, mesh, plane)
-        log(f"frame {i}: {len(mesh)} points, plane {' '.join(f'{v:.6f}' for v in plane)}, "
-            f"trimmed-mean elevation error {err:.5f} (gate {ELEVATION_GATE}), launches {per_frame}")
-        if not err < ELEVATION_GATE:
-            raise AssertionError(f"frame {i}: elevation error {err} >= {ELEVATION_GATE}")
+        check_frame(i, wd, scene, WINDOWED_PATH, gate=True)
+        if not c2f_line(wd).endswith("windowed"):
+            raise AssertionError(f"frame {i} did not take the windowed branch: {c2f_line(wd)!r}")
     return launches
+
+
+# Phase 4b: (name, config override, kernels the run must launch, c2f log
+# line ending or None when c2f does not run).
+BRANCHES = [
+    ("fallback", {"c2f_min_coverage": 1.01}, ("census_cost", "sgm_wta_fused", "label_propagate"),
+     "FALLBACK to full-range SGM"),
+    ("full_range", {"c2f_window": 0}, ("census_cost", "sgm_wta_fused", "label_propagate"), None),
+    ("lr_check", {"lr_max_diff": 1}, ("census_cost", "sgm_aggregate", "label_propagate"), None),
+    # 2 paths over the windows; the guard is opened so that the frame takes
+    # the windowed branch whatever the noisier 2-path coarse map gives.
+    ("two_paths", {"directions": 2, "c2f_min_coverage": 0.0, "c2f_max_offband": 1.0},
+     ("census_cost", "sgm_aggregate", "census_cost_windowed", "sgm_aggregate_windowed", "label_propagate"),
+     "windowed"),
+]
+
+
+def run_branches(root: Path, img0, img1, rig, scene) -> dict:
+    """Phase 4b: one frame per branch through SequencePipeline."""
+    import wass_tpu_torch
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.testing import write_sequence
+
+    totals = {}
+    for name, override, required, c2f_end in BRANCHES:
+        seq = root / f"smoke_{name}"
+        write_sequence(seq, img0, img1, rig, 1)
+        pipe = load_pipeline(seq)
+        pipe.cfg.stereo = dataclasses.replace(pipe.cfg.stereo, **override)
+        wass_tpu_torch.reset_launch_counts()
+        t0 = time.time()
+        pipe.stereo()
+        launches = wass_tpu_torch.launch_counts()
+        log(f"branch {name} {override}: {time.time() - t0:.2f} s; launches {launches}")
+        wd = seq / "000000_wd"
+        check_frame(name, wd, scene, required, gate=name in ("fallback", "full_range"))
+        line = c2f_line(wd)
+        if (c2f_end is None and line) or (c2f_end is not None and not line.endswith(c2f_end)):
+            raise AssertionError(f"branch {name}: c2f log line {line!r}, expected {c2f_end!r}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+    for f in ("mesh_cam.xyzC", "plane.txt"):
+        a = (root / "smoke_fallback" / "000000_wd" / f).read_bytes()
+        b = (root / "smoke_full_range" / "000000_wd" / f).read_bytes()
+        if a != b:
+            raise AssertionError(f"the fallback frame's {f} differs from the full-range frame's")
+    log("branch fallback: mesh_cam.xyzC and plane.txt byte-identical to the c2f_window = 0 frame")
+    return totals
 
 
 def main() -> int:
@@ -228,10 +364,15 @@ def main() -> int:
     )
     results = check_kernels(rect, dev)
 
-    # Phase 4: the main path.
+    # Phase 4: the main path; 4b: the other branches.
     seq = _build.BUILD_DIR / "smoke_seq"
     write_sequence(seq, img0, img1, rig, N_FRAMES)
     launches = run_main_path(seq, scene)
+    for k, v in run_branches(_build.BUILD_DIR, img0, img1, rig, scene).items():
+        launches[k] += v
+    unused = [k for k in KERNELS if launches[k] < 1]
+    if unused:
+        raise AssertionError(f"kernels no main-path run launched: {unused}")
 
     kernels = [
         {

@@ -11,7 +11,8 @@ import torch
 import wass_tpu_torch
 from wass_tpu_torch.ops import components_kernels as ck
 from wass_tpu_torch.stereo import sgm_kernels as sk
-from wass_tpu_torch.stereo.cost import census_cost_volume, census_transform
+from wass_tpu_torch.stereo import sgm as plain_sgm
+from wass_tpu_torch.stereo.cost import census_cost_volume, census_cost_volume_windowed, census_transform
 from wass_tpu_torch.stereo.sgm import sgm_wta_fused_plain
 
 pytestmark = pytest.mark.cuda
@@ -62,13 +63,68 @@ def test_label_propagate_kernel(dev, h, w, density):
                            ck.propagate_labels_plain(init, conn_v, conn_h, rounds))
 
 
+@pytest.mark.parametrize("h,w,d,min_disp", SHAPES)
+@pytest.mark.parametrize("directions", [2, 4, 5, 8])
+def test_sgm_aggregate_kernel(dev, h, w, d, min_disp, directions):
+    cb, cm = _census_pair(dev, h, w, h + 2)
+    cost = sk.census_cost_volume(cb, cm, d, min_disp)
+    assert torch.equal(sk.sgm_aggregate(cost, 8, 96, directions), plain_sgm.sgm_aggregate(cost, 8, 96, directions))
+
+
+def _windows(dev, h, dw, seed):
+    """Random per-tile window starts with a flat step, and jumps up and
+    down of at least dw (every realignment case of the windowed walks)."""
+    g = torch.Generator().manual_seed(seed)
+    ws = torch.randint(0, 3 * dw, (h // 8,), generator=g, dtype=torch.int32)
+    if len(ws) >= 4:
+        ws[1] = ws[0]
+        ws[2], ws[3] = ws[1] + dw + 3, max(0, int(ws[1]) - 2)
+    return ws.to(dev)
+
+
+WINDOWED_SHAPES = [(h // 8 * 8, w, d) for h, w, d, _ in SHAPES]
+
+
+@pytest.mark.parametrize("h,w,dw", WINDOWED_SHAPES)
+def test_windowed_kernels(dev, h, w, dw):
+    cb, cm = _census_pair(dev, h, w, h + 3)
+    ws = _windows(dev, h, dw, h)
+    cost = sk.census_cost_volume_windowed(cb, cm, ws, dw)
+    assert torch.equal(cost, census_cost_volume_windowed(cb, cm, ws, dw))
+    for directions in (5, 8):
+        for uniq in (1, 5):
+            out = sk.sgm_wta_fused_windowed(cost, ws, 8, 96, directions, uniq)
+            assert torch.equal(out, plain_sgm.sgm_wta_fused_windowed_plain(cost, ws, 8, 96, directions, uniq))
+    for directions in (2, 5, 8):
+        out = sk.sgm_aggregate_windowed(cost, ws, 8, 96, directions)
+        assert torch.equal(out, plain_sgm.sgm_aggregate_windowed(cost, ws, 8, 96, directions))
+
+
 def test_wrappers_count_launches_and_check_inputs(dev):
     cb, cm = _census_pair(dev, 16, 40, 0)
+    ws = torch.tensor([1, 4], dtype=torch.int32, device=dev)
     wass_tpu_torch.reset_launch_counts()
     cost = sk.census_cost_volume(cb, cm, 8, 1)
     sk.sgm_wta_fused(cost, 8, 96, 8, 1, 1)
-    assert wass_tpu_torch.launch_counts() == {"census_cost": 1, "sgm_wta_fused": 1, "label_propagate": 0}
+    counts = wass_tpu_torch.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "census_cost": 1, "sgm_wta_fused": 1}
+    assert {"label_propagate", "census_cost_windowed", "sgm_wta_fused_windowed", "sgm_aggregate",
+            "sgm_aggregate_windowed"} <= set(counts)
+    sk.sgm_aggregate(cost, 8, 96, 4)
+    wcost = sk.census_cost_volume_windowed(cb, cm, ws, 8)
+    sk.sgm_wta_fused_windowed(wcost, ws, 8, 96, 5, 1)
+    sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 2)
+    counts = wass_tpu_torch.launch_counts()
+    assert counts == {**{k: 1 for k in counts}, "label_propagate": 0}
     with pytest.raises(ValueError):
         sk.sgm_wta_fused(cost, 8, 96, 4, 1, 1)
     with pytest.raises(ValueError):
         sk.census_cost_volume(cb, cm.cpu(), 8, 1)
+    with pytest.raises(ValueError):
+        sk.census_cost_volume_windowed(cb, cm, ws.cpu(), 8)  # mixed devices
+    with pytest.raises(ValueError):
+        sk.sgm_wta_fused_windowed(wcost, ws.to(torch.int64), 8, 96, 5, 1)
+    with pytest.raises(ValueError):
+        sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 4)
+    with pytest.raises(ValueError):
+        sk.sgm_aggregate_windowed(wcost[:12], ws, 8, 96, 2)  # H % 8 != 0

@@ -77,7 +77,8 @@ def test_sequence_stereo_matches_jax(sequence, monkeypatch):
         assert abs(mt.shape[1] - mj.shape[1]) <= 0.001 * mj.shape[1]
         assert (seq_t / name / "plane.txt").exists() and (seq_t / name / "P1cam.txt").exists()
         log = (seq_t / name / "wass_stereo_log.txt").read_text()
-        assert "kernel launches: census_cost=0 label_propagate=0 sgm_wta_fused=0" in log
+        assert ("kernel launches: census_cost=0 census_cost_windowed=0 label_propagate=0 sgm_aggregate=0 "
+                "sgm_aggregate_windowed=0 sgm_wta_fused=0 sgm_wta_fused_windowed=0") in log
 
 
 def test_min_triangulated_gate(sequence, tmp_path):

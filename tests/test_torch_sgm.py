@@ -9,7 +9,7 @@ import torch
 
 from wass_tpu.stereo import cost as jcost
 from wass_tpu.stereo import sgm as jsgm
-from wass_tpu.stereo.sgm_pallas import sgm_wta_fused_pallas
+from wass_tpu.stereo.sgm_pallas import sgm_aggregate_pallas, sgm_wta_fused_pallas
 from wass_tpu_torch.stereo import sgm as tsgm
 from wass_tpu_torch.stereo import sgm_kernels
 
@@ -32,6 +32,18 @@ def test_aggregate_bit_equal(pair, directions):
     ref = np.asarray(jsgm.sgm_aggregate(vol, 8, 96, directions))
     out = tsgm.sgm_aggregate(torch.from_numpy(np.asarray(vol)), 8, 96, directions)
     assert out.dtype == torch.int16
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("directions", [2, 4, 5, 8])
+def test_aggregate_plain_matches_pallas(pair, directions):
+    """Plain K5 (sgm.sgm_aggregate, the K5 wrapper on CPU tensors) ==
+    sgm_aggregate_pallas(interpret=True)."""
+    vol = _vol(pair)
+    ref = np.asarray(sgm_aggregate_pallas(vol, 8, 96, directions, interpret=True))
+    before = dict(sgm_kernels.LAUNCHES)
+    out = sgm_kernels.sgm_aggregate(torch.from_numpy(np.asarray(vol)), 8, 96, directions)
+    assert sgm_kernels.LAUNCHES == before
     np.testing.assert_array_equal(out.numpy(), ref)
 
 

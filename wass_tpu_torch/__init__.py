@@ -2,16 +2,19 @@
 
 The JAX package `wass_tpu` stays the reference; this package mirrors its
 layout (`stereo/cost.py` <-> `wass_tpu/stereo/cost.py`, ...) and runs the
-full-range dense stereo stage with known extrinsics on an NVIDIA H100:
+dense stereo stage with known extrinsics, coarse-to-fine search and
+full-range fallback included, on an NVIDIA H100:
 
   cli/       argparse entry point and the sequence stereo loop
-  stereo/    census, cost volume, SGM, plane fit, the dense frame pipeline
+  stereo/    census, cost volumes, SGM, coarse-to-fine windows, plane fit,
+             the dense frame pipeline
   ops/       sampling, morphology, connected components
   core/      geometry, triangulation, rectification (host, float64)
   prepare/   input-degradation estimate (AUTO smoothing sigma)
   io/        stdlib PNG codec
   testing/   smoke-run helpers around the synthetic wave-field scenes
-  csrc/      the hand-written CUDA kernels (K1 cost, K3 SGM+WTA, K7 labels)
+  csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
+             K5/K6 SGM sums, K7 labels)
 
 Kernel wrappers launch the CUDA kernel for CUDA tensors and run the plain
 PyTorch version for CPU tensors only.  This package never imports jax.

@@ -38,7 +38,11 @@ _INT = _c.c_int
 # name -> argtypes of each C entry point (all return int: a cudaError_t).
 _SIGNATURES = {
     "wass_census_cost": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
+    "wass_census_cost_windowed": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "wass_sgm_wta_fused": [_PTR, _PTR, _PTR] + [_INT] * 8 + [_PTR],
+    "wass_sgm_wta_fused_windowed": [_PTR] * 4 + [_INT] * 7 + [_PTR],
+    "wass_sgm_aggregate": [_PTR] * 2 + [_INT] * 6 + [_PTR],
+    "wass_sgm_aggregate_windowed": [_PTR] * 3 + [_INT] * 6 + [_PTR],
     "wass_sgm_lane_width": [_INT],
     "wass_label_propagate": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
 }

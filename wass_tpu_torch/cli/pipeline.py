@@ -73,12 +73,20 @@ class SequencePipeline:
             cache[key] = hit
         return hit
 
-    def _finalize_stereo_frame(self, wd: Workdir, geom, res, K0, K1, launches: dict) -> np.ndarray:
-        """Per-frame outputs; the first host sync of this frame's results."""
+    def _finalize_stereo_frame(self, wd: Workdir, geom, res, K0, K1, launches: dict,
+                               c2f: Optional[dict]) -> np.ndarray:
+        """Per-frame outputs; the first host sync of this frame's results.
+        c2f: the frame's resolved coarse-to-fine diagnostics, or None."""
         t0 = time.time()
         log_lines = [
             "kernel launches: " + " ".join(f"{k}={v}" for k, v in sorted(launches.items()))
         ]
+        if c2f is not None:
+            log_lines.append(
+                f"c2f window coverage: {c2f['coverage']:.4f} "
+                f"coherent-offband: {c2f['offband']:.5f} "
+                + ("FALLBACK to full-range SGM" if c2f["fallback"] else "windowed")
+            )
         P0 = K0 @ np.hstack([np.eye(3), np.zeros((3, 1))])
         P1 = K1 @ np.hstack([geom.R, geom.T.reshape(3, 1)])
         wd.save_projection_matrices(P0, P1)
@@ -151,7 +159,10 @@ class SequencePipeline:
         """Frames in order.  A frame's finalize (device-to-host copies, file
         writes) runs on the writer thread while the main thread decodes and
         computes the next frame; one finalize at a time, so at most two
-        frames' results are alive."""
+        frames' results are alive.  The c2f fallback is decided inside the
+        frame, before its full-resolution pass (the pipeline's default, not
+        deferred): a re-run from the writer thread would launch kernels
+        from a second thread and blur the per-frame launch counts."""
         import wass_tpu_torch
 
         device = self._device()
@@ -177,7 +188,7 @@ class SequencePipeline:
                 launches = {k: v - before[k] for k, v in wass_tpu_torch.launch_counts().items()}
                 if pending is not None:
                     planes.append(pending.result())
-                pending = writer.submit(self._finalize_stereo_frame, wd, geom, res, K0, K1, launches)
+                pending = writer.submit(self._finalize_stereo_frame, wd, geom, res, K0, K1, launches, pipe.last_c2f)
             if pending is not None:
                 planes.append(pending.result())
         return planes

@@ -1,9 +1,13 @@
-// K3: fused SGM path aggregation + winner-take-all.
+// K3, K4, K5, K6: SGM path aggregation, fused with the winner-take-all
+// (K3, K4) or writing the int16 path sum (K5, K6), over a full-range
+// (K3, K5) or a windowed (K4, K6) cost volume.
 //
-// Replaces wass_tpu/stereo/sgm_pallas.py:sgm_wta_fused_pallas (_run_pair /
-// _pair_kernel, _run_tri_dir_partial / _tri_dir_partial_kernel,
-// _run_tri_dir_wta / _tri_dir_wta_kernel + _wta_row).  The recurrence
-// along a path r is
+// Replaces wass_tpu/stereo/sgm_pallas.py:
+//   K3 sgm_wta_fused_pallas           (_run_pair, _run_tri_dir_partial, _run_tri_dir_wta)
+//   K4 sgm_wta_fused_pallas_windowed  (_run_pair, _run_tri_dir_{partial,wta}_windowed)
+//   K5 sgm_aggregate_pallas           (_run_pair, _run_tri_dir)
+//   K6 sgm_aggregate_pallas_windowed  (_run_pair, _run_tri_dir_windowed)
+// The recurrence along a path r is
 //   L(p, d) = C(p, d) + min(L(p-r, d), L(p-r, d+-1) + P1, min_k L(p-r, k) + P2)
 //             - min_k L(p-r, k)
 // and the first pixel of a path has L = C.  The Pallas kernels walk every
@@ -18,11 +22,21 @@
 //
 // Directions run one launch each, so no two warps touch one pixel at once.
 // The first launch writes its L into an int16 (H, W, D) volume, the next
-// ones add theirs, and the last direction adds its L in registers and runs
-// the WTA of sgm.wta_disparity (first-index argmin, +-1 neighbours,
+// ones add theirs; for K3/K4 the last direction adds its L in registers and
+// runs the WTA of sgm.wta_disparity (first-index argmin, +-1 neighbours,
 // uniqueness with an integer-floor threshold, clipped parabola subpixel;
 // 0 = invalid), writing the (H, W) float32 disparity.  Every path sum is a
 // small integer, so the direction order does not change any result.
+//
+// Windowed volumes (K4, K6): lane j of row y is disparity
+// wstart[y / 8] + j.  A vertical or diagonal walk that steps into a row
+// tile with another window start first realigns its carry (new lane j
+// takes old lane j + delta, 255 where that is outside the window; the
+// source lane is data-dependent, so the carry goes through a per-warp
+// shared-memory buffer) and recomputes min_k L from it.  A diagonal's
+// first pixel needs no realignment: it starts from L = C.  K4's WTA uses
+// the min_disp = 1 sentinel and writes (d - 1) + wstart[y / 8], the float
+// order of wass_tpu/stereo/dense.py:_jit_sgm_fused_windowed.
 //
 // Bound on the H100: device-memory traffic.  Each of the first directions
 // reads the uint8 cost and reads and writes the int16 volume (about 10 GB
@@ -33,10 +47,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+extern "C" int wass_sgm_lane_width(int D);
+
 namespace {
 
 constexpr int kBig = 32000;        // no-predecessor / padding value of L
 constexpr int kBigTotal = 1 << 19; // padding value of the WTA total
+constexpr int kRealignFill = 255;  // carry of a lane with no source after realignment
+constexpr int kTileRows = 8;       // rows per window tile
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 4;
 
@@ -133,18 +151,41 @@ __device__ __forceinline__ void store_acc(int16_t* a, int d0, int D, bool vec, c
     if (d0 + v < D) a[d0 + v] = (int16_t)A[v];
 }
 
+// The carry of a walk entering a row tile whose window starts delta
+// disparities later: lane d takes lane d + delta, kRealignFill where that
+// is outside [0, D).  buf is the warp's own 32 * V ints of shared memory.
+template <int V>
+__device__ __forceinline__ void realign(int (&L)[V], int* buf, int d0, int D, int delta) {
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (d0 + v < D) buf[d0 + v] = L[v];
+  __syncwarp();
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int d = d0 + v;
+    const int src = d + delta;
+    L[v] = d >= D ? kBig : (src >= 0 && src < D ? buf[src] : kRealignFill);
+  }
+  __syncwarp();
+}
+
+// wstart: per-tile window starts of a windowed volume, or null for a
+// full-range one.
 template <int V, int MODE>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-sgm_path_kernel(const uint8_t* __restrict__ cost, int16_t* __restrict__ acc,
-                float* __restrict__ disp, int H, int W, int D, int dy, int dx, int P1,
-                int P2, int min_disp, int uniq) {
+sgm_path_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ wstart,
+                int16_t* __restrict__ acc, float* __restrict__ disp, int H, int W, int D,
+                int dy, int dx, int P1, int P2, int min_disp, int uniq) {
+  __shared__ int realign_buf[kWarpsPerBlock][32 * V];
   const int lane = threadIdx.x & 31;
-  const int line = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int warp = threadIdx.x >> 5;
+  const int line = blockIdx.x * kWarpsPerBlock + warp;
   if (line >= num_lines(H, W, dy, dx)) return;  // the whole warp leaves together
   int y, x;
   line_start(line, H, W, dy, dx, &y, &x);
   const int d0 = lane * V;
   const bool vec = (D % 4) == 0;
+  const bool realigns = wstart != nullptr && dy != 0;  // horizontal walks keep one window
 
   int L[V];
   int minL = 0;
@@ -158,6 +199,18 @@ sgm_path_kernel(const uint8_t* __restrict__ cost, int16_t* __restrict__ acc,
       for (int v = 0; v < V; ++v) L[v] = d0 + v < D ? C[v] : kBig;
       first = false;
     } else {
+      if (realigns) {
+        const int t = y / kTileRows;
+        const int tp = (y - dy) / kTileRows;  // tile of the previous pixel's row
+        const int delta = t == tp ? 0 : wstart[t] - wstart[tp];
+        if (delta != 0) {
+          realign<V>(L, realign_buf[warp], d0, D, delta);
+          int m = kBig;
+#pragma unroll
+          for (int v = 0; v < V; ++v) m = min(m, L[v]);
+          minL = warp_min(m);
+        }
+      }
       int up_edge = __shfl_up_sync(kFull, L[V - 1], 1);
       int dn_edge = __shfl_down_sync(kFull, L[0], 1);
       if (lane == 0) up_edge = kBig;
@@ -219,7 +272,9 @@ sgm_path_kernel(const uint8_t* __restrict__ cost, int16_t* __restrict__ acc,
         float delta = (float)(sm1s - sp1s) / (2.0f * (float)denom);  // IEEE division
         delta = fminf(fmaxf(delta, -0.5f), 0.5f);
         const float dv = (float)(best + min_disp) + (interior ? delta : 0.0f);
-        disp[p] = far > thresh ? dv : 0.0f;
+        // Windowed: window-local dv with min_disp = 1, shifted to true units.
+        const float out = wstart != nullptr ? (dv - 1.0f) + (float)wstart[y / kTileRows] : dv;
+        disp[p] = far > thresh ? out : 0.0f;
       }
     }
     y += dy;
@@ -228,27 +283,27 @@ sgm_path_kernel(const uint8_t* __restrict__ cost, int16_t* __restrict__ acc,
 }
 
 template <int V>
-cudaError_t launch_path(int mode, const uint8_t* cost, int16_t* acc, float* disp, int H, int W,
-                        int D, int dy, int dx, int P1, int P2, int min_disp, int uniq,
-                        cudaStream_t s) {
+cudaError_t launch_path(int mode, const uint8_t* cost, const int* wstart, int16_t* acc, float* disp,
+                        int H, int W, int D, int dy, int dx, int P1, int P2, int min_disp,
+                        int uniq, cudaStream_t s) {
   const int lines = dy == 0 ? H : (dx == 0 ? W : W + H - 1);
   const dim3 grid((lines + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(32 * kWarpsPerBlock);
   if (mode == kWrite)
-    sgm_path_kernel<V, kWrite><<<grid, block, 0, s>>>(cost, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
+    sgm_path_kernel<V, kWrite><<<grid, block, 0, s>>>(cost, wstart, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
   else if (mode == kAccumulate)
-    sgm_path_kernel<V, kAccumulate><<<grid, block, 0, s>>>(cost, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
+    sgm_path_kernel<V, kAccumulate><<<grid, block, 0, s>>>(cost, wstart, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
   else
-    sgm_path_kernel<V, kWta><<<grid, block, 0, s>>>(cost, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
+    sgm_path_kernel<V, kWta><<<grid, block, 0, s>>>(cost, wstart, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
   return cudaGetLastError();
 }
 
-cudaError_t launch_path_v(int V, int mode, const uint8_t* cost, int16_t* acc, float* disp, int H,
-                          int W, int D, int dy, int dx, int P1, int P2, int min_disp, int uniq,
-                          cudaStream_t s) {
+cudaError_t launch_path_v(int V, int mode, const uint8_t* cost, const int* wstart, int16_t* acc,
+                          float* disp, int H, int W, int D, int dy, int dx, int P1, int P2,
+                          int min_disp, int uniq, cudaStream_t s) {
 #define WASS_SGM_CASE(v) \
   case v:                \
-    return launch_path<v>(mode, cost, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq, s);
+    return launch_path<v>(mode, cost, wstart, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq, s);
   switch (V) {
     WASS_SGM_CASE(1)
     WASS_SGM_CASE(2)
@@ -266,6 +321,41 @@ cudaError_t launch_path_v(int V, int mode, const uint8_t* cost, int16_t* acc, fl
 #undef WASS_SGM_CASE
 }
 
+// The path sets (dy, dx) of stereo/sgm.py:DIRECTIONS.
+const int kDirs2[2][2] = {{0, 1}, {0, -1}};
+const int kDirs4[4][2] = {{0, 1}, {0, -1}, {1, 0}, {-1, 0}};
+const int kDirs5[5][2] = {{0, 1}, {0, -1}, {1, 0}, {1, 1}, {1, -1}};
+const int kDirs8[8][2] = {{0, 1}, {0, -1}, {1, 0}, {-1, 0}, {1, 1}, {1, -1}, {-1, 1}, {-1, -1}};
+
+const int (*path_set(int directions))[2] {
+  switch (directions) {
+    case 2: return kDirs2;
+    case 4: return kDirs4;
+    case 5: return kDirs5;
+    case 8: return kDirs8;
+    default: return nullptr;
+  }
+}
+
+// All directions of a path set, one launch each: write, accumulate, and
+// for wta the last one ends in the WTA.
+int run_paths(const void* cost, const void* wstart, void* acc, void* disp, int H, int W, int D,
+              int P1, int P2, int directions, bool wta, int min_disp, int uniq, void* stream) {
+  const int(*dirs)[2] = path_set(directions);
+  const int V = wass_sgm_lane_width(D);
+  if (dirs == nullptr || V == 0 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  if (wstart != nullptr && H % kTileRows != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int k = 0; k < directions; ++k) {
+    const int mode = k == 0 ? kWrite : (wta && k == directions - 1 ? kWta : kAccumulate);
+    const cudaError_t err = launch_path_v(V, mode, (const uint8_t*)cost, (const int*)wstart,
+                                          (int16_t*)acc, (float*)disp, H, W, D, dirs[k][0],
+                                          dirs[k][1], P1, P2, min_disp, uniq, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
 }  // namespace
 
 // Disparities per lane for a disparity count D (the template instances
@@ -276,23 +366,36 @@ extern "C" int wass_sgm_lane_width(int D) {
   return v <= 2 ? v : (v + 3) / 4 * 4;
 }
 
-// cost (H, W, D) uint8 -> disp (H, W) float32; acc is (H, W, D) int16
+// K3: cost (H, W, D) uint8 -> disp (H, W) float32; acc is (H, W, D) int16
 // scratch.  directions: 8 (all) or 5 (E, W, N, NW, NE: the forward walks).
 extern "C" int wass_sgm_wta_fused(const void* cost, void* acc, void* disp, int H, int W, int D,
                                   int P1, int P2, int directions, int min_disp, int uniq,
                                   void* stream) {
-  static const int dirs8[8][2] = {{0, 1}, {0, -1}, {1, 0}, {-1, 0}, {1, 1}, {1, -1}, {-1, 1}, {-1, -1}};
-  static const int dirs5[5][2] = {{0, 1}, {0, -1}, {1, 0}, {1, 1}, {1, -1}};
-  const int(*dirs)[2] = directions == 8 ? dirs8 : dirs5;
   if (directions != 8 && directions != 5) return (int)cudaErrorInvalidValue;
-  const int V = wass_sgm_lane_width(D);
-  if (V == 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  for (int k = 0; k < directions; ++k) {
-    const int mode = k == 0 ? kWrite : (k == directions - 1 ? kWta : kAccumulate);
-    const cudaError_t err = launch_path_v(V, mode, (const uint8_t*)cost, (int16_t*)acc, (float*)disp,
-                                          H, W, D, dirs[k][0], dirs[k][1], P1, P2, min_disp, uniq, s);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+  return run_paths(cost, nullptr, acc, disp, H, W, D, P1, P2, directions, true, min_disp, uniq, stream);
+}
+
+// K4: windowed cost (H, W, Dw) uint8 + wstart (H / 8,) int32 -> disp
+// (H, W) float32 in true disparity units; acc is (H, W, Dw) int16 scratch.
+extern "C" int wass_sgm_wta_fused_windowed(const void* cost, const void* wstart, void* acc, void* disp,
+                                           int H, int W, int D, int P1, int P2, int directions,
+                                           int uniq, void* stream) {
+  if (directions != 8 && directions != 5) return (int)cudaErrorInvalidValue;
+  return run_paths(cost, wstart, acc, disp, H, W, D, P1, P2, directions, true, 1, uniq, stream);
+}
+
+// K5: cost (H, W, D) uint8 -> acc (H, W, D) int16, the sum over the path
+// set directions (2, 4, 5 or 8).
+extern "C" int wass_sgm_aggregate(const void* cost, void* acc, int H, int W, int D, int P1, int P2,
+                                  int directions, void* stream) {
+  return run_paths(cost, nullptr, acc, nullptr, H, W, D, P1, P2, directions, false, 0, 0, stream);
+}
+
+// K6: windowed cost (H, W, Dw) uint8 + wstart (H / 8,) int32 -> acc
+// (H, W, Dw) int16, the sum over the path set directions (2, 5 or 8).
+extern "C" int wass_sgm_aggregate_windowed(const void* cost, const void* wstart, void* acc, int H,
+                                           int W, int D, int P1, int P2, int directions,
+                                           void* stream) {
+  if (directions == 4) return (int)cudaErrorInvalidValue;
+  return run_paths(cost, wstart, acc, nullptr, H, W, D, P1, P2, directions, false, 0, 0, stream);
 }

@@ -3,9 +3,10 @@
 Counterpart of wass_tpu/stereo/cost.py.  Census words are int32 tensors
 holding the bits of the reference's uint32 words (torch has no uint32
 shift on the CPU and no popcount), and the popcount is a SWAR reduction
-in int64.  `census_cost_volume` here is the plain version of kernel K1
-(stereo/sgm_kernels.py, csrc/census_cost.cu); the main path calls the
-kernel wrapper, which uses this function for CPU tensors only.
+in int64.  `census_cost_volume` and `census_cost_volume_windowed` here
+are the plain versions of kernels K1 and K2 (stereo/sgm_kernels.py,
+csrc/census_cost.cu); the main path calls the kernel wrappers, which use
+these functions for CPU tensors only.
 
 Disparity convention (as the reference): base(y, x) matches
 match(y, x - d) for d in [min_disp, min_disp + num_disp).
@@ -18,6 +19,7 @@ from typing import Tuple
 import torch
 
 AUTO_SIGMA = 0.8  # clean-input baseline the AUTO sentinel stands for here
+TILE_ROWS = 8  # rows sharing one disparity window in a windowed volume (stereo/c2f.py)
 
 
 def _gauss_kernel1d(sigma: float, radius: int, device) -> torch.Tensor:
@@ -118,4 +120,30 @@ def census_cost_volume(
         d = min_disp + j
         if d < W:
             out[:, d:, j] = hamming(census_base[:, d:], census_match[:, : W - d])
+    return out
+
+
+def census_cost_volume_windowed(
+    census_base: torch.Tensor,
+    census_match: torch.Tensor,
+    wstart_tiles: torch.Tensor,
+    win_disp: int,
+) -> torch.Tensor:
+    """Plain windowed (H, W, win_disp) uint8 cost volume: lane j of row y
+    is the cost at disparity d = wstart_tiles[y // TILE_ROWS] + j, and the
+    census bit width where x - d < 0 (census_cost_volume_pallas_windowed).
+    The window starts are >= 0 (c2f.compute_row_windows clips them to
+    [min_disp, min_disp + num_disp - win_disp])."""
+    H, W, nw = census_base.shape
+    if H % TILE_ROWS or wstart_tiles.shape != (H // TILE_ROWS,):
+        raise ValueError(f"needs H % {TILE_ROWS} == 0 and ({H // TILE_ROWS},) window starts, "
+                         f"got H={H} and {tuple(wstart_tiles.shape)}")
+    max_cost = min(32 * nw, 255)
+    off_rows = wstart_tiles.to(torch.int64).repeat_interleave(TILE_ROWS)[:, None]
+    xs = torch.arange(W, device=census_base.device)[None, :]
+    out = torch.empty((H, W, win_disp), dtype=torch.uint8, device=census_base.device)
+    for j in range(win_disp):
+        xm = xs - (off_rows + j)  # (H, W) match columns
+        m = torch.gather(census_match, 1, xm.clamp(0, W - 1)[..., None].expand(H, W, nw))
+        out[:, :, j] = torch.where(xm >= 0, hamming(census_base, m), max_cost)
     return out

@@ -1,15 +1,20 @@
 """The dense stereo stage: rectify -> census/SGM -> filter -> triangulate ->
 z-gap outliers -> plane -> .xyzC payload.
 
-Counterpart of wass_tpu/stereo/dense.py, full-range branch.  Conventions
-are the reference's: cameras cam0 / cam1 with x_c1 = R x_c0 + T, outputs
-in the cam0 frame, T rescaled to a baseline norm of cam_distance; base is
-the rectified image whose grid is iterated, match is sampled at x - d.
+Counterpart of wass_tpu/stereo/dense.py.  Conventions are the
+reference's: cameras cam0 / cam1 with x_c1 = R x_c0 + T, outputs in the
+cam0 frame, T rescaled to a baseline norm of cam_distance; base is the
+rectified image whose grid is iterated, match is sampled at x - d.
 
 Host geometry is float64 numpy; everything per pixel runs on the device of
-the input tensors.  On CUDA tensors the cost volume, SGM+WTA and the
-component labels run the hand-written kernels K1, K3 and K7; on CPU
-tensors their plain versions.
+the input tensors.  The disparity takes the branch the JAX package's
+production pipeline takes on its accelerator: the coarse-to-fine windowed
+search (stereo/c2f.py: K1 + K3 at 1/4 resolution, then K2 + K4, or K2 + K6
+for 2 paths) when the shapes conform, the full-range one (K1 + K3, or
+K1 + K5 for 2/4 paths and the left-right check) otherwise or when the
+coarse windows miss too much.  The component labels run K7.  On CUDA
+tensors these are the hand-written kernels, on CPU tensors their plain
+versions.
 """
 
 from __future__ import annotations
@@ -26,19 +31,20 @@ from wass_tpu_torch.core.triangulate import triangulate_normalized
 from wass_tpu_torch.ops.components import biggest_component_mask, zgap_component_mask
 from wass_tpu_torch.ops.morphology import dilate_zero, erode_zero, median_filter, sobel
 from wass_tpu_torch.ops.sampling import resize, warp_homography
+from wass_tpu_torch.stereo.c2f import c2f_supported, coarse_disparity, compute_row_windows, windowed_disparity
+from wass_tpu_torch.stereo.cost import census_transform
 from wass_tpu_torch.stereo.plane import crop_plane, ransac_find_plane, refine_plane
-from wass_tpu_torch.stereo.sgm import sgm_disparity
+from wass_tpu_torch.stereo.sgm import sgm_disparity_census
 
 
 @dataclasses.dataclass(frozen=True)
 class DenseStereoConfig:
     """Static configuration: the fields and defaults of
     wass_tpu.stereo.dense.DenseStereoConfig (see there for each field's
-    provenance).  The port runs the full-range branch only: the c2f_*
-    fields are carried so configs convert one to one, and are not acted
-    on, as the JAX package ignores them off the TPU.  use_pallas names the
-    TPU kernels and is likewise ignored: on CUDA the port always runs its
-    own kernels."""
+    provenance).  c2f_window > 0 enables the coarse-to-fine search on any
+    device where the shapes conform (_c2f_active).  use_pallas names the
+    TPU kernels and is ignored: on CUDA the port always runs its own
+    kernels."""
 
     num_disp: int = 256
     min_disp: int = 1
@@ -363,34 +369,82 @@ def export_u16(pts: torch.Tensor, valid: torch.Tensor, plane: torch.Tensor):
     return q, mins, scales
 
 
-class DenseStereoPipeline:
-    """One dense frame on the device of its inputs: census x2, cost volume
-    (K1), fused SGM + WTA (K3), postprocess, triangulate, z-gap outliers
-    (K7), plane.  The full-range branch of the reference pipeline; the
-    coarse-to-fine branch is not ported."""
+def _c2f_active(cfg: DenseStereoConfig, shape) -> bool:
+    """The coarse-to-fine branch runs when it is enabled and the (dense_scale
+    scaled) shapes conform.  A shape gate only: the JAX package also asks
+    for a TPU because its windowed kernels exist only there, while the
+    port's kernels have plain versions for CPU tensors."""
+    if cfg.c2f_window <= 0:
+        return False
+    H, W = shape
+    if cfg.dense_scale != 1.0:
+        H, W = round(H * cfg.dense_scale), round(W * cfg.dense_scale)
+    return c2f_supported(H, W, cfg.num_disp, cfg.c2f_window, cfg.c2f_factor, cfg.directions, cfg.lr_max_diff)
 
-    def __init__(self, cfg: DenseStereoConfig):
+
+def c2f_should_fallback(coverage: float, offband: float, cfg: DenseStereoConfig) -> bool:
+    """Full-range fallback decision for one frame (host side)."""
+    return coverage < cfg.c2f_min_coverage or offband > cfg.c2f_max_offband
+
+
+class DenseStereoPipeline:
+    """One dense frame on the device of its inputs: census x2, disparity
+    (the c2f or full-range branch, see the module docstring), postprocess,
+    triangulate, z-gap outliers (K7), plane.
+
+    last_c2f holds the c2f diagnostics of the latest frame,
+    dict(coverage=, offband=, fallback=), or None when c2f did not run.
+    By default the frame decides on the fallback right after the coarse
+    pass (two scalars read on the host).  With defer_c2f_fallback the
+    windowed pass always runs, last_c2f keeps the two diagnostics as
+    device scalars with fallback=None, and resolve_fallback() decides when
+    the caller consumes the frame, re-running a tripped one at full range."""
+
+    def __init__(self, cfg: DenseStereoConfig, defer_c2f_fallback: bool = False):
         self.cfg = cfg
+        self.defer_c2f_fallback = defer_c2f_fallback
+        self.last_c2f: Optional[dict] = None
+        self._full_pipe: Optional["DenseStereoPipeline"] = None
 
     def disparity(self, base_rect: torch.Tensor, match_rect: torch.Tensor) -> torch.Tensor:
-        """Filtered disparity of a rectified pair (the full-range branch)."""
+        """Filtered disparity of a rectified pair; sets last_c2f."""
         cfg = self.cfg
         if cfg.dense_scale != 1.0:
             h, w = base_rect.shape
             sh, sw = round(h * cfg.dense_scale), round(w * cfg.dense_scale)
             base_rect = resize(base_rect, (sh, sw), interp="cubic")
             match_rect = resize(match_rect, (sh, sw), interp="cubic")
-        disp = sgm_disparity(
-            base_rect, match_rect, num_disp=cfg.num_disp, min_disp=cfg.min_disp, P1=cfg.p1, P2=cfg.p2,
-            directions=cfg.directions, census_win=cfg.census_win, uniqueness_ratio=cfg.uniqueness_ratio,
-            lr_max_diff=cfg.lr_max_diff, input_smooth_sigma=cfg.input_smooth_sigma,
-        )
+        cb = census_transform(base_rect, cfg.census_win, cfg.input_smooth_sigma)
+        cm = census_transform(match_rect, cfg.census_win, cfg.input_smooth_sigma)
+        self.last_c2f = None
+        use_c2f = _c2f_active(cfg, base_rect.shape)
+        if use_c2f:
+            disp_c = coarse_disparity(
+                base_rect, match_rect, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions,
+                cfg.census_win, cfg.uniqueness_ratio, cfg.c2f_factor,
+            )
+            wstart, cov, offband = compute_row_windows(
+                disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window
+            )
+            if self.defer_c2f_fallback:
+                self.last_c2f = {"coverage": cov, "offband": offband, "fallback": None}
+            else:
+                cov_v, offband_v = torch.stack([cov, offband]).tolist()  # the host decision point
+                fallback = c2f_should_fallback(cov_v, offband_v, cfg)
+                self.last_c2f = {"coverage": cov_v, "offband": offband_v, "fallback": fallback}
+                use_c2f = not fallback
+        if use_c2f:
+            disp = windowed_disparity(cb, cm, wstart, cfg.c2f_window, cfg.p1, cfg.p2, cfg.directions,
+                                      cfg.uniqueness_ratio)
+        else:
+            disp = sgm_disparity_census(cb, cm, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions,
+                                        cfg.uniqueness_ratio, cfg.lr_max_diff)
         return disparity_postprocess(disp, cfg)
 
     def __call__(self, base_rect, match_rect, geom_pack, uv=None) -> DenseFrameResult:
         """One frame from its rectified pair; uv optionally injects the
-        RANSAC pixel picks (the reference's signature also takes the
-        unrectified images, which only its c2f fallback uses)."""
+        RANSAC pixel picks.  (The reference's signature also takes the
+        unrectified images, which nothing in it reads.)"""
         cfg = self.cfg
         disp = self.disparity(base_rect, match_rect)
         pts, valid, reasons = triangulate_dense(disp, geom_pack, base_rect, match_rect, cfg)
@@ -400,6 +454,20 @@ class DenseStereoPipeline:
             points=pts, valid=valid, plane=plane, plane_ok=ok,
             disparity=disp, n_points=valid.sum(), fail_reasons=reasons,
         )
+
+    def resolve_fallback(self, res, c2f_info, base_rect, match_rect, geom_pack, uv=None):
+        """Consume the deferred c2f diagnostics of one frame: read the two
+        scalars and, if the guard trips, re-run the frame at full range.
+        Returns (result, resolved c2f dict)."""
+        if c2f_info is None or c2f_info.get("fallback") is not None:
+            return res, c2f_info
+        cov_v, offband_v = float(c2f_info["coverage"]), float(c2f_info["offband"])
+        fallback = c2f_should_fallback(cov_v, offband_v, self.cfg)
+        if fallback:
+            if self._full_pipe is None:
+                self._full_pipe = DenseStereoPipeline(dataclasses.replace(self.cfg, c2f_window=0))
+            res = self._full_pipe(base_rect, match_rect, geom_pack, uv=uv)
+        return res, {"coverage": cov_v, "offband": offband_v, "fallback": fallback}
 
 
 def dense_stereo_frame(img0, img1, K0, K1, R, T, cfg: DenseStereoConfig = DenseStereoConfig(), device="cpu", uv=None):

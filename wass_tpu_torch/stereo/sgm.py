@@ -9,9 +9,18 @@ Counterpart of wass_tpu/stereo/sgm.py.  Along a path r,
 
 and the first pixel of a path has L = C.  Every L is a small integer
 (C <= 64 and L <= C + P2 < 256), so the int16 sum over paths is exact in
-any order.  These functions are the CPU path and the oracle of kernel K3
-(stereo/sgm_kernels.py, csrc/sgm.cu); `sgm_wta_fused_plain` is the plain
-form of the fused kernel.
+any order.  These functions are the CPU path and the oracles of the SGM
+kernels (stereo/sgm_kernels.py, csrc/sgm.cu):
+
+  K3 sgm_wta_fused_plain            K4 sgm_wta_fused_windowed_plain
+  K5 sgm_aggregate                  K6 sgm_aggregate_windowed
+
+A windowed volume (H, W, Dw) holds at lane j of row y the disparity
+wstart[y // TILE_ROWS] + j (stereo/c2f.py).  Walks along a row keep one
+window; a walk that crosses into a row tile with another window start
+realigns its carry first: new lane j takes old lane j + delta, delta the
+change of window start, and lanes with no source get 255 (the
+no-predecessor value of wass_tpu/stereo/sgm_pallas.py:_windowed_realign).
 """
 
 from __future__ import annotations
@@ -20,7 +29,10 @@ from typing import Tuple
 
 import torch
 
+from wass_tpu_torch.stereo.cost import TILE_ROWS, census_transform
+
 _BIG = 32000
+_REALIGN_FILL = 255  # carry of a lane that leaves the window (see above)
 _WTA_ROWS = 64  # rows per WTA block: (64, W, D) int32 temporaries
 
 # Path directions (dy, dx) walked by each path set: the step from p - r to p.
@@ -49,8 +61,23 @@ def _sgm_step(prev: torch.Tensor, cost: torch.Tensor, P1: int, P2: int) -> torch
     return cost + best - minprev
 
 
-def _walk(c: torch.Tensor, agg: torch.Tensor, dy: int, dx: int, P1: int, P2: int) -> None:
-    """Add the path costs of direction (dy, dx) to agg (in place)."""
+def _realign(L: torch.Tensor, delta: int) -> torch.Tensor:
+    """Carry of a walk entering a row tile whose window starts delta
+    disparities later: lane j <- lane j + delta, 255 where that is outside."""
+    D = L.shape[-1]
+    out = torch.full_like(L, _REALIGN_FILL)
+    if abs(delta) < D:
+        if delta >= 0:
+            out[:, : D - delta] = L[:, delta:]
+        else:
+            out[:, -delta:] = L[:, : D + delta]
+    return out
+
+
+def _walk(c: torch.Tensor, agg: torch.Tensor, dy: int, dx: int, P1: int, P2: int, wstart=None) -> None:
+    """Add the path costs of direction (dy, dx) to agg (in place); wstart
+    (a list of per-tile window starts) realigns the carry between row
+    tiles of a windowed volume."""
     H, W, D = c.shape
     if dy == 0:
         order = range(W) if dx > 0 else range(W - 1, -1, -1)
@@ -63,6 +90,10 @@ def _walk(c: torch.Tensor, agg: torch.Tensor, dy: int, dx: int, P1: int, P2: int
     L = torch.full((W, D), _BIG, dtype=torch.int32, device=c.device)
     big = torch.full((1, D), _BIG, dtype=torch.int32, device=c.device)
     for y in order:
+        if wstart is not None and y != order[0]:
+            t, tp = y // TILE_ROWS, (y - dy) // TILE_ROWS
+            if wstart[t] != wstart[tp]:  # before the diagonal's entry reset
+                L = _realign(L, wstart[t] - wstart[tp])
         if dx > 0:  # the carry at x comes from x - 1 of the previous row
             L = torch.cat([big, L[:-1]], 0)
         elif dx < 0:
@@ -71,16 +102,38 @@ def _walk(c: torch.Tensor, agg: torch.Tensor, dy: int, dx: int, P1: int, P2: int
         agg[y] += L.to(agg.dtype)
 
 
-def sgm_aggregate(cost: torch.Tensor, P1: int, P2: int, directions: int = 8) -> torch.Tensor:
-    """(H, W, D) uint8 cost -> (H, W, D) int16 sum over the path set
-    `directions` (2, 4, 5 or 8)."""
-    if directions not in DIRECTIONS:
-        raise ValueError(f"directions must be one of {sorted(DIRECTIONS)}, got {directions}")
+def _aggregate(cost: torch.Tensor, P1: int, P2: int, directions: int, wstart=None) -> torch.Tensor:
     _check_p2(P2)
     agg = torch.zeros(cost.shape, dtype=torch.int16, device=cost.device)
     for dy, dx in DIRECTIONS[directions]:
-        _walk(cost, agg, dy, dx, P1, P2)
+        _walk(cost, agg, dy, dx, P1, P2, wstart)
     return agg
+
+
+def sgm_aggregate(cost: torch.Tensor, P1: int, P2: int, directions: int = 8) -> torch.Tensor:
+    """Plain form of kernel K5: (H, W, D) uint8 cost -> (H, W, D) int16
+    sum over the path set `directions` (2, 4, 5 or 8)."""
+    if directions not in DIRECTIONS:
+        raise ValueError(f"directions must be one of {sorted(DIRECTIONS)}, got {directions}")
+    return _aggregate(cost, P1, P2, directions)
+
+
+def _window_starts(wstart_tiles: torch.Tensor, H: int) -> list:
+    if wstart_tiles.shape != (H // TILE_ROWS,) or H % TILE_ROWS:
+        raise ValueError(f"a windowed volume needs H % {TILE_ROWS} == 0 and ({H // TILE_ROWS},) window starts, "
+                         f"got H={H} and {tuple(wstart_tiles.shape)}")
+    return [int(v) for v in wstart_tiles.tolist()]
+
+
+def sgm_aggregate_windowed(
+    cost: torch.Tensor, wstart_tiles: torch.Tensor, P1: int, P2: int, directions: int = 8
+) -> torch.Tensor:
+    """Plain form of kernel K6: sgm_aggregate over a windowed (H, W, Dw)
+    volume with per-tile window starts wstart_tiles (H // 8,), for the
+    path sets 2, 5 and 8 (those of sgm_aggregate_pallas_windowed)."""
+    if directions not in (2, 5, 8):
+        raise ValueError(f"the windowed aggregation takes 2, 5 or 8 directions, got {directions}")
+    return _aggregate(cost, P1, P2, directions, _window_starts(wstart_tiles, cost.shape[0]))
 
 
 def _wta_rows(a: torch.Tensor, min_disp: int, uniqueness_ratio: int):
@@ -155,6 +208,31 @@ def sgm_wta_fused_plain(
     return wta_disparity(sgm_aggregate(cost, P1, P2, directions), min_disp, uniqueness_ratio)
 
 
+def wta_disparity_windowed(agg: torch.Tensor, off_rows: torch.Tensor, uniqueness_ratio: int = 1) -> torch.Tensor:
+    """WTA over a windowed volume (lane j of row y is disparity
+    off_rows[y] + j): the standard WTA with the min_disp = 1 sentinel, so
+    that 0 stays the invalid marker, then the per-row shift, in the
+    reference's float order (d - 1) + off."""
+    d = wta_disparity(agg, 1, uniqueness_ratio)
+    return torch.where(d == 0.0, 0.0, (d - 1.0) + off_rows[:, None].to(torch.float32))
+
+
+def sgm_wta_fused_windowed_plain(
+    cost: torch.Tensor,
+    wstart_tiles: torch.Tensor,
+    P1: int,
+    P2: int,
+    directions: int,
+    uniqueness_ratio: int = 1,
+) -> torch.Tensor:
+    """Plain form of kernel K4: the windowed 5- or 8-path sum and its WTA,
+    as the (H, W) float32 disparity in true units (0 = invalid)."""
+    if directions not in (5, 8):
+        raise ValueError(f"the fused path takes 5 or 8 directions, got {directions}")
+    agg = sgm_aggregate_windowed(cost, wstart_tiles, P1, P2, directions)
+    return wta_disparity_windowed(agg, wstart_tiles.repeat_interleave(TILE_ROWS), uniqueness_ratio)
+
+
 def sgm_disparity(
     base_img: torch.Tensor,
     match_img: torch.Tensor,
@@ -168,22 +246,31 @@ def sgm_disparity(
     lr_max_diff: int = -1,
     input_smooth_sigma: float = 0.0,
 ) -> torch.Tensor:
-    """Dense disparity: census -> cost volume (K1) -> SGM + WTA (K3 for the
-    5- and 8-path sets without the left-right check).  CUDA tensors run
-    the kernels, CPU tensors their plain versions; the unfused aggregation
-    has no kernel yet, so on CUDA the path sets 2/4 and the left-right
-    check raise."""
-    from wass_tpu_torch.stereo.cost import census_transform
-    from wass_tpu_torch.stereo import sgm_kernels
-
+    """Dense disparity over the full range: census -> cost volume (K1) ->
+    SGM + WTA (K3 for the 5- and 8-path sets without the left-right
+    check, else K5 and the plain WTA).  CUDA tensors run the kernels, CPU
+    tensors their plain versions."""
     cb = census_transform(base_img, census_win, input_smooth_sigma)
     cm = census_transform(match_img, census_win, input_smooth_sigma)
+    return sgm_disparity_census(cb, cm, num_disp, min_disp, P1, P2, directions, uniqueness_ratio, lr_max_diff)
+
+
+def sgm_disparity_census(
+    cb: torch.Tensor,
+    cm: torch.Tensor,
+    num_disp: int,
+    min_disp: int,
+    P1: int,
+    P2: int,
+    directions: int,
+    uniqueness_ratio: int,
+    lr_max_diff: int,
+) -> torch.Tensor:
+    """The full-range branch of sgm_disparity from the two census maps."""
+    from wass_tpu_torch.stereo import sgm_kernels
+
     cost = sgm_kernels.census_cost_volume(cb, cm, num_disp, min_disp)
     if directions in (5, 8) and lr_max_diff < 0:
         return sgm_kernels.sgm_wta_fused(cost, P1, P2, directions, min_disp, uniqueness_ratio)
-    if cost.device.type != "cpu":
-        raise NotImplementedError(
-            "unfused SGM aggregation (directions 2/4, DENSE_DISP12MAXDIFF >= 0) has no CUDA kernel yet"
-        )
-    agg = sgm_aggregate(cost, P1, P2, directions)
+    agg = sgm_kernels.sgm_aggregate(cost, P1, P2, directions)
     return wta_disparity(agg, min_disp, uniqueness_ratio, lr_max_diff)
