@@ -13,7 +13,12 @@ Phases, each printed on its own line; any failure exits non-zero:
    window starts of the pair's coarse pass for K2/K4/K6.  Then at a
    ragged shape: 1001x777, D = 52 for K1/K3/K5/K7, and 1000x776, Dw = 52
    with random window starts (flat, rising, falling, jumps of >= Dw) for
-   K2/K4/K6.
+   K2/K4/K6.  The five H2 kernels (the JAX package's _USE_H2 pieces) and
+   the single non-H2 walks of the H2 compositions (sgm_walk) the same way,
+   on the same volumes and on the coarse pass's (384x512, D = 160, with
+   K1 and K3 there too), with their times; and the four public SGM entry
+   points with sgm_kernels._USE_H2 set, bit-equal to their default path
+   (5 and 8 paths), timed both ways at the slice's shapes.
 4. The main path: a synthetic 2048x1536 wave-field pair (rendered once and
    cached in wass_tpu_torch/_build/) written as 3 frame workdirs, then
    `python -m wass_tpu_torch.cli.main stereo <outdir>`'s entry point with
@@ -27,7 +32,15 @@ Phases, each printed on its own line; any failure exits non-zero:
    config override: a forced full-range fallback (c2f_min_coverage 1.01),
    byte-identical to a c2f_window = 0 frame (K1 + K3 + K7); the
    left-right check (lr_max_diff 1: K1 + K5 + K7); 2 paths over the
-   windows (K2 + K6, the coarse pass on K1 + K5).
+   windows (K2 + K6, the coarse pass on K1 + K5); 5 paths over the
+   windows (K2 + K4 after an 8-path coarse pass) and at full range (K1 +
+   K3), the first 5-path frames, their elevation error printed, not gated.
+4c. H2 frames through SequencePipeline with sgm_kernels._USE_H2 set: c2f
+   with 8 and with 5 paths, full range with 5 paths, the left-right check.
+   Each frame's mesh_cam.xyzC and plane.txt must be byte-identical to the
+   same configuration's frame with H2 off (phase 4's first frame, the 4b
+   frames), no frame may launch the default path's K3-K6, and the runs
+   together must launch every H2 kernel and sgm_walk.
 5. A JSON line of per-kernel results, then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -37,8 +50,10 @@ port's package is not next to this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -61,7 +76,17 @@ KERNELS = {
     "sgm_aggregate": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:313"),
     "sgm_aggregate_windowed": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:1281"),
     "label_propagate": ("wass_tpu_torch/csrc/components.cu", "wass_tpu/ops/components_pallas.py:103"),
+    "sgm_pair_img": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:208"),
+    "sgm_tri_dir_partial_h2": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:520"),
+    "sgm_tri_dir_wta_h2": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:546"),
+    "sgm_tri_dir_partial_windowed_h2": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:1099"),
+    "sgm_tri_dir_wta_windowed_h2": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:1130"),
+    # The single non-H2 walks of the H2 compositions (_run_tri_dir_wta, and
+    # _run_tri_dir, _run_tri_dir_windowed, _run_tri_dir_wta_windowed).
+    "sgm_walk": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:602"),
 }
+# The default path's SGM keys, which no H2 frame may launch.
+DEFAULT_SGM = ("sgm_wta_fused", "sgm_wta_fused_windowed", "sgm_aggregate", "sgm_aggregate_windowed")
 # Kernels each main-path run must launch (phase 4 per frame, phase 4b per run).
 WINDOWED_PATH = ("census_cost", "census_cost_windowed", "sgm_wta_fused", "sgm_wta_fused_windowed", "label_propagate")
 
@@ -92,10 +117,11 @@ def compare(name: str, kernel_out, plain_out) -> float:
     torch.cuda.synchronize()
     if kernel_out.shape != plain_out.shape or kernel_out.dtype != plain_out.dtype:
         raise AssertionError(f"{name}: {kernel_out.shape}/{kernel_out.dtype} vs {plain_out.shape}/{plain_out.dtype}")
-    err = (kernel_out.double() - plain_out.double()).abs().max().item() if kernel_out.numel() else 0.0
-    if not torch.equal(kernel_out, plain_out):
-        raise AssertionError(f"{name}: kernel differs from the plain version (max abs err {err})")
-    return err
+    if torch.equal(kernel_out, plain_out):
+        return 0.0
+    ne = kernel_out != plain_out  # float64 copies of whole volumes would not fit beside them
+    err = (kernel_out[ne].double() - plain_out[ne].double()).abs().max().item()
+    raise AssertionError(f"{name}: kernel differs from the plain version (max abs err {err})")
 
 
 def _record(results: dict, name: str, kernel_out, plain_out, what: str) -> None:
@@ -114,6 +140,124 @@ def ragged_windows(n_tiles: int, dw: int, gen) -> "torch.Tensor":
     ws[1] = ws[0]
     ws[2], ws[3], ws[4], ws[5] = 1, hi, 1, 5  # +-(hi - 1) >= dw, then a small rise
     return ws
+
+
+@contextlib.contextmanager
+def h2_on():
+    """sgm_kernels._USE_H2 set for the block, restored after it."""
+    from wass_tpu_torch.stereo import sgm_kernels as sk
+
+    sk._USE_H2 = True
+    try:
+        yield
+    finally:
+        sk._USE_H2 = False
+
+
+def check_h2_pieces(results: dict, what: str, cost, ws=None) -> None:
+    """Phase 3, H2: the pair, the folding walks and the single non-H2 walks
+    of the H2 compositions (sgm_walk) against their plain versions on one
+    full-range (ws None) or windowed cost volume."""
+    import torch
+
+    from wass_tpu_torch.stereo import sgm as plain_sgm
+    from wass_tpu_torch.stereo import sgm_kernels as sk
+
+    hf, hb = sk.sgm_pair_img(cost, 8, 96)
+    phf, phb = plain_sgm.run_pair_img_plain(cost, 8, 96)
+    _record(results, "sgm_pair_img", hf, phf, f"{what} hf")
+    _record(results, "sgm_pair_img", hb, phb, f"{what} hb")
+    del phf, phb
+    if ws is None:
+        partial = sk.sgm_tri_dir_partial_h2(cost, hf, hb, 8, 96, False)
+        _record(results, "sgm_tri_dir_partial_h2", partial,
+                plain_sgm.run_tri_dir_partial_h2_plain(cost, hf, hb, 8, 96, False), what)
+        _record(results, "sgm_tri_dir_wta_h2", sk.sgm_tri_dir_wta_h2(cost, hf, hb, 8, 96, False, 1, 1),
+                plain_sgm.run_tri_dir_wta_h2_plain(cost, hf, hb, 8, 96, False, 1, 1), what)
+        del hf, hb
+        final = sk.sgm_tri_dir_wta(cost, partial.clone(), 8, 96, True, 1, 1)
+        plain_final = plain_sgm.run_tri_dir_wta_plain(cost, partial, 8, 96, True, 1, 1)
+    else:
+        partial = sk.sgm_tri_dir_partial_windowed_h2(cost, hf, hb, ws, 8, 96, False)
+        _record(results, "sgm_tri_dir_partial_windowed_h2", partial,
+                plain_sgm.run_tri_dir_partial_windowed_h2_plain(cost, hf, hb, ws, 8, 96, False), what)
+        _record(results, "sgm_tri_dir_wta_windowed_h2", sk.sgm_tri_dir_wta_windowed_h2(cost, hf, hb, ws, 8, 96, False, 1),
+                plain_sgm.run_tri_dir_wta_windowed_h2_plain(cost, hf, hb, ws, 8, 96, False, 1), what)
+        del hf, hb
+        final = sk.sgm_tri_dir_wta_windowed(cost, partial.clone(), ws, 8, 96, True, 1)
+        plain_final = plain_sgm.run_tri_dir_wta_windowed_plain(cost, partial, ws, 8, 96, True, 1)
+    # sgm_walk: the 8-path final walk over the H2 partial (the plain one
+    # added its walk into `partial`), then an aggregate's walk into that sum.
+    _record(results, "sgm_walk", final, plain_final, f"{what} final walk")
+    _record(results, "sgm_walk", sk.sgm_walk_add(cost, partial.clone(), "fwd", 8, 96, ws),
+            plain_sgm.walk_add(cost, partial, "fwd", 8, 96, ws), f"{what} walk_add")
+    del partial, final, plain_final
+    torch.cuda.empty_cache()
+
+
+def check_h2(results: dict, tag: str, cost, wcost, ws, shape: str, wshape: str) -> None:
+    """Phase 3, H2: each H2 kernel against its plain version on the
+    volumes of check_kernels, then the public entry points with H2 against
+    their default path; at the slice's shapes, the times of both."""
+    import torch
+
+    from wass_tpu_torch.stereo import sgm as plain_sgm
+    from wass_tpu_torch.stereo import sgm_kernels as sk
+
+    check_h2_pieces(results, f"{tag} {shape}", cost)
+    check_h2_pieces(results, f"{tag} {wshape}", wcost, ws)
+
+    compositions = {
+        "sgm_wta_fused 5": lambda: sk.sgm_wta_fused(cost, 8, 96, 5, 1, 1),
+        "sgm_wta_fused 8": lambda: sk.sgm_wta_fused(cost, 8, 96, 8, 1, 1),
+        "sgm_aggregate 8": lambda: sk.sgm_aggregate(cost, 8, 96, 8),
+        "sgm_wta_fused_windowed 5": lambda: sk.sgm_wta_fused_windowed(wcost, ws, 8, 96, 5, 1),
+        "sgm_wta_fused_windowed 8": lambda: sk.sgm_wta_fused_windowed(wcost, ws, 8, 96, 8, 1),
+        "sgm_aggregate_windowed 8": lambda: sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 8),
+    }
+    for name, fn in compositions.items():
+        default = fn()
+        with h2_on():
+            compare(f"{name} with H2 {tag}", fn(), default)
+        log(f"entry point {name} {tag} {wshape if 'windowed' in name else shape}: H2 bit-equal to the default path")
+        del default
+    if tag != "slice":
+        return
+
+    hf, hb = sk.sgm_pair_img(cost, 8, 96)
+    whf, whb = sk.sgm_pair_img(wcost, 8, 96)
+    acc = torch.zeros(cost.shape, dtype=torch.int16, device=cost.device)  # sums grow by < 500 a call
+    timed = {
+        "sgm_pair_img": (lambda: sk.sgm_pair_img(cost, 8, 96), lambda: plain_sgm.run_pair_img_plain(cost, 8, 96)),
+        "sgm_tri_dir_partial_h2": (lambda: sk.sgm_tri_dir_partial_h2(cost, hf, hb, 8, 96, False),
+                                   lambda: plain_sgm.run_tri_dir_partial_h2_plain(cost, hf, hb, 8, 96, False)),
+        "sgm_tri_dir_wta_h2": (lambda: sk.sgm_tri_dir_wta_h2(cost, hf, hb, 8, 96, False, 1, 1),
+                               lambda: plain_sgm.run_tri_dir_wta_h2_plain(cost, hf, hb, 8, 96, False, 1, 1)),
+        "sgm_tri_dir_partial_windowed_h2": (
+            lambda: sk.sgm_tri_dir_partial_windowed_h2(wcost, whf, whb, ws, 8, 96, False),
+            lambda: plain_sgm.run_tri_dir_partial_windowed_h2_plain(wcost, whf, whb, ws, 8, 96, False)),
+        "sgm_tri_dir_wta_windowed_h2": (
+            lambda: sk.sgm_tri_dir_wta_windowed_h2(wcost, whf, whb, ws, 8, 96, False, 1),
+            lambda: plain_sgm.run_tri_dir_wta_windowed_h2_plain(wcost, whf, whb, ws, 8, 96, False, 1)),
+        # The 8-path final walk (backward, with the WTA), adding into acc.
+        "sgm_walk": (lambda: sk.sgm_tri_dir_wta(cost, acc, 8, 96, True, 1, 1),
+                     lambda: plain_sgm.run_tri_dir_wta_plain(cost, acc, 8, 96, True, 1, 1)),
+    }
+    for name, (kernel, plain) in timed.items():
+        results[name]["ms"] = cuda_ms(kernel, 3)
+        results[name]["plain_ms"] = cuda_ms(plain)
+        log(f"time {name} {shape if 'windowed' not in name else wshape}: "
+            f"kernel {results[name]['ms']:.3f} ms, plain {results[name]['plain_ms']:.3f} ms")
+    del hf, hb, whf, whb, acc
+    torch.cuda.empty_cache()
+    # The entry points both ways, in the order default, H2, H2, default.
+    for name, fn in compositions.items():
+        t = [cuda_ms(fn, 3)]
+        with h2_on():
+            t += [cuda_ms(fn, 3), cuda_ms(fn, 3)]
+        t.append(cuda_ms(fn, 3))
+        log(f"time entry point {name} {wshape if 'windowed' in name else shape}: default {t[0]:.3f} {t[3]:.3f} ms, "
+            f"H2 {t[1]:.3f} {t[2]:.3f} ms")
 
 
 def check_kernels(img_pair, dev) -> dict:
@@ -172,6 +316,17 @@ def check_kernels(img_pair, dev) -> dict:
             wcb, wcm = cb, cm
             log(f"slice windows: coverage {float(cov):.4f} offband {float(offband):.5f}, "
                 f"starts {int(ws.min())}..{int(ws.max())}")
+            # The coarse pass's volume (384x512, D = 160, lane width 8): K1,
+            # K3 and the H2 pieces its 8-path pass launches with H2 on.
+            ccb, ccm = (census_transform(c2f.downsample_pool(x, 4), (7, 9), 0.0) for x in (base, match))
+            cnd = c2f.coarse_num_disp(nd, 4)
+            ccost = sk.census_cost_volume(ccb, ccm, cnd, 1)
+            cshape = f"coarse {tuple(ccb.shape[:2])} D={cnd}"
+            _record(results, "census_cost", ccost, census_cost_volume(ccb, ccm, cnd, 1), cshape)
+            _record(results, "sgm_wta_fused", sk.sgm_wta_fused(ccost, 8, 96, 8, 1, 1),
+                    plain_sgm.sgm_wta_fused_plain(ccost, 8, 96, 8, 1, 1), f"{cshape} directions=8")
+            check_h2_pieces(results, cshape, ccost)
+            del ccost
         else:
             h8, w8 = ragged_h // 8 * 8, ragged_w // 8 * 8
             wcb, wcm = cb[:h8, :w8].contiguous(), cm[:h8, :w8].contiguous()
@@ -208,6 +363,7 @@ def check_kernels(img_pair, dev) -> dict:
                 results[name]["plain_ms"] = cuda_ms(plain)
                 log(f"time {name} {shape if 'windowed' not in name else wshape}: "
                     f"kernel {results[name]['ms']:.3f} ms, plain {results[name]['plain_ms']:.3f} ms")
+        check_h2(results, tag, cost, wcost, ws, shape, wshape)
         del cost, wcost
         torch.cuda.empty_cache()
     return results
@@ -280,39 +436,87 @@ BRANCHES = [
     ("two_paths", {"directions": 2, "c2f_min_coverage": 0.0, "c2f_max_offband": 1.0},
      ("census_cost", "sgm_aggregate", "census_cost_windowed", "sgm_aggregate_windowed", "label_propagate"),
      "windowed"),
+    # The 5-path set (cv::StereoSGBM's default) over the windows, after an
+    # 8-path coarse pass, and at full range.
+    ("five_paths", {"directions": 5},
+     ("census_cost", "sgm_wta_fused", "census_cost_windowed", "sgm_wta_fused_windowed", "label_propagate"),
+     "windowed"),
+    ("full_range_5", {"directions": 5, "c2f_window": 0}, ("census_cost", "sgm_wta_fused", "label_propagate"), None),
+]
+GATED = ("fallback", "full_range")
+
+# Phase 4c: (name, config override, the H2-off frame it must equal, kernels
+# the run must launch, c2f log line ending or None).
+H2_FRAMES = [
+    ("h2_c2f", {}, "smoke_seq",
+     ("census_cost", "census_cost_windowed", "sgm_pair_img", "sgm_tri_dir_partial_h2",
+      "sgm_tri_dir_partial_windowed_h2", "sgm_walk", "label_propagate"), "windowed"),
+    ("h2_five_paths", {"directions": 5}, "smoke_five_paths",
+     ("census_cost", "census_cost_windowed", "sgm_pair_img", "sgm_tri_dir_partial_h2", "sgm_walk",
+      "sgm_tri_dir_wta_windowed_h2", "label_propagate"), "windowed"),
+    ("h2_full_range_5", {"directions": 5, "c2f_window": 0}, "smoke_full_range_5",
+     ("census_cost", "sgm_pair_img", "sgm_tri_dir_wta_h2", "label_propagate"), None),
+    ("h2_lr_check", {"lr_max_diff": 1}, "smoke_lr_check",
+     ("census_cost", "sgm_pair_img", "sgm_walk", "label_propagate"), None),
 ]
 
 
-def run_branches(root: Path, img0, img1, rig, scene) -> dict:
-    """Phase 4b: one frame per branch through SequencePipeline."""
+def run_frame(root: Path, name: str, override: dict, required, c2f_end, img0, img1, rig, scene) -> dict:
+    """One frame through SequencePipeline with a config override, checked;
+    returns its launches (counts set to 0 just before it)."""
     import wass_tpu_torch
     from wass_tpu_torch.cli.main import load_pipeline
     from wass_tpu_torch.testing import write_sequence
 
+    seq = root / f"smoke_{name}"
+    write_sequence(seq, img0, img1, rig, 1)
+    pipe = load_pipeline(seq)
+    pipe.cfg.stereo = dataclasses.replace(pipe.cfg.stereo, **override)
+    wass_tpu_torch.reset_launch_counts()
+    t0 = time.time()
+    pipe.stereo()
+    launches = wass_tpu_torch.launch_counts()
+    log(f"branch {name} {override}: {time.time() - t0:.2f} s; launches {launches}")
+    wd = seq / "000000_wd"
+    check_frame(name, wd, scene, required, gate=name in GATED)
+    line = c2f_line(wd)
+    if (c2f_end is None and line) or (c2f_end is not None and not line.endswith(c2f_end)):
+        raise AssertionError(f"branch {name}: c2f log line {line!r}, expected {c2f_end!r}")
+    return launches
+
+
+def same_outputs(a: Path, b: Path, what: str) -> None:
+    for f in ("mesh_cam.xyzC", "plane.txt"):
+        if (a / "000000_wd" / f).read_bytes() != (b / "000000_wd" / f).read_bytes():
+            raise AssertionError(f"{what}: {f} differs")
+    log(f"{what}: mesh_cam.xyzC and plane.txt byte-identical")
+
+
+def add_counts(totals: dict, launches: dict) -> None:
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def run_branches(root: Path, img0, img1, rig, scene) -> dict:
+    """Phase 4b: one frame per branch through SequencePipeline."""
     totals = {}
     for name, override, required, c2f_end in BRANCHES:
-        seq = root / f"smoke_{name}"
-        write_sequence(seq, img0, img1, rig, 1)
-        pipe = load_pipeline(seq)
-        pipe.cfg.stereo = dataclasses.replace(pipe.cfg.stereo, **override)
-        wass_tpu_torch.reset_launch_counts()
-        t0 = time.time()
-        pipe.stereo()
-        launches = wass_tpu_torch.launch_counts()
-        log(f"branch {name} {override}: {time.time() - t0:.2f} s; launches {launches}")
-        wd = seq / "000000_wd"
-        check_frame(name, wd, scene, required, gate=name in ("fallback", "full_range"))
-        line = c2f_line(wd)
-        if (c2f_end is None and line) or (c2f_end is not None and not line.endswith(c2f_end)):
-            raise AssertionError(f"branch {name}: c2f log line {line!r}, expected {c2f_end!r}")
-        for k, v in launches.items():
-            totals[k] = totals.get(k, 0) + v
-    for f in ("mesh_cam.xyzC", "plane.txt"):
-        a = (root / "smoke_fallback" / "000000_wd" / f).read_bytes()
-        b = (root / "smoke_full_range" / "000000_wd" / f).read_bytes()
-        if a != b:
-            raise AssertionError(f"the fallback frame's {f} differs from the full-range frame's")
-    log("branch fallback: mesh_cam.xyzC and plane.txt byte-identical to the c2f_window = 0 frame")
+        add_counts(totals, run_frame(root, name, override, required, c2f_end, img0, img1, rig, scene))
+    same_outputs(root / "smoke_fallback", root / "smoke_full_range", "fallback frame vs the c2f_window = 0 frame")
+    return totals
+
+
+def run_h2_frames(root: Path, img0, img1, rig, scene) -> dict:
+    """Phase 4c: the H2 frames, each against its H2-off frame."""
+    totals = {}
+    with h2_on():
+        for name, override, reference, required, c2f_end in H2_FRAMES:
+            launches = run_frame(root, name, override, required, c2f_end, img0, img1, rig, scene)
+            default = [k for k in DEFAULT_SGM if launches.get(k, 0)]
+            if default:
+                raise AssertionError(f"{name}: the default SGM path ran with H2 on: {default}")
+            add_counts(totals, launches)
+            same_outputs(root / f"smoke_{name}", root / reference, f"{name} vs {reference} (H2 off)")
     return totals
 
 
@@ -321,6 +525,9 @@ def main() -> int:
         print("chip_smoke.py: run it from a checkout of the repository (wass_tpu_torch/ not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    # Whole-volume plain versions beside the kernels' outputs: let the
+    # allocator grow segments rather than fragment (up to 20 GB otherwise).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -364,12 +571,12 @@ def main() -> int:
     )
     results = check_kernels(rect, dev)
 
-    # Phase 4: the main path; 4b: the other branches.
+    # Phase 4: the main path; 4b: the other branches; 4c: the H2 frames.
     seq = _build.BUILD_DIR / "smoke_seq"
     write_sequence(seq, img0, img1, rig, N_FRAMES)
     launches = run_main_path(seq, scene)
-    for k, v in run_branches(_build.BUILD_DIR, img0, img1, rig, scene).items():
-        launches[k] += v
+    for phase in (run_branches, run_h2_frames):
+        add_counts(launches, phase(_build.BUILD_DIR, img0, img1, rig, scene))
     unused = [k for k in KERNELS if launches[k] < 1]
     if unused:
         raise AssertionError(f"kernels no main-path run launched: {unused}")

@@ -31,7 +31,9 @@ def _census_pair(dev, h, w, seed):
     return census_transform(a.to(dev), (7, 9), 0.8), census_transform(b.to(dev), (7, 9), 0.8)
 
 
-SHAPES = [(48, 64, 32, 1), (37, 101, 36, 3), (101, 77, 52, 1), (61, 70, 96, 0)]
+# D 32, 36, 52, 96 and 160 take lane widths V = 1, 2, 2, 4 and 8 (160 is
+# the coarse pass's D at the stereo defaults).
+SHAPES = [(48, 64, 32, 1), (37, 101, 36, 3), (101, 77, 52, 1), (61, 70, 96, 0), (48, 61, 160, 1)]
 
 
 @pytest.mark.parametrize("h,w,d,min_disp", SHAPES)
@@ -100,7 +102,63 @@ def test_windowed_kernels(dev, h, w, dw):
         assert torch.equal(out, plain_sgm.sgm_aggregate_windowed(cost, ws, 8, 96, directions))
 
 
-def test_wrappers_count_launches_and_check_inputs(dev):
+@pytest.mark.parametrize("h,w,d,min_disp", SHAPES)
+def test_h2_kernels(dev, monkeypatch, h, w, d, min_disp):
+    """The H2 pair and folding walks, and the single walks of the H2
+    compositions, against their plain versions; the public entry points
+    with _USE_H2 against their default path."""
+    cb, cm = _census_pair(dev, h, w, h + 4)
+    cost = sk.census_cost_volume(cb, cm, d, min_disp)
+    hf, hb = sk.sgm_pair_img(cost, 8, 96)
+    phf, phb = plain_sgm.run_pair_img_plain(cost, 8, 96)
+    assert torch.equal(hf, phf) and torch.equal(hb, phb)
+    for reverse in (False, True):
+        partial = plain_sgm.run_tri_dir_partial_h2_plain(cost, hf, hb, 8, 96, not reverse)
+        assert torch.equal(sk.sgm_tri_dir_partial_h2(cost, hf, hb, 8, 96, not reverse), partial)
+        for uniq in (1, 5):
+            assert torch.equal(sk.sgm_tri_dir_wta_h2(cost, hf, hb, 8, 96, reverse, min_disp, uniq),
+                               plain_sgm.run_tri_dir_wta_h2_plain(cost, hf, hb, 8, 96, reverse, min_disp, uniq))
+        assert torch.equal(sk.sgm_tri_dir_wta(cost, partial.clone(), 8, 96, reverse, min_disp, 1),
+                           plain_sgm.run_tri_dir_wta_plain(cost, partial.clone(), 8, 96, reverse, min_disp, 1))
+    for walk in plain_sgm.WALKS:
+        acc = torch.randint(-99, 99, cost.shape, dtype=torch.int16, device=dev)
+        assert torch.equal(sk.sgm_walk_add(cost, acc.clone(), walk, 8, 96),
+                           plain_sgm.walk_add(cost, acc.clone(), walk, 8, 96))
+    default = [sk.sgm_wta_fused(cost, 8, 96, n, min_disp, 1) for n in (5, 8)]
+    default += [sk.sgm_aggregate(cost, 8, 96, n) for n in (2, 4, 5, 8)]
+    monkeypatch.setattr(sk, "_USE_H2", True)
+    h2 = [sk.sgm_wta_fused(cost, 8, 96, n, min_disp, 1) for n in (5, 8)]
+    h2 += [sk.sgm_aggregate(cost, 8, 96, n) for n in (2, 4, 5, 8)]
+    assert all(torch.equal(a, b) for a, b in zip(h2, default))
+
+
+@pytest.mark.parametrize("h,w,dw", WINDOWED_SHAPES)
+def test_h2_windowed_kernels(dev, monkeypatch, h, w, dw):
+    cb, cm = _census_pair(dev, h, w, h + 5)
+    ws = _windows(dev, h, dw, h + 1)
+    cost = sk.census_cost_volume_windowed(cb, cm, ws, dw)
+    hf, hb = sk.sgm_pair_img(cost, 8, 96)
+    for reverse in (False, True):
+        partial = plain_sgm.run_tri_dir_partial_windowed_h2_plain(cost, hf, hb, ws, 8, 96, not reverse)
+        assert torch.equal(sk.sgm_tri_dir_partial_windowed_h2(cost, hf, hb, ws, 8, 96, not reverse), partial)
+        for uniq in (1, 5):
+            assert torch.equal(sk.sgm_tri_dir_wta_windowed_h2(cost, hf, hb, ws, 8, 96, reverse, uniq),
+                               plain_sgm.run_tri_dir_wta_windowed_h2_plain(cost, hf, hb, ws, 8, 96, reverse, uniq))
+        assert torch.equal(sk.sgm_tri_dir_wta_windowed(cost, partial.clone(), ws, 8, 96, reverse, 1),
+                           plain_sgm.run_tri_dir_wta_windowed_plain(cost, partial.clone(), ws, 8, 96, reverse, 1))
+        acc = torch.randint(-99, 99, cost.shape, dtype=torch.int16, device=dev)
+        walk = "bwd" if reverse else "fwd"
+        assert torch.equal(sk.sgm_walk_add(cost, acc.clone(), walk, 8, 96, ws),
+                           plain_sgm.walk_add(cost, acc.clone(), walk, 8, 96, ws))
+    default = [sk.sgm_wta_fused_windowed(cost, ws, 8, 96, n, 1) for n in (5, 8)]
+    default += [sk.sgm_aggregate_windowed(cost, ws, 8, 96, n) for n in (2, 5, 8)]
+    monkeypatch.setattr(sk, "_USE_H2", True)
+    h2 = [sk.sgm_wta_fused_windowed(cost, ws, 8, 96, n, 1) for n in (5, 8)]
+    h2 += [sk.sgm_aggregate_windowed(cost, ws, 8, 96, n) for n in (2, 5, 8)]
+    assert all(torch.equal(a, b) for a, b in zip(h2, default))
+
+
+def test_wrappers_count_launches_and_check_inputs(dev, monkeypatch):
     cb, cm = _census_pair(dev, 16, 40, 0)
     ws = torch.tensor([1, 4], dtype=torch.int32, device=dev)
     wass_tpu_torch.reset_launch_counts()
@@ -109,13 +167,28 @@ def test_wrappers_count_launches_and_check_inputs(dev):
     counts = wass_tpu_torch.launch_counts()
     assert counts == {**{k: 0 for k in counts}, "census_cost": 1, "sgm_wta_fused": 1}
     assert {"label_propagate", "census_cost_windowed", "sgm_wta_fused_windowed", "sgm_aggregate",
-            "sgm_aggregate_windowed"} <= set(counts)
+            "sgm_aggregate_windowed", "sgm_walk"} <= set(counts)
     sk.sgm_aggregate(cost, 8, 96, 4)
     wcost = sk.census_cost_volume_windowed(cb, cm, ws, 8)
     sk.sgm_wta_fused_windowed(wcost, ws, 8, 96, 5, 1)
     sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 2)
     counts = wass_tpu_torch.launch_counts()
-    assert counts == {**{k: 1 for k in counts}, "label_propagate": 0}
+    k1_k6 = ("census_cost", "census_cost_windowed", "sgm_wta_fused", "sgm_wta_fused_windowed", "sgm_aggregate",
+             "sgm_aggregate_windowed")
+    assert counts == {**{k: 0 for k in counts}, **{k: 1 for k in k1_k6}}
+    # With H2 each piece counts once, the single non-H2 walks (the 8-path
+    # final walk, the aggregate's walks) as sgm_walk; K3-K6 stay at 0.
+    monkeypatch.setattr(sk, "_USE_H2", True)
+    wass_tpu_torch.reset_launch_counts()
+    sk.sgm_wta_fused(cost, 8, 96, 8, 1, 1)
+    sk.sgm_wta_fused_windowed(wcost, ws, 8, 96, 5, 1)
+    sk.sgm_aggregate(cost, 8, 96, 8)
+    counts = wass_tpu_torch.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "sgm_pair_img": 3, "sgm_tri_dir_partial_h2": 1,
+                      "sgm_walk": 3, "sgm_tri_dir_wta_windowed_h2": 1}
+    with pytest.raises(ValueError):
+        sk.sgm_tri_dir_partial_h2(cost, cost[:, :, :4].contiguous(), cost, 8, 96, False)  # hf of another shape
+    monkeypatch.setattr(sk, "_USE_H2", False)
     with pytest.raises(ValueError):
         sk.sgm_wta_fused(cost, 8, 96, 4, 1, 1)
     with pytest.raises(ValueError):

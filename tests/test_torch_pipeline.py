@@ -78,7 +78,9 @@ def test_sequence_stereo_matches_jax(sequence, monkeypatch):
         assert (seq_t / name / "plane.txt").exists() and (seq_t / name / "P1cam.txt").exists()
         log = (seq_t / name / "wass_stereo_log.txt").read_text()
         assert ("kernel launches: census_cost=0 census_cost_windowed=0 label_propagate=0 sgm_aggregate=0 "
-                "sgm_aggregate_windowed=0 sgm_wta_fused=0 sgm_wta_fused_windowed=0") in log
+                "sgm_aggregate_windowed=0 sgm_pair_img=0 sgm_tri_dir_partial_h2=0 "
+                "sgm_tri_dir_partial_windowed_h2=0 sgm_tri_dir_wta_h2=0 sgm_tri_dir_wta_windowed_h2=0 "
+                "sgm_walk=0 sgm_wta_fused=0 sgm_wta_fused_windowed=0") in log
 
 
 def test_min_triangulated_gate(sequence, tmp_path):

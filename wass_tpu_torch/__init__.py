@@ -14,7 +14,7 @@ full-range fallback included, on an NVIDIA H100:
   io/        stdlib PNG codec
   testing/   smoke-run helpers around the synthetic wave-field scenes
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
-             K5/K6 SGM sums, K7 labels)
+             K5/K6 SGM sums, the H2 pair and folding walks, K7 labels)
 
 Kernel wrappers launch the CUDA kernel for CUDA tensors and run the plain
 PyTorch version for CPU tensors only.  This package never imports jax.

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "wass_sgm_wta_fused_windowed": [_PTR] * 4 + [_INT] * 7 + [_PTR],
     "wass_sgm_aggregate": [_PTR] * 2 + [_INT] * 6 + [_PTR],
     "wass_sgm_aggregate_windowed": [_PTR] * 3 + [_INT] * 6 + [_PTR],
+    "wass_sgm_pair_img": [_PTR] * 3 + [_INT] * 5 + [_PTR],
+    "wass_sgm_walk": [_PTR] * 6 + [_INT] * 9 + [_PTR],
     "wass_sgm_lane_width": [_INT],
     "wass_label_propagate": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
 }

@@ -1,12 +1,16 @@
 // K3, K4, K5, K6: SGM path aggregation, fused with the winner-take-all
 // (K3, K4) or writing the int16 path sum (K5, K6), over a full-range
-// (K3, K5) or a windowed (K4, K6) cost volume.
+// (K3, K5) or a windowed (K4, K6) cost volume; and the H2 pieces, the
+// horizontal pair in image layout and the row walks that fold it in.
 //
 // Replaces wass_tpu/stereo/sgm_pallas.py:
 //   K3 sgm_wta_fused_pallas           (_run_pair, _run_tri_dir_partial, _run_tri_dir_wta)
 //   K4 sgm_wta_fused_pallas_windowed  (_run_pair, _run_tri_dir_{partial,wta}_windowed)
 //   K5 sgm_aggregate_pallas           (_run_pair, _run_tri_dir)
 //   K6 sgm_aggregate_pallas_windowed  (_run_pair, _run_tri_dir_windowed)
+//   H2 _run_pair_img (wass_sgm_pair_img); _run_tri_dir_{partial,wta}_h2 and
+//      _run_tri_dir_{partial,wta}_windowed_h2, with the single non-H2 walks
+//      the H2 compositions take (wass_sgm_walk)
 // The recurrence along a path r is
 //   L(p, d) = C(p, d) + min(L(p-r, d), L(p-r, d+-1) + P1, min_k L(p-r, k) + P2)
 //             - min_k L(p-r, k)
@@ -20,7 +24,8 @@
 // registers.  The d-1 / d+1 neighbours cross lanes with one shuffle each;
 // min over D is a 5-step shuffle reduction.
 //
-// Directions run one launch each, so no two warps touch one pixel at once.
+// Directions run one launch each (the H2 pair's two in one launch, each
+// writing its own volume), so no two warps write one element at once.
 // The first launch writes its L into an int16 (H, W, D) volume, the next
 // ones add theirs; for K3/K4 the last direction adds its L in registers and
 // runs the WTA of sgm.wta_disparity (first-index argmin, +-1 neighbours,
@@ -38,11 +43,26 @@
 // the min_disp = 1 sentinel and writes (d - 1) + wstart[y / 8], the float
 // order of wass_tpu/stereo/dense.py:_jit_sgm_fused_windowed.
 //
+// H2 (the JAX package's _USE_H2 compositions, off by default there and
+// here).  The pair mode walks E and W in one launch of 2 H warps (row y
+// forward on line y, backward on line H + y) and stores each L as uint8
+// in its own volume, hf or hb (L < 64 + P2 < 256).  The fold mode is the
+// first direction of a row walk: it writes hf + hb + L to the int16
+// volume; the walk's next directions accumulate and its last may end in
+// the WTA.  Windowed walks realign their carries only: hf and hb are
+// window-local per row already.  Bytes per cost element for 8 paths: the
+// pair reads 2 and writes 2, the folding walk moves 5 a direction, the
+// final walk's first two directions 5 each and its WTA 3: 32 in all,
+// against 36 for K3 (a write of 3, six read-modify-writes of 5, the WTA's 3).
+//
 // Bound on the H100: device-memory traffic.  Each of the first directions
 // reads the uint8 cost and reads and writes the int16 volume (about 10 GB
 // per direction at 2048x1536, D = 640); the walk itself is a serial chain
 // of dependent steps per warp, so only a few thousand warps are in flight.
-// Loads are 4-byte (cost) and 8-byte (int16 volume) when D % 4 == 0.
+// Loads are 4-byte (cost) and 8-byte (int16 volume) when D % 4 == 0.  At
+// full range the time of K3, K5 and their H2 forms follows the byte counts
+// above (2.1-2.3 TB/s on an H100 80GB HBM3 at 700 W); over windows of 128
+// the serial step latency of the walks bounds them instead.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,7 +78,7 @@ constexpr int kTileRows = 8;       // rows per window tile
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 4;
 
-enum { kWrite = 0, kAccumulate = 1, kWta = 2 };
+enum { kWrite = 0, kAccumulate = 1, kWta = 2, kWriteFold = 3, kPair = 4 };
 
 __device__ __forceinline__ int warp_min(int v) {
 #pragma unroll
@@ -104,6 +124,27 @@ __device__ __forceinline__ void load_cost(const uint8_t* c, int d0, int D, bool 
   }
 #pragma unroll
   for (int v = 0; v < V; ++v) C[v] = d0 + v < D ? c[d0 + v] : 0;
+}
+
+template <int V>
+__device__ __forceinline__ void store_u8(uint8_t* c, int d0, int D, bool vec, const int (&L)[V]) {
+  if constexpr (V % 4 == 0) {
+    if (vec) {
+#pragma unroll
+      for (int k = 0; k < V / 4; ++k) {
+        if (d0 + 4 * k < D) {
+          uint32_t w = 0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) w |= (uint32_t)(L[4 * k + q] & 0xff) << (8 * q);
+          *reinterpret_cast<uint32_t*>(c + d0 + 4 * k) = w;
+        }
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (d0 + v < D) c[d0 + v] = (uint8_t)L[v];
 }
 
 template <int V>
@@ -170,17 +211,27 @@ __device__ __forceinline__ void realign(int (&L)[V], int* buf, int d0, int D, in
 }
 
 // wstart: per-tile window starts of a windowed volume, or null for a
-// full-range one.
+// full-range one.  hf, hb: the H2 horizontal volumes, written by kPair
+// (launched with dy = 0, dx = 1) and read by kWriteFold; null otherwise.
 template <int V, int MODE>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 sgm_path_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ wstart,
+                uint8_t* __restrict__ hf, uint8_t* __restrict__ hb,
                 int16_t* __restrict__ acc, float* __restrict__ disp, int H, int W, int D,
                 int dy, int dx, int P1, int P2, int min_disp, int uniq) {
   __shared__ int realign_buf[kWarpsPerBlock][32 * V];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int line = blockIdx.x * kWarpsPerBlock + warp;
-  if (line >= num_lines(H, W, dy, dx)) return;  // the whole warp leaves together
+  int line = blockIdx.x * kWarpsPerBlock + warp;
+  if constexpr (MODE == kPair) {  // lines [0, H) walk forward, [H, 2 H) backward
+    if (line >= 2 * H) return;
+    if (line >= H) {
+      line -= H;
+      dx = -dx;
+    }
+  } else if (line >= num_lines(H, W, dy, dx)) {
+    return;  // the whole warp leaves together
+  }
   int y, x;
   line_start(line, H, W, dy, dx, &y, &x);
   const int d0 = lane * V;
@@ -231,9 +282,18 @@ sgm_path_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ wstart
     for (int v = 0; v < V; ++v) m = min(m, L[v]);
     minL = warp_min(m);
 
-    int16_t* a = acc + p * D;
-    if constexpr (MODE == kWrite) {
+    int16_t* a = MODE == kPair ? nullptr : acc + p * D;  // kPair has no int16 volume
+    if constexpr (MODE == kPair) {
+      store_u8<V>((dx > 0 ? hf : hb) + p * D, d0, D, vec, L);
+    } else if constexpr (MODE == kWrite) {
       store_acc<V>(a, d0, D, vec, L);
+    } else if constexpr (MODE == kWriteFold) {
+      int F[V], B[V];
+      load_cost<V>(hf + p * D, d0, D, vec, F);
+      load_cost<V>(hb + p * D, d0, D, vec, B);
+#pragma unroll
+      for (int v = 0; v < V; ++v) F[v] += B[v] + L[v];
+      store_acc<V>(a, d0, D, vec, F);
     } else if constexpr (MODE == kAccumulate) {
       int A[V];
       load_acc<V>(a, d0, D, vec, A);
@@ -282,29 +342,47 @@ sgm_path_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ wstart
   }
 }
 
+// The pointers of one launch: the cost, the window starts and the H2
+// volumes (or null), the int16 sum and the float32 disparity.
+struct PathArgs {
+  const uint8_t* cost;
+  const int* wstart;
+  uint8_t* hf;
+  uint8_t* hb;
+  int16_t* acc;
+  float* disp;
+};
+
 template <int V>
-cudaError_t launch_path(int mode, const uint8_t* cost, const int* wstart, int16_t* acc, float* disp,
-                        int H, int W, int D, int dy, int dx, int P1, int P2, int min_disp,
-                        int uniq, cudaStream_t s) {
-  const int lines = dy == 0 ? H : (dx == 0 ? W : W + H - 1);
+cudaError_t launch_path(int mode, const PathArgs& a, int H, int W, int D, int dy, int dx, int P1,
+                        int P2, int min_disp, int uniq, cudaStream_t s) {
+  const int lines = mode == kPair ? 2 * H : (dy == 0 ? H : (dx == 0 ? W : W + H - 1));
   const dim3 grid((lines + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const dim3 block(32 * kWarpsPerBlock);
-  if (mode == kWrite)
-    sgm_path_kernel<V, kWrite><<<grid, block, 0, s>>>(cost, wstart, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
-  else if (mode == kAccumulate)
-    sgm_path_kernel<V, kAccumulate><<<grid, block, 0, s>>>(cost, wstart, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
-  else
-    sgm_path_kernel<V, kWta><<<grid, block, 0, s>>>(cost, wstart, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq);
+#define WASS_SGM_MODE(m)                                                                      \
+  case m:                                                                                     \
+    sgm_path_kernel<V, m><<<grid, block, 0, s>>>(a.cost, a.wstart, a.hf, a.hb, a.acc, a.disp, \
+                                                 H, W, D, dy, dx, P1, P2, min_disp, uniq);   \
+    break;
+  switch (mode) {
+    WASS_SGM_MODE(kWrite)
+    WASS_SGM_MODE(kAccumulate)
+    WASS_SGM_MODE(kWta)
+    WASS_SGM_MODE(kWriteFold)
+    WASS_SGM_MODE(kPair)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef WASS_SGM_MODE
   return cudaGetLastError();
 }
 
-cudaError_t launch_path_v(int V, int mode, const uint8_t* cost, const int* wstart, int16_t* acc,
-                          float* disp, int H, int W, int D, int dy, int dx, int P1, int P2,
-                          int min_disp, int uniq, cudaStream_t s) {
+cudaError_t launch_path_v(int mode, const PathArgs& a, int H, int W, int D, int dy, int dx, int P1,
+                          int P2, int min_disp, int uniq, cudaStream_t s) {
 #define WASS_SGM_CASE(v) \
   case v:                \
-    return launch_path<v>(mode, cost, wstart, acc, disp, H, W, D, dy, dx, P1, P2, min_disp, uniq, s);
-  switch (V) {
+    return launch_path<v>(mode, a, H, W, D, dy, dx, P1, P2, min_disp, uniq, s);
+  switch (wass_sgm_lane_width(D)) {
     WASS_SGM_CASE(1)
     WASS_SGM_CASE(2)
     WASS_SGM_CASE(4)
@@ -326,6 +404,11 @@ const int kDirs2[2][2] = {{0, 1}, {0, -1}};
 const int kDirs4[4][2] = {{0, 1}, {0, -1}, {1, 0}, {-1, 0}};
 const int kDirs5[5][2] = {{0, 1}, {0, -1}, {1, 0}, {1, 1}, {1, -1}};
 const int kDirs8[8][2] = {{0, 1}, {0, -1}, {1, 0}, {-1, 0}, {1, 1}, {1, -1}, {-1, 1}, {-1, -1}};
+// The walks of wass_sgm_walk (stereo/sgm.py:WALKS): the forward and the
+// backward row walk, the vertical pair.
+const int kWalkFwd[3][2] = {{1, 0}, {1, 1}, {1, -1}};
+const int kWalkBwd[3][2] = {{-1, 0}, {-1, -1}, {-1, 1}};
+const int kWalkVert[2][2] = {{1, 0}, {-1, 0}};
 
 const int (*path_set(int directions))[2] {
   switch (directions) {
@@ -337,23 +420,30 @@ const int (*path_set(int directions))[2] {
   }
 }
 
-// All directions of a path set, one launch each: write, accumulate, and
-// for wta the last one ends in the WTA.
-int run_paths(const void* cost, const void* wstart, void* acc, void* disp, int H, int W, int D,
-              int P1, int P2, int directions, bool wta, int min_disp, int uniq, void* stream) {
-  const int(*dirs)[2] = path_set(directions);
-  const int V = wass_sgm_lane_width(D);
-  if (dirs == nullptr || V == 0 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
-  if (wstart != nullptr && H % kTileRows != 0) return (int)cudaErrorInvalidValue;
+bool bad_shape(int H, int W, int D, const int* wstart) {
+  return wass_sgm_lane_width(D) == 0 || H < 1 || W < 1 || (wstart != nullptr && H % kTileRows != 0);
+}
+
+// n directions, one launch each.  The first one's mode is first_mode
+// (kWrite, kWriteFold or kAccumulate), the next ones accumulate, and for
+// wta the last one ends in the WTA.
+int run_paths(const int (*dirs)[2], int n, int first_mode, const PathArgs& a, int H, int W, int D,
+              int P1, int P2, bool wta, int min_disp, int uniq, void* stream) {
+  if (dirs == nullptr || bad_shape(H, W, D, a.wstart)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  for (int k = 0; k < directions; ++k) {
-    const int mode = k == 0 ? kWrite : (wta && k == directions - 1 ? kWta : kAccumulate);
-    const cudaError_t err = launch_path_v(V, mode, (const uint8_t*)cost, (const int*)wstart,
-                                          (int16_t*)acc, (float*)disp, H, W, D, dirs[k][0],
-                                          dirs[k][1], P1, P2, min_disp, uniq, s);
+  for (int k = 0; k < n; ++k) {
+    const int mode = wta && k == n - 1 ? kWta : (k == 0 ? first_mode : kAccumulate);
+    const cudaError_t err = launch_path_v(mode, a, H, W, D, dirs[k][0], dirs[k][1], P1, P2, min_disp, uniq, s);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// All directions of a path set (K3-K6): the first writes the int16 volume.
+int run_path_set(const void* cost, const void* wstart, void* acc, void* disp, int H, int W, int D,
+                 int P1, int P2, int directions, bool wta, int min_disp, int uniq, void* stream) {
+  const PathArgs a{(const uint8_t*)cost, (const int*)wstart, nullptr, nullptr, (int16_t*)acc, (float*)disp};
+  return run_paths(path_set(directions), directions, kWrite, a, H, W, D, P1, P2, wta, min_disp, uniq, stream);
 }
 
 }  // namespace
@@ -372,7 +462,7 @@ extern "C" int wass_sgm_wta_fused(const void* cost, void* acc, void* disp, int H
                                   int P1, int P2, int directions, int min_disp, int uniq,
                                   void* stream) {
   if (directions != 8 && directions != 5) return (int)cudaErrorInvalidValue;
-  return run_paths(cost, nullptr, acc, disp, H, W, D, P1, P2, directions, true, min_disp, uniq, stream);
+  return run_path_set(cost, nullptr, acc, disp, H, W, D, P1, P2, directions, true, min_disp, uniq, stream);
 }
 
 // K4: windowed cost (H, W, Dw) uint8 + wstart (H / 8,) int32 -> disp
@@ -381,14 +471,14 @@ extern "C" int wass_sgm_wta_fused_windowed(const void* cost, const void* wstart,
                                            int H, int W, int D, int P1, int P2, int directions,
                                            int uniq, void* stream) {
   if (directions != 8 && directions != 5) return (int)cudaErrorInvalidValue;
-  return run_paths(cost, wstart, acc, disp, H, W, D, P1, P2, directions, true, 1, uniq, stream);
+  return run_path_set(cost, wstart, acc, disp, H, W, D, P1, P2, directions, true, 1, uniq, stream);
 }
 
 // K5: cost (H, W, D) uint8 -> acc (H, W, D) int16, the sum over the path
 // set directions (2, 4, 5 or 8).
 extern "C" int wass_sgm_aggregate(const void* cost, void* acc, int H, int W, int D, int P1, int P2,
                                   int directions, void* stream) {
-  return run_paths(cost, nullptr, acc, nullptr, H, W, D, P1, P2, directions, false, 0, 0, stream);
+  return run_path_set(cost, nullptr, acc, nullptr, H, W, D, P1, P2, directions, false, 0, 0, stream);
 }
 
 // K6: windowed cost (H, W, Dw) uint8 + wstart (H / 8,) int32 -> acc
@@ -397,5 +487,32 @@ extern "C" int wass_sgm_aggregate_windowed(const void* cost, const void* wstart,
                                            int W, int D, int P1, int P2, int directions,
                                            void* stream) {
   if (directions == 4) return (int)cudaErrorInvalidValue;
-  return run_paths(cost, wstart, acc, nullptr, H, W, D, P1, P2, directions, false, 0, 0, stream);
+  return run_path_set(cost, wstart, acc, nullptr, H, W, D, P1, P2, directions, false, 0, 0, stream);
+}
+
+// H2, _run_pair_img: cost (H, W, D) uint8 -> hf, hb (H, W, D) uint8, the
+// left-to-right and right-to-left path costs, in one launch.
+extern "C" int wass_sgm_pair_img(const void* cost, void* hf, void* hb, int H, int W, int D, int P1,
+                                 int P2, void* stream) {
+  if (bad_shape(H, W, D, nullptr)) return (int)cudaErrorInvalidValue;
+  const PathArgs a{(const uint8_t*)cost, nullptr, (uint8_t*)hf, (uint8_t*)hb, nullptr, nullptr};
+  return (int)launch_path_v(kPair, a, H, W, D, 0, 1, P1, P2, 0, 0, (cudaStream_t)stream);
+}
+
+// One walk over cost (H, W, D) uint8 (walk 0: the forward row walk, 1: the
+// backward one, 2: the vertical pair), with window starts (H / 8,) int32
+// or null.  With hf and hb (H, W, D) uint8, its first direction writes
+// hf + hb + L to acc (the H2 fold); without, every direction adds into acc
+// (an int16 partial sum, updated in place).  With wta its last direction
+// ends in the WTA and writes disp (H, W) float32 (windowed: min_disp = 1
+// and true units, as K4).
+extern "C" int wass_sgm_walk(const void* cost, const void* wstart, const void* hf, const void* hb,
+                             void* acc, void* disp, int H, int W, int D, int P1, int P2, int walk,
+                             int wta, int min_disp, int uniq, void* stream) {
+  const int(*dirs)[2] = walk == 0 ? kWalkFwd : walk == 1 ? kWalkBwd : walk == 2 ? kWalkVert : nullptr;
+  if ((hf == nullptr) != (hb == nullptr)) return (int)cudaErrorInvalidValue;
+  const PathArgs a{(const uint8_t*)cost, (const int*)wstart, (uint8_t*)hf, (uint8_t*)hb, (int16_t*)acc,
+                   (float*)disp};
+  return run_paths(dirs, walk == 2 ? 2 : 3, hf != nullptr ? kWriteFold : kAccumulate, a, H, W, D, P1, P2,
+                   wta != 0, wstart != nullptr ? 1 : min_disp, uniq, stream);
 }

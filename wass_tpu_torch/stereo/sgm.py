@@ -14,6 +14,9 @@ kernels (stereo/sgm_kernels.py, csrc/sgm.cu):
 
   K3 sgm_wta_fused_plain            K4 sgm_wta_fused_windowed_plain
   K5 sgm_aggregate                  K6 sgm_aggregate_windowed
+  H2 run_pair_img_plain, run_tri_dir_{partial,wta}_h2_plain,
+     run_tri_dir_{partial,wta}_windowed_h2_plain, and the single walks of
+     the H2 compositions (walk_add, run_tri_dir_wta{,_windowed}_plain)
 
 A windowed volume (H, W, Dw) holds at lane j of row y the disparity
 wstart[y // TILE_ROWS] + j (stereo/c2f.py).  Walks along a row keep one
@@ -231,6 +234,88 @@ def sgm_wta_fused_windowed_plain(
         raise ValueError(f"the fused path takes 5 or 8 directions, got {directions}")
     agg = sgm_aggregate_windowed(cost, wstart_tiles, P1, P2, directions)
     return wta_disparity_windowed(agg, wstart_tiles.repeat_interleave(TILE_ROWS), uniqueness_ratio)
+
+
+# H2: the pieces of the JAX package's _USE_H2 compositions
+# (wass_tpu/stereo/sgm_pallas.py).  The horizontal pair runs in image
+# layout and leaves two uint8 volumes hf, hb; a row walk starts from
+# hf + hb instead of an int16 horizontal sum.  Walks are the row walks of
+# _run_tri_dir: forward (reverse=False) top-down through N, NW, NE, backward
+# bottom-up; "vert" is the slab-axis _run_pair of the 4-path set.  The walks
+# add into the int16 volume they are given, in place; windowed volumes
+# (wstart_tiles) realign the carries only, never hf and hb.
+WALKS = {
+    "fwd": ((1, 0), (1, 1), (1, -1)),
+    "bwd": ((-1, 0), (-1, -1), (-1, 1)),
+    "vert": ((1, 0), (-1, 0)),
+}
+
+
+def run_pair_img_plain(cost: torch.Tensor, P1: int, P2: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain form of _run_pair_img: (H, W, D) uint8 -> (hf, hb) uint8, the
+    left-to-right and right-to-left path costs, both at their true
+    positions (L < 64 + P2 < 256 fits a byte)."""
+    _check_p2(P2)
+    hf, hb = torch.zeros_like(cost), torch.zeros_like(cost)
+    _walk(cost, hf, 0, 1, P1, P2)
+    _walk(cost, hb, 0, -1, P1, P2)
+    return hf, hb
+
+
+def walk_add(cost: torch.Tensor, acc: torch.Tensor, walk: str, P1: int, P2: int, wstart_tiles=None) -> torch.Tensor:
+    """Add the path costs of `walk` (a key of WALKS) to the int16 volume acc
+    in place and return it: acc + _run_tri_dir(...) (or
+    _run_tri_dir_windowed with window starts, or the slab-axis _run_pair)."""
+    _check_p2(P2)
+    ws = None if wstart_tiles is None else _window_starts(wstart_tiles, cost.shape[0])
+    for dy, dx in WALKS[walk]:
+        _walk(cost, acc, dy, dx, P1, P2, ws)
+    return acc
+
+
+def _h2_sum(hf: torch.Tensor, hb: torch.Tensor) -> torch.Tensor:
+    acc = hf.to(torch.int16)
+    acc += hb
+    return acc
+
+
+def _tri(reverse: bool) -> str:
+    return "bwd" if reverse else "fwd"
+
+
+def run_tri_dir_partial_h2_plain(cost, hf, hb, P1: int, P2: int, reverse: bool) -> torch.Tensor:
+    """Plain form of _run_tri_dir_partial_h2: int16 hf + hb + one walk."""
+    return walk_add(cost, _h2_sum(hf, hb), _tri(reverse), P1, P2)
+
+
+def run_tri_dir_wta_plain(cost, partial, P1: int, P2: int, reverse: bool, min_disp: int, uniq: int) -> torch.Tensor:
+    """Plain form of _run_tri_dir_wta: the WTA of partial + one walk,
+    (H, W) float32.  The walk adds into `partial` in place."""
+    return wta_disparity(walk_add(cost, partial, _tri(reverse), P1, P2), min_disp, uniq)
+
+
+def run_tri_dir_wta_h2_plain(cost, hf, hb, P1: int, P2: int, reverse: bool, min_disp: int, uniq: int) -> torch.Tensor:
+    """Plain form of _run_tri_dir_wta_h2: the WTA of hf + hb + one walk."""
+    return run_tri_dir_wta_plain(cost, _h2_sum(hf, hb), P1, P2, reverse, min_disp, uniq)
+
+
+def run_tri_dir_partial_windowed_h2_plain(cost, hf, hb, wstart_tiles, P1: int, P2: int, reverse: bool) -> torch.Tensor:
+    """Plain form of _run_tri_dir_partial_windowed_h2."""
+    return walk_add(cost, _h2_sum(hf, hb), _tri(reverse), P1, P2, wstart_tiles)
+
+
+def run_tri_dir_wta_windowed_plain(cost, partial, wstart_tiles, P1: int, P2: int, reverse: bool,
+                                   uniq: int) -> torch.Tensor:
+    """Plain form of _run_tri_dir_wta_windowed, in true disparity units as
+    wta_disparity_windowed gives them.  Adds into `partial` in place."""
+    agg = walk_add(cost, partial, _tri(reverse), P1, P2, wstart_tiles)
+    return wta_disparity_windowed(agg, wstart_tiles.repeat_interleave(TILE_ROWS), uniq)
+
+
+def run_tri_dir_wta_windowed_h2_plain(cost, hf, hb, wstart_tiles, P1: int, P2: int, reverse: bool,
+                                      uniq: int) -> torch.Tensor:
+    """Plain form of _run_tri_dir_wta_windowed_h2, in true disparity units."""
+    return run_tri_dir_wta_windowed_plain(cost, _h2_sum(hf, hb), wstart_tiles, P1, P2, reverse, uniq)
 
 
 def sgm_disparity(

@@ -1,13 +1,28 @@
-"""Wrappers of the dense-stereo CUDA kernels K1-K6.
+"""Wrappers of the dense-stereo CUDA kernels K1-K6 and H2.
 
 Counterpart of wass_tpu/stereo/sgm_pallas.py:
 
-  K1 `census_cost_volume`           <- census_cost_volume_pallas           (csrc/census_cost.cu)
-  K2 `census_cost_volume_windowed`  <- census_cost_volume_pallas_windowed  (csrc/census_cost.cu)
-  K3 `sgm_wta_fused`                <- sgm_wta_fused_pallas                (csrc/sgm.cu)
-  K4 `sgm_wta_fused_windowed`       <- sgm_wta_fused_pallas_windowed       (csrc/sgm.cu)
-  K5 `sgm_aggregate`                <- sgm_aggregate_pallas                (csrc/sgm.cu)
-  K6 `sgm_aggregate_windowed`       <- sgm_aggregate_pallas_windowed       (csrc/sgm.cu)
+  K1 `census_cost_volume`               <- census_cost_volume_pallas           (csrc/census_cost.cu)
+  K2 `census_cost_volume_windowed`      <- census_cost_volume_pallas_windowed  (csrc/census_cost.cu)
+  K3 `sgm_wta_fused`                    <- sgm_wta_fused_pallas                (csrc/sgm.cu)
+  K4 `sgm_wta_fused_windowed`           <- sgm_wta_fused_pallas_windowed       (csrc/sgm.cu)
+  K5 `sgm_aggregate`                    <- sgm_aggregate_pallas                (csrc/sgm.cu)
+  K6 `sgm_aggregate_windowed`           <- sgm_aggregate_pallas_windowed       (csrc/sgm.cu)
+  H2 `sgm_pair_img`                     <- _run_pair_img                       (csrc/sgm.cu)
+     `sgm_tri_dir_partial_h2`           <- _run_tri_dir_partial_h2             (csrc/sgm.cu)
+     `sgm_tri_dir_wta_h2`               <- _run_tri_dir_wta_h2                 (csrc/sgm.cu)
+     `sgm_tri_dir_partial_windowed_h2`  <- _run_tri_dir_partial_windowed_h2    (csrc/sgm.cu)
+     `sgm_tri_dir_wta_windowed_h2`      <- _run_tri_dir_wta_windowed_h2        (csrc/sgm.cu)
+     `sgm_tri_dir_wta`, `sgm_tri_dir_wta_windowed`, `sgm_walk_add`
+                                        <- _run_tri_dir_wta, _run_tri_dir_wta_windowed,
+                                           _run_tri_dir, _run_tri_dir_windowed
+
+With `_USE_H2` set (read at call time; False by default, as the JAX
+package's flag), K3-K6 run the H2 compositions of sgm_pallas.py: the
+horizontal pair in image layout as two uint8 volumes, folded into the
+first row walk, and then the single non-H2 walks (the last three above),
+which count as launches of `sgm_walk`.  So with H2 on, the K3-K6 keys
+stay at 0.
 
 A wrapper launches its kernel for CUDA tensors and runs the plain PyTorch
 version (stereo/cost.py, stereo/sgm.py) for CPU tensors only.  LAUNCHES
@@ -24,7 +39,7 @@ from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
 from wass_tpu_torch.stereo import cost as _cost
 from wass_tpu_torch.stereo import sgm as _sgm
-from wass_tpu_torch.stereo.sgm import TILE_ROWS, _check_p2
+from wass_tpu_torch.stereo.sgm import TILE_ROWS, _check_p2, _tri
 
 LAUNCHES = {
     "census_cost": 0,
@@ -33,7 +48,17 @@ LAUNCHES = {
     "sgm_wta_fused_windowed": 0,
     "sgm_aggregate": 0,
     "sgm_aggregate_windowed": 0,
+    "sgm_pair_img": 0,
+    "sgm_tri_dir_partial_h2": 0,
+    "sgm_tri_dir_wta_h2": 0,
+    "sgm_tri_dir_partial_windowed_h2": 0,
+    "sgm_tri_dir_wta_windowed_h2": 0,
+    "sgm_walk": 0,
 }
+
+# The horizontal pair in image layout, folded into the row walks
+# (wass_tpu/stereo/sgm_pallas.py:_USE_H2); off by default, as there.
+_USE_H2 = False
 
 __all__ = [
     "LAUNCHES",
@@ -41,6 +66,14 @@ __all__ = [
     "census_cost_volume_windowed",
     "sgm_aggregate",
     "sgm_aggregate_windowed",
+    "sgm_pair_img",
+    "sgm_tri_dir_partial_h2",
+    "sgm_tri_dir_partial_windowed_h2",
+    "sgm_tri_dir_wta",
+    "sgm_tri_dir_wta_h2",
+    "sgm_tri_dir_wta_windowed",
+    "sgm_tri_dir_wta_windowed_h2",
+    "sgm_walk_add",
     "sgm_wta_fused",
     "sgm_wta_fused_windowed",
 ]
@@ -128,6 +161,14 @@ def sgm_wta_fused(
 ) -> torch.Tensor:
     """K3: (H, W, D) uint8 cost -> (H, W) float32 disparity (0 = invalid)
     through the 5- or 8-path SGM sum and the WTA of sgm.wta_disparity."""
+    if _USE_H2:  # sgm_pallas.py:650-663
+        _require(directions in (5, 8), f"the fused kernel takes 5 or 8 directions, got {directions}")
+        hf, hb = sgm_pair_img(cost, P1, P2)
+        if directions == 5:
+            return sgm_tri_dir_wta_h2(cost, hf, hb, P1, P2, False, min_disp, uniqueness_ratio)
+        partial = sgm_tri_dir_partial_h2(cost, hf, hb, P1, P2, False)
+        del hf, hb
+        return sgm_tri_dir_wta(cost, partial, P1, P2, True, min_disp, uniqueness_ratio)
     if not on_cuda(cost):
         return _sgm.sgm_wta_fused_plain(cost, P1, P2, directions, min_disp, uniqueness_ratio)
     _check_cost(cost, P2)
@@ -157,6 +198,14 @@ def sgm_wta_fused_windowed(
 ) -> torch.Tensor:
     """K4: windowed (H, W, Dw) uint8 cost + window starts -> (H, W) float32
     disparity in true units (0 = invalid), as sgm.sgm_wta_fused_windowed_plain."""
+    if _USE_H2:  # sgm_pallas.py:1245-1259; the pair takes no window starts
+        _require(directions in (5, 8), f"the fused kernel takes 5 or 8 directions, got {directions}")
+        hf, hb = sgm_pair_img(cost, P1, P2)
+        if directions == 5:
+            return sgm_tri_dir_wta_windowed_h2(cost, hf, hb, wstart, P1, P2, False, uniqueness_ratio)
+        partial = sgm_tri_dir_partial_windowed_h2(cost, hf, hb, wstart, P1, P2, False)
+        del hf, hb
+        return sgm_tri_dir_wta_windowed(cost, partial, wstart, P1, P2, True, uniqueness_ratio)
     if not on_cuda(cost, wstart):
         return _sgm.sgm_wta_fused_windowed_plain(cost, wstart, P1, P2, directions, uniqueness_ratio)
     _check_cost(cost, P2)
@@ -179,6 +228,9 @@ def sgm_wta_fused_windowed(
 def sgm_aggregate(cost: torch.Tensor, P1: int, P2: int, directions: int = 8) -> torch.Tensor:
     """K5: (H, W, D) uint8 cost -> (H, W, D) int16 sum over the path set
     `directions` (2, 4, 5 or 8)."""
+    if _USE_H2:  # sgm_pallas.py:323-348
+        _require(directions in _sgm.DIRECTIONS, f"directions must be one of {sorted(_sgm.DIRECTIONS)}, got {directions}")
+        return _aggregate_h2(cost, None, P1, P2, {2: (), 4: ("vert",), 5: ("fwd",), 8: ("fwd", "bwd")}[directions])
     if not on_cuda(cost):
         return _sgm.sgm_aggregate(cost, P1, P2, directions)
     _check_cost(cost, P2)
@@ -200,6 +252,9 @@ def sgm_aggregate_windowed(
 ) -> torch.Tensor:
     """K6: windowed (H, W, Dw) uint8 cost + window starts -> (H, W, Dw)
     int16 sum over the path set `directions` (2, 5 or 8)."""
+    if _USE_H2:  # sgm_pallas.py:1301-1321
+        _require(directions in (2, 5, 8), f"the windowed aggregation takes 2, 5 or 8 directions, got {directions}")
+        return _aggregate_h2(cost, wstart, P1, P2, {2: (), 5: ("fwd",), 8: ("fwd", "bwd")}[directions])
     if not on_cuda(cost, wstart):
         return _sgm.sgm_aggregate_windowed(cost, wstart, P1, P2, directions)
     _check_cost(cost, P2)
@@ -216,3 +271,144 @@ def sgm_aggregate_windowed(
     _build.check(err, "sgm_aggregate_windowed kernel")
     LAUNCHES["sgm_aggregate_windowed"] += 1
     return acc
+
+
+# ---------------------------------------------------------------------------
+# H2 and the single walks of its compositions.  Each runs its plain version
+# (stereo/sgm.py) on CPU tensors.  The walks that take a partial sum add
+# into it in place, on the card and on the CPU alike.
+
+
+def _aggregate_h2(cost, wstart, P1, P2, walks) -> torch.Tensor:
+    """hf + hb as int16 (torch ops, as XLA adds them in the JAX package),
+    then each walk added in place."""
+    hf, hb = sgm_pair_img(cost, P1, P2)
+    agg = _sgm._h2_sum(hf, hb)
+    del hf, hb
+    for walk in walks:
+        sgm_walk_add(cost, agg, walk, P1, P2, wstart)
+    return agg
+
+
+def _check_u8_like(cost: torch.Tensor, *vols: torch.Tensor) -> None:
+    for v in vols:
+        _require(v.shape == cost.shape and v.dtype == torch.uint8 and v.is_contiguous(),
+                 f"hf and hb must be contiguous uint8 of the cost's shape {tuple(cost.shape)}")
+
+
+def _check_partial(cost: torch.Tensor, acc: torch.Tensor) -> None:
+    _require(acc.shape == cost.shape and acc.dtype == torch.int16 and acc.is_contiguous(),
+             f"the partial sum must be contiguous int16 of the cost's shape {tuple(cost.shape)}")
+
+
+_WALK_CODES = {"fwd": 0, "bwd": 1, "vert": 2}
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch_walk(key, cost, acc, walk, P1, P2, wstart=None, hf=None, hb=None, wta=False, min_disp=0, uniq=1):
+    """One walk on the card (csrc/sgm.cu:wass_sgm_walk), counted under
+    `key`.  With hf and hb its first direction writes hf + hb + L to acc,
+    else every direction adds into acc.  Returns the WTA disparity for
+    wta, else acc."""
+    _check_cost(cost, P2)
+    H, W, D = cost.shape
+    if wstart is not None:
+        _check_windows(wstart, H)
+    if hf is not None:
+        _check_u8_like(cost, hf, hb)
+    _check_partial(cost, acc)
+    lib = _build.load()
+    _lane_width_ok(lib, D)
+    disp = torch.empty((H, W), dtype=torch.float32, device=cost.device) if wta else None
+    err = lib.wass_sgm_walk(
+        cost.data_ptr(), _ptr(wstart), _ptr(hf), _ptr(hb), acc.data_ptr(), _ptr(disp),
+        H, W, D, P1, P2, _WALK_CODES[walk], int(wta), min_disp, uniq, _build.stream_handle(cost.device),
+    )
+    _build.check(err, f"{key} kernel")
+    LAUNCHES[key] += 1
+    return disp if wta else acc
+
+
+def sgm_pair_img(cost: torch.Tensor, P1: int, P2: int):
+    """H2 _run_pair_img: (H, W, D) uint8 cost -> (hf, hb) uint8, the
+    left-to-right and right-to-left path costs at their true positions."""
+    if not on_cuda(cost):
+        return _sgm.run_pair_img_plain(cost, P1, P2)
+    _check_cost(cost, P2)
+    H, W, D = cost.shape
+    lib = _build.load()
+    _lane_width_ok(lib, D)
+    hf, hb = torch.empty_like(cost), torch.empty_like(cost)
+    err = lib.wass_sgm_pair_img(cost.data_ptr(), hf.data_ptr(), hb.data_ptr(), H, W, D, P1, P2,
+                                _build.stream_handle(cost.device))
+    _build.check(err, "sgm_pair_img kernel")
+    LAUNCHES["sgm_pair_img"] += 1
+    return hf, hb
+
+
+def sgm_tri_dir_partial_h2(cost, hf, hb, P1: int, P2: int, reverse: bool) -> torch.Tensor:
+    """H2 _run_tri_dir_partial_h2: int16 hf + hb + one row walk."""
+    if not on_cuda(cost, hf, hb):
+        return _sgm.run_tri_dir_partial_h2_plain(cost, hf, hb, P1, P2, reverse)
+    acc = torch.empty(cost.shape, dtype=torch.int16, device=cost.device)
+    return _launch_walk("sgm_tri_dir_partial_h2", cost, acc, _tri(reverse), P1, P2, hf=hf, hb=hb)
+
+
+def sgm_tri_dir_wta_h2(cost, hf, hb, P1: int, P2: int, reverse: bool, min_disp: int, uniq: int) -> torch.Tensor:
+    """H2 _run_tri_dir_wta_h2: the WTA of hf + hb + one row walk, (H, W)
+    float32 (the 5-path set in one walk)."""
+    if not on_cuda(cost, hf, hb):
+        return _sgm.run_tri_dir_wta_h2_plain(cost, hf, hb, P1, P2, reverse, min_disp, uniq)
+    acc = torch.empty(cost.shape, dtype=torch.int16, device=cost.device)
+    return _launch_walk("sgm_tri_dir_wta_h2", cost, acc, _tri(reverse), P1, P2, hf=hf, hb=hb, wta=True,
+                        min_disp=min_disp, uniq=uniq)
+
+
+def sgm_tri_dir_partial_windowed_h2(cost, hf, hb, wstart, P1: int, P2: int, reverse: bool) -> torch.Tensor:
+    """H2 _run_tri_dir_partial_windowed_h2: hf + hb + one row walk over a
+    windowed volume (the carries realign, hf and hb do not)."""
+    if not on_cuda(cost, hf, hb, wstart):
+        return _sgm.run_tri_dir_partial_windowed_h2_plain(cost, hf, hb, wstart, P1, P2, reverse)
+    acc = torch.empty(cost.shape, dtype=torch.int16, device=cost.device)
+    return _launch_walk("sgm_tri_dir_partial_windowed_h2", cost, acc, _tri(reverse), P1, P2, wstart, hf, hb)
+
+
+def sgm_tri_dir_wta_windowed_h2(cost, hf, hb, wstart, P1: int, P2: int, reverse: bool, uniq: int) -> torch.Tensor:
+    """H2 _run_tri_dir_wta_windowed_h2: the windowed WTA of hf + hb + one
+    row walk, (H, W) float32 in true disparity units (0 = invalid)."""
+    if not on_cuda(cost, hf, hb, wstart):
+        return _sgm.run_tri_dir_wta_windowed_h2_plain(cost, hf, hb, wstart, P1, P2, reverse, uniq)
+    acc = torch.empty(cost.shape, dtype=torch.int16, device=cost.device)
+    return _launch_walk("sgm_tri_dir_wta_windowed_h2", cost, acc, _tri(reverse), P1, P2, wstart, hf, hb,
+                        wta=True, uniq=uniq)
+
+
+def sgm_tri_dir_wta(cost, partial, P1: int, P2: int, reverse: bool, min_disp: int, uniq: int) -> torch.Tensor:
+    """_run_tri_dir_wta: the WTA of partial + one row walk (the H2 8-path
+    final walk).  The walk adds its first two directions into `partial` in
+    place."""
+    if not on_cuda(cost, partial):
+        return _sgm.run_tri_dir_wta_plain(cost, partial, P1, P2, reverse, min_disp, uniq)
+    return _launch_walk("sgm_walk", cost, partial, _tri(reverse), P1, P2, wta=True, min_disp=min_disp, uniq=uniq)
+
+
+def sgm_tri_dir_wta_windowed(cost, partial, wstart, P1: int, P2: int, reverse: bool, uniq: int) -> torch.Tensor:
+    """_run_tri_dir_wta_windowed, in true disparity units.  The walk adds
+    its first two directions into `partial` in place."""
+    if not on_cuda(cost, partial, wstart):
+        return _sgm.run_tri_dir_wta_windowed_plain(cost, partial, wstart, P1, P2, reverse, uniq)
+    return _launch_walk("sgm_walk", cost, partial, _tri(reverse), P1, P2, wstart, wta=True, uniq=uniq)
+
+
+def sgm_walk_add(cost, acc, walk: str, P1: int, P2: int, wstart=None) -> torch.Tensor:
+    """_run_tri_dir (_run_tri_dir_windowed with window starts; the
+    vertical pair for "vert"): adds the walk `walk` (a key of sgm.WALKS) to
+    the int16 volume acc in place and returns it."""
+    tensors = (cost, acc) if wstart is None else (cost, acc, wstart)
+    if not on_cuda(*tensors):
+        return _sgm.walk_add(cost, acc, walk, P1, P2, wstart)
+    _require(walk in _WALK_CODES, f"walk must be one of {sorted(_WALK_CODES)}, got {walk!r}")
+    return _launch_walk("sgm_walk", cost, acc, walk, P1, P2, wstart)
