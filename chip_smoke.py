@@ -6,11 +6,17 @@
 Phases, each printed on its own line; any failure exits non-zero:
 
 1. The card: `nvidia-smi` name and power limit, torch's device name.
-2. Build the CUDA kernels from wass_tpu_torch/csrc with nvcc (sm_90a).
+2. Build the CUDA kernels from wass_tpu_torch/csrc with nvcc (sm_90a), one
+   nvcc per source, all started together; ptxas's register and spill
+   report lands in wass_tpu_torch/_build/ptxas.log.
 3. Each kernel against its plain PyTorch version on the card, bit-equal,
    with times from CUDA events at the slice's shapes: the rectified
    2048x1536 pair, D = 640 and 8 paths for K1/K3/K5/K7; Dw = 128 over the
-   window starts of the pair's coarse pass for K2/K4/K6.  Then at a
+   window starts of the pair's coarse pass for K2/K4/K6; the coarse pass's
+   K3 (384x512, D = 160) timed too.  K7 also on a 2048x1536 serpentine
+   mask (bands every 4 rows joined at alternating ends) that no 24 rounds
+   make converge, where all 24 rounds must change labels; the rounds that
+   did work are printed for both masks.  Then at a
    ragged shape: 1001x777, D = 52 for K1/K3/K5/K7, and 1000x776, Dw = 52
    with random window starts (flat, rising, falling, jumps of >= Dw) for
    K2/K4/K6.  The five H2 kernels (the JAX package's _USE_H2 pieces) and
@@ -25,9 +31,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    the stereo defaults (MAX_DISPARITY = 640, the coarse-to-fine window of
    128).  Every frame must take the windowed branch, give a plane.txt and
    a mesh_cam.xyzC that read back through the workdir contract
-   (wass_tpu.io, via wass_tpu_torch.testing.read_frame), a trimmed-mean
-   elevation error below 0.02 baseline units, and must have launched
-   K1, K2, K3, K4 and K7.
+   (wass_tpu_torch.testing.read_frame), a trimmed-mean elevation error
+   below 0.02 baseline units, and must have launched K1, K2, K3, K4 and
+   K7.  Every frame (here and in 4b, 4c) prints the sha256 of its
+   mesh_cam.xyzC and plane.txt, so that runs of two commits on one card
+   compare byte for byte.
 4b. The other branches, one frame each through SequencePipeline with a
    config override: a forced full-range fallback (c2f_min_coverage 1.01),
    byte-identical to a c2f_window = 0 frame (K1 + K3 + K7); the
@@ -41,7 +49,17 @@ Phases, each printed on its own line; any failure exits non-zero:
    same configuration's frame with H2 off (phase 4's first frame, the 4b
    frames), no frame may launch the default path's K3-K6, and the runs
    together must launch every H2 kernel and sgm_walk.
-5. A JSON line of per-kernel results, then the last line
+5. Where the c2f frame's time goes: its device stages one after another
+   (CUDA events, a synchronize between stages, 3 repeats), K7's rounds on
+   the frame's own z-gap mask, and the sequence loop's frames/s over
+   LOOP_FRAMES frames through SequencePipeline (3 passes, the first one
+   with the warm-up).  Measurement only: nothing here is counted as a launch of the
+   main path.
+6. A JSON line of per-kernel results (times, launches, and the bound: the
+   larger of the bytes the function must move, each input read once and
+   each output written once, at 3.35 TB/s, and its integer operations at
+   67 T/s; no single PyTorch call computes any of these functions, so
+   library_ms is null), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero without a result when there is no CUDA device or when the
@@ -52,8 +70,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -67,6 +87,11 @@ RAGGED_NUM_DISP = 200  # window starts of the ragged case lie in [1, 1 + 200 - D
 N_FRAMES = 3
 SCENE_SEED = 7
 ELEVATION_GATE = 0.02  # verify_meshes trimmed-mean gate, baseline units
+LABEL_ROUNDS = 24  # K7 rounds of the main path (2 x the max_iters of 12)
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_INT_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+SGM_OPS = 8  # integer operations per cost element and path (3 min, 3 add/sub, 2 compare)
+LOOP_FRAMES = 10  # frames of the sequence-loop timing (phase 5)
 
 KERNELS = {
     "census_cost": ("wass_tpu_torch/csrc/census_cost.cu", "wass_tpu/stereo/sgm_pallas.py:710"),
@@ -128,6 +153,51 @@ def _record(results: dict, name: str, kernel_out, plain_out, what: str) -> None:
     err = compare(f"{name} {what}", kernel_out, plain_out)
     results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     log(f"kernel {name} {what}: bit-equal")
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for one call, the bytes the function must move (each input read once,
+    each output written once) over the memory rate or its integer
+    operations over the ALU rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def set_bound(results: dict, name: str, nbytes: float, ops: float) -> None:
+    results[name]["bound_ms"], results[name]["bound_by"] = bound(nbytes, ops)
+
+
+def label_inputs(valid, disp=None):
+    """K7's inputs for a mask: linear-index labels (INT32_MAX off the mask)
+    and 4-neighbour connectivity, gated where the disparity steps by one
+    pixel or more when disp is given (a z-gap-like gate)."""
+    import torch
+
+    idx = torch.arange(valid.numel(), dtype=torch.int32, device=valid.device).reshape(valid.shape)
+    init = torch.where(valid, idx, torch.iinfo(torch.int32).max)
+    join_v, join_h = valid[1:] & valid[:-1], valid[:, 1:] & valid[:, :-1]
+    if disp is not None:
+        join_v = join_v & ((disp[:-1] - disp[1:]).abs() < 1)
+        join_h = join_h & ((disp[:, :-1] - disp[:, 1:]).abs() < 1)
+    conn_v = torch.zeros_like(valid, dtype=torch.uint8)
+    conn_h = torch.zeros_like(valid, dtype=torch.uint8)
+    conn_v[1:] = join_v.to(torch.uint8)
+    conn_h[:, 1:] = join_h.to(torch.uint8)
+    return init, conn_v, conn_h
+
+
+def serpentine_mask(shape, every: int, dev):
+    """Bands every `every` rows joined at alternating ends: one component
+    whose smallest label crosses about one band a K7 round."""
+    import torch
+
+    H, W = shape
+    mask = torch.zeros(shape, dtype=torch.bool, device=dev)
+    mask[::every] = True
+    for k, r in enumerate(range(0, H, every)):
+        mask[r:r + every, W - 1 if k % 2 == 0 else 0] = True
+    return mask
 
 
 def ragged_windows(n_tiles: int, dw: int, gen) -> "torch.Tensor":
@@ -243,11 +313,19 @@ def check_h2(results: dict, tag: str, cost, wcost, ws, shape: str, wshape: str) 
         "sgm_walk": (lambda: sk.sgm_tri_dir_wta(cost, acc, 8, 96, True, 1, 1),
                      lambda: plain_sgm.run_tri_dir_wta_plain(cost, acc, 8, 96, True, 1, 1)),
     }
+    n, nw, hw, nws = cost.numel(), wcost.numel(), cost.shape[0] * cost.shape[1], 4 * ws.numel()
+    set_bound(results, "sgm_pair_img", 3 * n, SGM_OPS * 2 * n)
+    set_bound(results, "sgm_tri_dir_partial_h2", 5 * n, SGM_OPS * 3 * n)
+    set_bound(results, "sgm_tri_dir_wta_h2", 3 * n + 4 * hw, SGM_OPS * 3 * n)
+    set_bound(results, "sgm_tri_dir_partial_windowed_h2", 5 * nw + nws, SGM_OPS * 3 * nw)
+    set_bound(results, "sgm_tri_dir_wta_windowed_h2", 3 * nw + nws + 4 * hw, SGM_OPS * 3 * nw)
+    set_bound(results, "sgm_walk", 5 * n + 4 * hw, SGM_OPS * 3 * n)  # cost and sum in, sum and disparity out
     for name, (kernel, plain) in timed.items():
         results[name]["ms"] = cuda_ms(kernel, 3)
         results[name]["plain_ms"] = cuda_ms(plain)
         log(f"time {name} {shape if 'windowed' not in name else wshape}: "
-            f"kernel {results[name]['ms']:.3f} ms, plain {results[name]['plain_ms']:.3f} ms")
+            f"kernel {results[name]['ms']:.3f} ms, plain {results[name]['plain_ms']:.3f} ms, "
+            f"bound {results[name]['bound_ms']:.3f} ms")
     del hf, hb, whf, whb, acc
     torch.cuda.empty_cache()
     # The entry points both ways, in the order default, H2, H2, default.
@@ -298,15 +376,26 @@ def check_kernels(img_pair, dev) -> dict:
         # Labels of the valid-disparity mask, 4-neighbours joined where the
         # disparity steps by less than one pixel (a z-gap-like gate).
         valid = disp > 0
-        idx = torch.arange(valid.numel(), dtype=torch.int32, device=dev).reshape(valid.shape)
-        init = torch.where(valid, idx, torch.iinfo(torch.int32).max)
-        conn_v = torch.zeros_like(valid, dtype=torch.uint8)
-        conn_h = torch.zeros_like(valid, dtype=torch.uint8)
-        conn_v[1:] = (valid[1:] & valid[:-1] & ((disp[:-1] - disp[1:]).abs() < 1)).to(torch.uint8)
-        conn_h[:, 1:] = (valid[:, 1:] & valid[:, :-1] & ((disp[:, :-1] - disp[:, 1:]).abs() < 1)).to(torch.uint8)
-        k_lab = ck.propagate_labels(init, conn_v, conn_h, 24)
-        _record(results, "label_propagate", k_lab, ck.propagate_labels_plain(init, conn_v, conn_h, 24),
+        init, conn_v, conn_h = label_inputs(valid, disp)
+        k_lab = ck.propagate_labels(init, conn_v, conn_h, LABEL_ROUNDS)
+        _record(results, "label_propagate", k_lab, ck.propagate_labels_plain(init, conn_v, conn_h, LABEL_ROUNDS),
                 f"{tag} {tuple(valid.shape)} ({int(torch.unique(k_lab[valid]).numel())} components)")
+        label_rounds = ck.rounds_changed()
+        log(f"label_propagate {tag}: {label_rounds} of {LABEL_ROUNDS} rounds changed labels")
+        if tag == "slice":  # a mask that cannot converge: every round must run and change labels
+            serp = serpentine_mask(valid.shape, 4, dev)
+            s_init, s_conn_v, s_conn_h = label_inputs(serp)
+            _record(results, "label_propagate", ck.propagate_labels(s_init, s_conn_v, s_conn_h, LABEL_ROUNDS),
+                    ck.propagate_labels_plain(s_init, s_conn_v, s_conn_h, LABEL_ROUNDS),
+                    f"serpentine {tuple(serp.shape)} (bands every 4 rows)")
+            serp_rounds = ck.rounds_changed()
+            log(f"label_propagate serpentine: {serp_rounds} of {LABEL_ROUNDS} rounds changed labels")
+            if serp_rounds != LABEL_ROUNDS:
+                raise AssertionError(f"serpentine mask: {serp_rounds} rounds changed labels, not {LABEL_ROUNDS}")
+            log(f"time label_propagate serpentine {tuple(serp.shape)}: kernel "
+                f"{cuda_ms(lambda: ck.propagate_labels(s_init, s_conn_v, s_conn_h, LABEL_ROUNDS), 3):.3f} ms "
+                f"({LABEL_ROUNDS} rounds)")
+            del serp, s_init, s_conn_v, s_conn_h
 
         # The windowed kernels: the slice's windows come from the pair's
         # coarse pass, the ragged ones are random.
@@ -325,6 +414,10 @@ def check_kernels(img_pair, dev) -> dict:
             _record(results, "census_cost", ccost, census_cost_volume(ccb, ccm, cnd, 1), cshape)
             _record(results, "sgm_wta_fused", sk.sgm_wta_fused(ccost, 8, 96, 8, 1, 1),
                     plain_sgm.sgm_wta_fused_plain(ccost, 8, 96, 8, 1, 1), f"{cshape} directions=8")
+            coarse_bound = bound(ccost.numel() + 4 * ccb.shape[0] * ccb.shape[1], SGM_OPS * 8 * ccost.numel())
+            log(f"time sgm_wta_fused {cshape}: kernel {cuda_ms(lambda: sk.sgm_wta_fused(ccost, 8, 96, 8, 1, 1), 5):.3f} ms, "
+                f"plain {cuda_ms(lambda: plain_sgm.sgm_wta_fused_plain(ccost, 8, 96, 8, 1, 1)):.3f} ms, "
+                f"bound {coarse_bound[0]:.3f} ms ({coarse_bound[1]})")
             check_h2_pieces(results, cshape, ccost)
             del ccost
         else:
@@ -355,14 +448,26 @@ def check_kernels(img_pair, dev) -> dict:
                                   lambda: plain_sgm.sgm_aggregate(cost, 8, 96, 8), 3),
                 "sgm_aggregate_windowed": (lambda: sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 8),
                                            lambda: plain_sgm.sgm_aggregate_windowed(wcost, ws, 8, 96, 8), 3),
-                "label_propagate": (lambda: ck.propagate_labels(init, conn_v, conn_h, 24),
-                                    lambda: ck.propagate_labels_plain(init, conn_v, conn_h, 24), 3),
+                "label_propagate": (lambda: ck.propagate_labels(init, conn_v, conn_h, LABEL_ROUNDS),
+                                    lambda: ck.propagate_labels_plain(init, conn_v, conn_h, LABEL_ROUNDS), 3),
             }
+            n, nw, hw, nws = cost.numel(), wcost.numel(), base.numel(), 4 * ws.numel()
+            words = 2 * cb.numel() * 4  # both images' census words
+            set_bound(results, "census_cost", words + n, 2 * n * cb.shape[2])
+            set_bound(results, "census_cost_windowed", words + nws + nw, 2 * nw * cb.shape[2])
+            set_bound(results, "sgm_wta_fused", n + 4 * hw, SGM_OPS * 8 * n)
+            set_bound(results, "sgm_wta_fused_windowed", nw + nws + 4 * hw, SGM_OPS * 8 * nw)
+            set_bound(results, "sgm_aggregate", 3 * n, SGM_OPS * 8 * n)
+            set_bound(results, "sgm_aggregate_windowed", 3 * nw + nws, SGM_OPS * 8 * nw)
+            # K7: labels and both masks in, labels out; 4 operations a pixel
+            # and pass over the rounds this mask ran (the last one changes nothing).
+            set_bound(results, "label_propagate", 10 * hw, 4 * 2 * min(label_rounds + 1, LABEL_ROUNDS) * hw)
             for name, (kernel, plain, reps) in timed.items():
                 results[name]["ms"] = cuda_ms(kernel, reps)
                 results[name]["plain_ms"] = cuda_ms(plain)
                 log(f"time {name} {shape if 'windowed' not in name else wshape}: "
-                    f"kernel {results[name]['ms']:.3f} ms, plain {results[name]['plain_ms']:.3f} ms")
+                    f"kernel {results[name]['ms']:.3f} ms, plain {results[name]['plain_ms']:.3f} ms, "
+                    f"bound {results[name]['bound_ms']:.3f} ms")
         check_h2(results, tag, cost, wcost, ws, shape, wshape)
         del cost, wcost
         torch.cuda.empty_cache()
@@ -391,6 +496,8 @@ def check_frame(i, wd: Path, scene, required, gate: bool) -> dict:
     if mesh.shape[1] != 3 or len(mesh) < (0.5 if gate else 0.1) * W * H or not np.isfinite(mesh).all():
         raise AssertionError(f"frame {i}: mesh of shape {mesh.shape} is too small or not finite")
     err = trimmed_elevation_error(scene, mesh, plane)
+    digests = ", ".join(f"{f} {hashlib.sha256((wd / f).read_bytes()).hexdigest()}" for f in ("mesh_cam.xyzC", "plane.txt"))
+    log(f"frame {i} sha256: {digests}")
     log(f"frame {i}: {len(mesh)} points, plane {' '.join(f'{v:.6f}' for v in plane)}, "
         f"trimmed-mean elevation error {err:.5f} (gate {ELEVATION_GATE if gate else 'none'}), "
         f"{c2f_line(wd) or 'no c2f'}, launches {per_frame}")
@@ -520,6 +627,79 @@ def run_h2_frames(root: Path, img0, img1, rig, scene) -> dict:
     return totals
 
 
+def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
+    """Phase 5: the c2f frame's device stages and the sequence loop's rate."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.ops import components_kernels as ck
+    from wass_tpu_torch.stereo import dense
+    from wass_tpu_torch.stereo.c2f import coarse_disparity, compute_row_windows, windowed_disparity
+    from wass_tpu_torch.stereo.cost import census_transform
+    from wass_tpu_torch.testing import write_sequence
+
+    seq = root / "smoke_loop"
+    write_sequence(seq, img0, img1, rig, LOOP_FRAMES)
+    pipe = load_pipeline(seq)
+    rates = []
+    for _ in range(3):
+        t0 = time.time()
+        pipe.stereo()  # returns after the last frame's files are written
+        rates.append(LOOP_FRAMES / (time.time() - t0))
+    log(f"sequence loop: {LOOP_FRAMES} frames a pass, frames/s {' '.join(f'{r:.4f}' for r in rates)} "
+        "(PNG decode to .xyzC written; the first pass includes the warm-up)")
+
+    cfg = pipe.cfg.stereo  # the AUTO smoothing resolved by the loop
+    dev = torch.device("cuda")
+    H, W = img0.shape
+    geom = dense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
+    gp = dense.build_geom_pack(geom, (H, W), dev)
+    b8, m8 = (np.clip(np.asarray(x), 0, 255).astype(np.uint8) for x in
+              ((img0, img1) if geom.base_is_cam0 else (img1, img0)))
+    times: dict = {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(start.elapsed_time(end))
+        return out
+
+    def windows(disp_c):
+        ws, cov, offband = compute_row_windows(disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window)
+        torch.stack([cov, offband]).tolist()  # the frame's host decision point
+        return ws
+
+    for _ in range(3):
+        b, m = stage("upload (uint8 H2D + cast)", lambda: (torch.as_tensor(b8).to(dev).float(),
+                                                         torch.as_tensor(m8).to(dev).float()))
+        base, match = stage("rectify", lambda: (dense.rectify_on_device(b, geom.H_base, (H, W)),
+                                               dense.rectify_on_device(m, geom.H_match, (H, W))))
+        cb, cm = stage("census, both images", lambda: (census_transform(base, cfg.census_win, cfg.input_smooth_sigma),
+                                                       census_transform(match, cfg.census_win, cfg.input_smooth_sigma)))
+        disp_c = stage("coarse pass (pool, census, K1, K3)", lambda: coarse_disparity(
+            base, match, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions, cfg.census_win,
+            cfg.uniqueness_ratio, cfg.c2f_factor))
+        ws = stage("windows + host read", lambda: windows(disp_c))
+        disp = stage("K2 + K4 (Dw = 128)", lambda: windowed_disparity(
+            cb, cm, ws, cfg.c2f_window, cfg.p1, cfg.p2, cfg.directions, cfg.uniqueness_ratio))
+        disp = stage("postprocess", lambda: dense.disparity_postprocess(disp, cfg))
+        pts, valid, _ = stage("triangulate", lambda: dense.triangulate_dense(disp, gp, base, match, cfg))
+        keep, _ = stage("outlier removal (z-gap bisection + K7)", lambda: dense.outlier_removal(pts, valid, cfg))
+        k7_rounds = ck.rounds_changed()
+        plane, _, valid_f = stage("plane (RANSAC + refine)", lambda: dense.plane_stage(pts, valid & keep, cfg))
+        stage("export + D2H", lambda: [t.cpu() for t in dense.export_u16(pts, valid_f, plane)])
+    for name, t in times.items():
+        log(f"stage {name}: {min(t):.3f}-{max(t):.3f} ms")
+    sums = [sum(t[i] for t in times.values()) for i in range(3)]
+    log(f"stage sum: {min(sums):.3f}-{max(sums):.3f} ms; K7 on the frame's z-gap mask: {k7_rounds} of "
+        f"{LABEL_ROUNDS} rounds changed labels")
+
+
 def main() -> int:
     if not (ROOT / "wass_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository (wass_tpu_torch/ not found)", file=sys.stderr)
@@ -549,9 +729,13 @@ def main() -> int:
 
     dev = require_cuda()
     t0 = time.time()
-    lib_path, _ = _build.build()
+    lib_path, build_log = _build.build()
     _build.load()
     log(f"build: {lib_path.name} in {time.time() - t0:.1f} s")
+    if build_log:
+        (_build.BUILD_DIR / "ptxas.log").write_text(build_log)
+        spills = [ln.strip() for ln in build_log.splitlines() if re.search(r"[1-9][0-9]* bytes spill", ln)]
+        log(f"ptxas report in {_build.BUILD_DIR / 'ptxas.log'}; lines with spills: {spills[:8]}")
 
     from wass_tpu_torch.testing import load_or_make_scene, write_sequence
 
@@ -581,6 +765,9 @@ def main() -> int:
     if unused:
         raise AssertionError(f"kernels no main-path run launched: {unused}")
 
+    # Phase 5: where the c2f frame's time goes.
+    profile_c2f_frame(_build.BUILD_DIR, img0, img1, rig)
+
     kernels = [
         {
             "name": name,
@@ -591,6 +778,9 @@ def main() -> int:
             "max_abs_err": results[name]["max_abs_err"],
             "ms": results[name]["ms"],
             "plain_ms": results[name]["plain_ms"],
+            "bound_ms": results[name]["bound_ms"],
+            "bound_by": results[name]["bound_by"],
+            "library_ms": None,
         }
         for name, (src, replaces) in KERNELS.items()
     ]

@@ -99,3 +99,65 @@ def test_propagate_wrapper_runs_plain_on_cpu():
     out = components_kernels.propagate_labels(init, conn, torch.zeros_like(conn), 3)
     assert torch.equal(out, components_kernels.propagate_labels_plain(init, conn, torch.zeros_like(conn), 3))
     assert components_kernels.LAUNCHES == before
+
+
+def _propagation_inputs(valid, edge_h=None, edge_v=None):
+    """K7's inputs as label_components builds them."""
+    H, W = valid.shape
+    init = torch.where(valid, torch.arange(H * W, dtype=torch.int32).reshape(H, W), tcomp.INT32_MAX)
+    conn_v = torch.zeros((H, W), dtype=torch.uint8)
+    conn_h = torch.zeros((H, W), dtype=torch.uint8)
+    join_v, join_h = valid[1:] & valid[:-1], valid[:, 1:] & valid[:, :-1]
+    conn_v[1:] = (join_v if edge_v is None else join_v & edge_v).to(torch.uint8)
+    conn_h[:, 1:] = (join_h if edge_h is None else join_h & edge_h).to(torch.uint8)
+    return init, conn_v, conn_h
+
+
+def _zgap_inputs():
+    z, valid = _zgap_scene()
+    eh, ev = np.abs(z[:, :-1] - z[:, 1:]) < 0.3, np.abs(z[:-1] - z[1:]) < 0.3
+    return _propagation_inputs(torch.from_numpy(valid), torch.from_numpy(eh), torch.from_numpy(ev))
+
+
+@pytest.mark.parametrize("inputs", [lambda: _propagation_inputs(torch.from_numpy(_speckle())),
+                                    lambda: _propagation_inputs(torch.from_numpy(_snake())), _zgap_inputs],
+                         ids=["speckle", "snake", "zgap"])
+def test_unchanged_round_is_a_fixed_point(inputs):
+    """K7's early exit: a round depends on the labels alone, so once round
+    r changes nothing, r rounds give the labels of all 24."""
+    init, conn_v, conn_h = inputs()
+    full = components_kernels.propagate_labels_plain(init, conn_v, conn_h, 24)
+    cur, fixed = init, []
+    for r in range(24):
+        nxt = components_kernels.propagate_labels_plain(cur, conn_v, conn_h, 1)
+        if torch.equal(nxt, cur):
+            fixed.append(r)
+            assert torch.equal(components_kernels.propagate_labels_plain(init, conn_v, conn_h, r), full)
+        cur = nxt
+    assert fixed and fixed[0] < 24  # each mask converges within the 24 rounds
+    assert torch.equal(cur, full)
+
+
+def _serpentine(H=100, W=32):
+    """Bands every 2 rows joined at alternating ends: the smallest label
+    crosses about one band a round, so 2 x 12 rounds do not converge."""
+    mask = np.zeros((H, W), bool)
+    mask[::2] = True
+    for k, r in enumerate(range(0, H, 2)):
+        mask[r:r + 2, W - 1 if k % 2 == 0 else 0] = True
+    return mask
+
+
+def test_round_count_is_part_of_the_function():
+    """On a mask that 24 rounds cannot converge, the port's labels equal
+    the Pallas kernel's after the same rounds, not the converged ones."""
+    mask = _serpentine()
+    pal = np.asarray(label_components_pallas(jnp.asarray(mask), max_iters=12, interpret=True))
+    out = tcomp.label_components(torch.from_numpy(mask)).numpy()
+    np.testing.assert_array_equal(out, pal)
+    converged = np.asarray(jcomp.label_components(jnp.asarray(mask), max_iters=64))
+    assert len(np.unique(converged[mask])) == 1
+    assert not np.array_equal(out, converged)
+    init, conn_v, conn_h = _propagation_inputs(torch.from_numpy(mask))
+    assert not torch.equal(components_kernels.propagate_labels_plain(init, conn_v, conn_h, 23),
+                           components_kernels.propagate_labels_plain(init, conn_v, conn_h, 24))

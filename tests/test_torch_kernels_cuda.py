@@ -65,6 +65,113 @@ def test_label_propagate_kernel(dev, h, w, density):
                            ck.propagate_labels_plain(init, conn_v, conn_h, rounds))
 
 
+def _serpentine(h, w, every):
+    """Bands every `every` rows joined at alternating ends: the smallest
+    label crosses about one band a round."""
+    mask = torch.zeros((h, w), dtype=torch.bool)
+    mask[::every] = True
+    for k, r in enumerate(range(0, h, every)):
+        mask[r:r + every, w - 1 if k % 2 == 0 else 0] = True
+    return mask
+
+
+def _discs(h, w, seed):
+    """A union of 8 random discs: components that converge in 1-3 rounds."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+    mask = torch.zeros((h, w), dtype=torch.bool)
+    for _ in range(8):
+        cy, cx = (torch.rand(2, generator=g) * torch.tensor([h, w])).tolist()
+        r = 4 + float(torch.rand(1, generator=g)) * min(h, w) / 4
+        mask |= (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+    return mask
+
+
+def _plain_rounds_changed(init, conn_v, conn_h, rounds):
+    """Rounds of the plain propagation that change a label, one at a time."""
+    cur, changed = init, 0
+    for _ in range(rounds):
+        nxt = ck.propagate_labels_plain(cur, conn_v, conn_h, 1)
+        if torch.equal(nxt, cur):
+            break
+        cur, changed = nxt, changed + 1
+    return changed
+
+
+@pytest.mark.parametrize("kind,h,w", [("discs", 96, 128), ("discs", 61, 203), ("discs", 300, 41),
+                                      ("serpentine", 200, 40), ("serpentine", 160, 1030)])
+def test_label_propagate_early_exit(dev, kind, h, w):
+    """Bit-equal to the plain version on masks that converge in a few
+    rounds (the launches after a round that changes nothing return at
+    once) and on ones that need every round; the device flags count the
+    rounds that changed labels."""
+    if kind == "discs":
+        valid = _discs(h, w, h + w)
+    else:
+        valid = _serpentine(h, w, 2 if w < 100 else 4)
+    valid = valid.to(dev)
+    init = torch.where(valid, torch.arange(h * w, dtype=torch.int32, device=dev).reshape(h, w), 2**31 - 1)
+    conn_v = torch.zeros((h, w), dtype=torch.uint8, device=dev)
+    conn_h = torch.zeros_like(conn_v)
+    conn_v[1:] = (valid[1:] & valid[:-1]).to(torch.uint8)
+    conn_h[:, 1:] = (valid[:, 1:] & valid[:, :-1]).to(torch.uint8)
+    out = ck.propagate_labels(init, conn_v, conn_h, 24)
+    assert torch.equal(out, ck.propagate_labels_plain(init, conn_v, conn_h, 24))
+    changed = ck.rounds_changed()
+    assert changed == _plain_rounds_changed(init, conn_v, conn_h, 24)
+    assert 1 <= changed <= 3 if kind == "discs" else changed == 24
+
+
+# Lines shorter than the walks' prefetch depth: rows of W < 8 pixels,
+# diagonals of one pixel (W = 1), at lane widths 1, 4 and 8.
+SHORT_SHAPES = [(8, 3, 32, 1), (8, 1, 96, 0), (5, 7, 160, 1), (16, 2, 128, 1)]
+
+
+@pytest.mark.parametrize("h,w,d,min_disp", SHORT_SHAPES)
+def test_sgm_short_lines(dev, h, w, d, min_disp):
+    cb, cm = _census_pair(dev, h, w, h + w)
+    cost = sk.census_cost_volume(cb, cm, d, min_disp)
+    for directions in (5, 8):
+        assert torch.equal(sk.sgm_wta_fused(cost, 8, 96, directions, min_disp, 1),
+                           sgm_wta_fused_plain(cost, 8, 96, directions, min_disp, 1))
+    for directions in (2, 4, 5, 8):
+        assert torch.equal(sk.sgm_aggregate(cost, 8, 96, directions), plain_sgm.sgm_aggregate(cost, 8, 96, directions))
+    for walk in plain_sgm.WALKS:
+        acc = torch.randint(-99, 99, cost.shape, dtype=torch.int16, device=dev)
+        assert torch.equal(sk.sgm_walk_add(cost, acc.clone(), walk, 8, 96),
+                           plain_sgm.walk_add(cost, acc.clone(), walk, 8, 96))
+
+
+def _jumping_windows(dev, n_tiles, dw):
+    """Window starts that jump by more than dw at the first and at the last
+    tile boundary (a single tile keeps one start)."""
+    ws = [3] + [3 + dw + 4] * (n_tiles - 1)
+    if n_tiles >= 3:
+        ws[-1] = 0
+    return torch.tensor(ws, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("h,w,dw", [(8, 3, 32), (8, 1, 128), (16, 5, 96), (24, 7, 128), (24, 2, 160), (32, 40, 128)])
+def test_windowed_short_lines_and_jumps(dev, h, w, dw):
+    cb, cm = _census_pair(dev, h, w, h * w)
+    ws = _jumping_windows(dev, h // 8, dw)
+    cost = sk.census_cost_volume_windowed(cb, cm, ws, dw)
+    for directions in (5, 8):
+        assert torch.equal(sk.sgm_wta_fused_windowed(cost, ws, 8, 96, directions, 1),
+                           plain_sgm.sgm_wta_fused_windowed_plain(cost, ws, 8, 96, directions, 1))
+    for directions in (2, 5, 8):
+        assert torch.equal(sk.sgm_aggregate_windowed(cost, ws, 8, 96, directions),
+                           plain_sgm.sgm_aggregate_windowed(cost, ws, 8, 96, directions))
+    for walk in plain_sgm.WALKS:
+        acc = torch.randint(-99, 99, cost.shape, dtype=torch.int16, device=dev)
+        assert torch.equal(sk.sgm_walk_add(cost, acc.clone(), walk, 8, 96, ws),
+                           plain_sgm.walk_add(cost, acc.clone(), walk, 8, 96, ws))
+    partial = torch.randint(0, 300, cost.shape, dtype=torch.int16, device=dev)
+    for reverse in (False, True):
+        assert torch.equal(sk.sgm_tri_dir_wta_windowed(cost, partial.clone(), ws, 8, 96, reverse, 1),
+                           plain_sgm.run_tri_dir_wta_windowed_plain(cost, partial.clone(), ws, 8, 96, reverse, 1))
+
+
 @pytest.mark.parametrize("h,w,d,min_disp", SHAPES)
 @pytest.mark.parametrize("directions", [2, 4, 5, 8])
 def test_sgm_aggregate_kernel(dev, h, w, d, min_disp, directions):

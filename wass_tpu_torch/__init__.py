@@ -11,17 +11,18 @@ full-range fallback included, on an NVIDIA H100:
   ops/       sampling, morphology, connected components
   core/      geometry, triangulation, rectification (host, float64)
   prepare/   input-degradation estimate (AUTO smoothing sigma)
-  io/        stdlib PNG codec
-  testing/   smoke-run helpers around the synthetic wave-field scenes
+  config.py  the self-registering option registry
+  io/        stdlib PNG codec, workdirs, .xyzC, matrix files
+  testing/   synthetic wave-field scenes and smoke-run helpers
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
              K5/K6 SGM sums, the H2 pair and folding walks, K7 labels)
 
 Kernel wrappers launch the CUDA kernel for CUDA tensors and run the plain
 PyTorch version for CPU tensors only.  This package never imports jax.
-It shares the JAX package's jax-free host modules (wass_tpu.io for
-workdirs, .xyzC and matrix files, wass_tpu.config for the option
-registry, wass_tpu.testing for the synthetic scenes) and nothing else of
-it; images go through the port's own PNG codec.
+Nor does it import anything of the JAX package: it keeps its own copies
+of the host modules it needs (config.py, the option registry; io/ for
+workdirs, .xyzC and matrix files beside its stdlib PNG codec;
+testing/synthetic.py for the synthetic scenes).
 """
 
 from wass_tpu_torch import device as device  # noqa: F401  (sets the TF32 switches)

@@ -1,8 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
-All `csrc/*.cu` files are compiled by `nvcc` into one shared library with a
-plain C interface, keyed by a hash of the sources and flags, at first use,
-and loaded with `ctypes` (no PyTorch headers, so a build takes seconds).
+All `csrc/*.cu` files are compiled by `nvcc`, one process per source, all
+started together, and linked into one shared library with a plain C
+interface, keyed by a hash of the sources and flags, at first use, and
+loaded with `ctypes` (no PyTorch headers, so a build takes seconds).
 The library lands in `wass_tpu_torch/_build/`.  Every C entry point returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
 
@@ -24,10 +25,11 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 # No --use_fast_math: the WTA subpixel division must be IEEE-rounded to
-# match the plain version bit for bit.
+# match the plain version bit for bit.  ptxas reports each kernel's
+# registers, shared memory and spills into the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
@@ -83,17 +85,31 @@ def build() -> tuple:
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources()]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, out)
-    return out, log
+    nvcc = nvcc_path()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        jobs = []
+        for src in sources():
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(work / f"{src.stem}.o")]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        for cmd, proc in jobs:
+            text = proc.communicate()[0]
+            logs.append(text)
+            if proc.returncode != 0:
+                for _, other in jobs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{text}")
+        tmp = work / "lib.so"
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(work / f"{src.stem}.o") for src in sources())]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout + proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return out, "".join(logs)
 
 
 def load() -> ctypes.CDLL:

@@ -16,7 +16,7 @@ def load_pipeline(outdir, device: str = "cuda"):
     """SequencePipeline configured from <outdir>/stereo_config.txt."""
     from wass_tpu_torch.cli.options import register_all, stereo_config_from_registry
     from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
-    from wass_tpu.config import stereo_cfg as reg
+    from wass_tpu_torch.config import stereo_cfg as reg
 
     register_all()
     reg.reset()  # no values leak across sequences in one process

@@ -1,14 +1,14 @@
 """Reference-compatible stereo options and their mapping to the config.
 
 Copied from the stereo block of wass_tpu/cli/options.py (register_all and
-stereo_config_from_registry), whose package imports jax, onto the jax-free
-wass_tpu.config stereo registry: the reference's stereo_config.txt names
+stereo_config_from_registry), whose package imports jax, onto the port's
+own stereo registry (wass_tpu_torch/config.py): the reference's stereo_config.txt names
 and defaults (wass_stereo.cpp:52-84, 742-761, 1030-1037, PovMesh.cpp:577-579).
 """
 
 from __future__ import annotations
 
-from wass_tpu.config import stereo_cfg
+from wass_tpu_torch.config import stereo_cfg
 
 
 def register_all() -> None:

@@ -24,8 +24,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from wass_tpu.io.workdir import Workdir, frame_workdirs
-from wass_tpu.io.xyzc import save_xyz_quantized
+from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
+from wass_tpu_torch.io.xyzc import save_xyz_quantized
 from wass_tpu_torch.core.geometry import rt_from_plane
 from wass_tpu_torch.io.png import read_gray
 from wass_tpu_torch.stereo.dense import (

@@ -59,10 +59,16 @@
 // reads the uint8 cost and reads and writes the int16 volume (about 10 GB
 // per direction at 2048x1536, D = 640); the walk itself is a serial chain
 // of dependent steps per warp, so only a few thousand warps are in flight.
-// Loads are 4-byte (cost) and 8-byte (int16 volume) when D % 4 == 0.  At
-// full range the time of K3, K5 and their H2 forms follows the byte counts
-// above (2.1-2.3 TB/s on an H100 80GB HBM3 at 700 W); over windows of 128
-// the serial step latency of the walks bounds them instead.
+// Loads are 4-byte (cost) and 8-byte (int16 volume) when D % 4 == 0.  The
+// loads of a step do not depend on the carry, so each warp issues them P
+// steps ahead into a register ring (prefetch_depth below): the bytes in
+// flight, not the chain of steps, set the rate.  Measured by chip_smoke.py
+// on an H100 80GB HBM3 at 700 W, from the byte counts above: K3 and K5 at
+// full range 2.4-2.5 TB/s and the H2 pieces 2.1-2.6; K4 and K6 over
+// windows of 128 1.8 and 2.1 TB/s (before the ring, the step latency held
+// them to about 0.95).  The coarse pass (384x512, D = 160) walks only
+// 384-895 lines a launch and reaches 0.7 TB/s: there too few warps are in
+// flight to cover the latency.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,21 +115,32 @@ __device__ __forceinline__ void line_start(int line, int H, int W, int dy, int d
   }
 }
 
+// A lane's V disparities of one pixel, packed as loaded: 4 uint8 costs to
+// a uint32 word, 4 int16 sums to a uint2.  0 past D.
 template <int V>
-__device__ __forceinline__ void load_cost(const uint8_t* c, int d0, int D, bool vec, int (&C)[V]) {
+__host__ __device__ constexpr int lane_words() {
+  return (V + 3) / 4;
+}
+
+template <int V>
+__device__ __forceinline__ void load_u8(const uint8_t* c, int d0, int D, bool vec, uint32_t (&w)[lane_words<V>()]) {
   if constexpr (V % 4 == 0) {
     if (vec) {
 #pragma unroll
-      for (int k = 0; k < V / 4; ++k) {
-        uint32_t w = d0 + 4 * k < D ? *reinterpret_cast<const uint32_t*>(c + d0 + 4 * k) : 0u;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) C[4 * k + q] = (w >> (8 * q)) & 0xff;
-      }
+      for (int k = 0; k < V / 4; ++k) w[k] = d0 + 4 * k < D ? *reinterpret_cast<const uint32_t*>(c + d0 + 4 * k) : 0u;
       return;
     }
   }
 #pragma unroll
-  for (int v = 0; v < V; ++v) C[v] = d0 + v < D ? c[d0 + v] : 0;
+  for (int k = 0; k < lane_words<V>(); ++k) w[k] = 0u;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (d0 + v < D) w[v / 4] |= (uint32_t)c[d0 + v] << (8 * (v % 4));
+}
+
+template <int V>
+__device__ __forceinline__ int u8_at(const uint32_t (&w)[lane_words<V>()], int v) {
+  return (w[v / 4] >> (8 * (v % 4))) & 0xff;
 }
 
 template <int V>
@@ -148,27 +165,33 @@ __device__ __forceinline__ void store_u8(uint8_t* c, int d0, int D, bool vec, co
 }
 
 template <int V>
-__device__ __forceinline__ void load_acc(const int16_t* a, int d0, int D, bool vec, int (&A)[V]) {
+__device__ __forceinline__ void load_i16(const int16_t* a, int d0, int D, bool vec, uint2 (&w)[lane_words<V>()]) {
   if constexpr (V % 4 == 0) {
     if (vec) {
 #pragma unroll
-      for (int k = 0; k < V / 4; ++k) {
-        if (d0 + 4 * k < D) {
-          const uint2 w = *reinterpret_cast<const uint2*>(a + d0 + 4 * k);
-          A[4 * k + 0] = (int16_t)(w.x & 0xffff);
-          A[4 * k + 1] = (int16_t)(w.x >> 16);
-          A[4 * k + 2] = (int16_t)(w.y & 0xffff);
-          A[4 * k + 3] = (int16_t)(w.y >> 16);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) A[4 * k + q] = 0;
-        }
-      }
+      for (int k = 0; k < V / 4; ++k)
+        w[k] = d0 + 4 * k < D ? *reinterpret_cast<const uint2*>(a + d0 + 4 * k) : make_uint2(0u, 0u);
       return;
     }
   }
 #pragma unroll
-  for (int v = 0; v < V; ++v) A[v] = d0 + v < D ? a[d0 + v] : 0;
+  for (int k = 0; k < lane_words<V>(); ++k) w[k] = make_uint2(0u, 0u);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if (d0 + v < D) {
+      const uint32_t h = (uint32_t)(uint16_t)a[d0 + v] << (16 * (v % 2));
+      if (v % 4 < 2)
+        w[v / 4].x |= h;
+      else
+        w[v / 4].y |= h;
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ int i16_at(const uint2 (&w)[lane_words<V>()], int v) {
+  const uint32_t h = v % 4 < 2 ? w[v / 4].x : w[v / 4].y;
+  return (int16_t)((h >> (16 * (v % 2))) & 0xffff);
 }
 
 template <int V>
@@ -210,9 +233,65 @@ __device__ __forceinline__ void realign(int (&L)[V], int* buf, int d0, int D, in
   __syncwarp();
 }
 
+// Steps of a walk whose loads a warp keeps in flight ahead of the carry
+// (a compile-time function of the lane width V and the mode).  A step of
+// a windowed walk (Dw = 128, V = 4) moves 384 bytes a warp; by Little's
+// law about 3 MB must be in flight to stream at ~3 TB/s against ~1 us of
+// load latency, so the 1536 warps of a horizontal launch need about 6-8
+// steps each.  At D = 640 (V = 20) a step moves 1920 bytes and the walks
+// already stream near their rate: two steps keep that and the registers
+// small, and the pair (3072 warps, cost loads only) takes one, since more
+// registers would leave some of its warps to a second wave.
+template <int V, int MODE>
+__host__ __device__ constexpr int prefetch_depth() {
+  return V <= 4 ? 8 : (V <= 8 ? 6 : (MODE == kPair ? 1 : 2));
+}
+
+// The loads of one step of a walk that do not depend on the carry.
+template <int V>
+struct Step {
+  uint32_t cost[lane_words<V>()];
+  uint2 acc[lane_words<V>()];                          // kAccumulate, kWta: the int16 sum so far
+  uint32_t hf[lane_words<V>()], hb[lane_words<V>()];   // kWriteFold: the H2 pair
+  int delta;  // realigning walks: window start change entering this pixel's row tile
+  int wcur;   // windowed kWta: window start of this pixel's row tile
+};
+
+// Steps along a walk from (y, x) until it leaves the image.
+__device__ __forceinline__ int line_length(int y, int x, int H, int W, int dy, int dx) {
+  const int ny = dy > 0 ? H - y : (dy < 0 ? y + 1 : H + W);
+  const int nx = dx > 0 ? W - x : (dx < 0 ? x + 1 : H + W);
+  return min(ny, nx);
+}
+
+// Issue the loads of step k of a walk into s (nothing past its end).
+template <int V, int MODE>
+__device__ __forceinline__ void fetch_step(Step<V>& s, int k, int n, int y0, int x0, int dy, int dx,
+                                           const uint8_t* cost, const int16_t* acc, const uint8_t* hf,
+                                           const uint8_t* hb, const int* wstart, bool realigns, int W, int D,
+                                           int d0, bool vec) {
+  if (k >= n) return;
+  const int y = y0 + k * dy, x = x0 + k * dx;
+  const size_t p = (size_t)y * W + x;
+  load_u8<V>(cost + p * D, d0, D, vec, s.cost);
+  if constexpr (MODE == kAccumulate || MODE == kWta) load_i16<V>(acc + p * D, d0, D, vec, s.acc);
+  if constexpr (MODE == kWriteFold) {
+    load_u8<V>(hf + p * D, d0, D, vec, s.hf);
+    load_u8<V>(hb + p * D, d0, D, vec, s.hb);
+  }
+  if (realigns && k > 0) {
+    const int t = y / kTileRows;
+    const int tp = (y - dy) / kTileRows;  // tile of the previous pixel's row
+    s.delta = t == tp ? 0 : wstart[t] - wstart[tp];
+  }
+  if constexpr (MODE == kWta) s.wcur = wstart != nullptr ? wstart[y / kTileRows] : 0;
+}
+
 // wstart: per-tile window starts of a windowed volume, or null for a
 // full-range one.  hf, hb: the H2 horizontal volumes, written by kPair
 // (launched with dy = 0, dx = 1) and read by kWriteFold; null otherwise.
+// Each warp keeps the loads of the next P steps in a register ring (slot
+// j holds steps j, j + P, ...), refilled right after its step is done.
 template <int V, int MODE>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 sgm_path_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ wstart,
@@ -232,113 +311,112 @@ sgm_path_kernel(const uint8_t* __restrict__ cost, const int* __restrict__ wstart
   } else if (line >= num_lines(H, W, dy, dx)) {
     return;  // the whole warp leaves together
   }
-  int y, x;
-  line_start(line, H, W, dy, dx, &y, &x);
+  int y0, x0;
+  line_start(line, H, W, dy, dx, &y0, &x0);
+  const int n = line_length(y0, x0, H, W, dy, dx);
   const int d0 = lane * V;
   const bool vec = (D % 4) == 0;
   const bool realigns = wstart != nullptr && dy != 0;  // horizontal walks keep one window
 
+  constexpr int P = prefetch_depth<V, MODE>();
+  Step<V> ring[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    fetch_step<V, MODE>(ring[j], j, n, y0, x0, dy, dx, cost, acc, hf, hb, wstart, realigns, W, D, d0, vec);
+
   int L[V];
   int minL = 0;
-  bool first = true;
-  while (y >= 0 && y < H && x >= 0 && x < W) {
-    const size_t p = (size_t)y * W + x;
-    int C[V];
-    load_cost<V>(cost + p * D, d0, D, vec, C);
-    if (first) {
+  for (int k0 = 0; k0 < n; k0 += P) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) L[v] = d0 + v < D ? C[v] : kBig;
-      first = false;
-    } else {
-      if (realigns) {
-        const int t = y / kTileRows;
-        const int tp = (y - dy) / kTileRows;  // tile of the previous pixel's row
-        const int delta = t == tp ? 0 : wstart[t] - wstart[tp];
-        if (delta != 0) {
-          realign<V>(L, realign_buf[warp], d0, D, delta);
+    for (int j = 0; j < P; ++j) {
+      const int k = k0 + j;
+      if (k >= n) break;  // uniform across the warp
+      const Step<V>& s = ring[j];
+      const size_t p = (size_t)(y0 + k * dy) * W + (x0 + k * dx);
+      if (k == 0) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) L[v] = d0 + v < D ? u8_at<V>(s.cost, v) : kBig;
+      } else {
+        if (realigns && s.delta != 0) {
+          realign<V>(L, realign_buf[warp], d0, D, s.delta);
           int m = kBig;
 #pragma unroll
           for (int v = 0; v < V; ++v) m = min(m, L[v]);
           minL = warp_min(m);
         }
+        int up_edge = __shfl_up_sync(kFull, L[V - 1], 1);
+        int dn_edge = __shfl_down_sync(kFull, L[0], 1);
+        if (lane == 0) up_edge = kBig;
+        if (lane == 31) dn_edge = kBig;
+        int Ln[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int up = v == 0 ? up_edge : L[v - 1];
+          const int dn = v == V - 1 ? dn_edge : L[v + 1];
+          const int best = min(min(L[v], minL + P2), min(up, dn) + P1);
+          Ln[v] = d0 + v < D ? u8_at<V>(s.cost, v) + best - minL : kBig;
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v) L[v] = Ln[v];
       }
-      int up_edge = __shfl_up_sync(kFull, L[V - 1], 1);
-      int dn_edge = __shfl_down_sync(kFull, L[0], 1);
-      if (lane == 0) up_edge = kBig;
-      if (lane == 31) dn_edge = kBig;
-      int Ln[V];
+      int m = kBig;
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const int up = v == 0 ? up_edge : L[v - 1];
-        const int dn = v == V - 1 ? dn_edge : L[v + 1];
-        const int best = min(min(L[v], minL + P2), min(up, dn) + P1);
-        Ln[v] = d0 + v < D ? C[v] + best - minL : kBig;
-      }
-#pragma unroll
-      for (int v = 0; v < V; ++v) L[v] = Ln[v];
-    }
-    int m = kBig;
-#pragma unroll
-    for (int v = 0; v < V; ++v) m = min(m, L[v]);
-    minL = warp_min(m);
+      for (int v = 0; v < V; ++v) m = min(m, L[v]);
+      minL = warp_min(m);
 
-    int16_t* a = MODE == kPair ? nullptr : acc + p * D;  // kPair has no int16 volume
-    if constexpr (MODE == kPair) {
-      store_u8<V>((dx > 0 ? hf : hb) + p * D, d0, D, vec, L);
-    } else if constexpr (MODE == kWrite) {
-      store_acc<V>(a, d0, D, vec, L);
-    } else if constexpr (MODE == kWriteFold) {
-      int F[V], B[V];
-      load_cost<V>(hf + p * D, d0, D, vec, F);
-      load_cost<V>(hb + p * D, d0, D, vec, B);
+      int16_t* a = MODE == kPair ? nullptr : acc + p * D;  // kPair has no int16 volume
+      if constexpr (MODE == kPair) {
+        store_u8<V>((dx > 0 ? hf : hb) + p * D, d0, D, vec, L);
+      } else if constexpr (MODE == kWrite) {
+        store_acc<V>(a, d0, D, vec, L);
+      } else if constexpr (MODE == kWriteFold) {
+        int F[V];
 #pragma unroll
-      for (int v = 0; v < V; ++v) F[v] += B[v] + L[v];
-      store_acc<V>(a, d0, D, vec, F);
-    } else if constexpr (MODE == kAccumulate) {
-      int A[V];
-      load_acc<V>(a, d0, D, vec, A);
+        for (int v = 0; v < V; ++v) F[v] = u8_at<V>(s.hf, v) + u8_at<V>(s.hb, v) + L[v];
+        store_acc<V>(a, d0, D, vec, F);
+      } else if constexpr (MODE == kAccumulate) {
+        int A[V];
 #pragma unroll
-      for (int v = 0; v < V; ++v) A[v] += L[v];
-      store_acc<V>(a, d0, D, vec, A);
-    } else {
-      int T[V];
-      load_acc<V>(a, d0, D, vec, T);
-      int key = 0x7fffffff;
+        for (int v = 0; v < V; ++v) A[v] = i16_at<V>(s.acc, v) + L[v];
+        store_acc<V>(a, d0, D, vec, A);
+      } else {
+        int T[V];
+        int key = 0x7fffffff;
 #pragma unroll
-      for (int v = 0; v < V; ++v) {
-        T[v] = d0 + v < D ? T[v] + L[v] : kBigTotal;
-        key = min(key, (T[v] << 11) | (d0 + v));  // first-index argmin
+        for (int v = 0; v < V; ++v) {
+          T[v] = d0 + v < D ? i16_at<V>(s.acc, v) + L[v] : kBigTotal;
+          key = min(key, (T[v] << 11) | (d0 + v));  // first-index argmin
+        }
+        key = warp_min(key);
+        const int dmin = key >> 11;
+        const int best = key & 2047;
+        int sm1 = kBigTotal, sp1 = kBigTotal, far = kBigTotal;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const int d = d0 + v;
+          if (d == best - 1) sm1 = T[v];
+          if (d == best + 1) sp1 = T[v];
+          if (d - best > 1 || best - d > 1) far = min(far, T[v]);
+        }
+        sm1 = warp_min(sm1);
+        sp1 = warp_min(sp1);
+        far = warp_min(far);
+        if (lane == 0) {
+          const int thresh = dmin * (100 + uniq) / 100;
+          const bool interior = best > 0 && best < D - 1;
+          const int sm1s = interior ? sm1 : dmin;
+          const int sp1s = interior ? sp1 : dmin;
+          const int denom = max(sm1s + sp1s - 2 * dmin, 1);
+          float delta = (float)(sm1s - sp1s) / (2.0f * (float)denom);  // IEEE division
+          delta = fminf(fmaxf(delta, -0.5f), 0.5f);
+          const float dv = (float)(best + min_disp) + (interior ? delta : 0.0f);
+          // Windowed: window-local dv with min_disp = 1, shifted to true units.
+          const float out = wstart != nullptr ? (dv - 1.0f) + (float)s.wcur : dv;
+          disp[p] = far > thresh ? out : 0.0f;
+        }
       }
-      key = warp_min(key);
-      const int dmin = key >> 11;
-      const int best = key & 2047;
-      int sm1 = kBigTotal, sp1 = kBigTotal, far = kBigTotal;
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const int d = d0 + v;
-        if (d == best - 1) sm1 = T[v];
-        if (d == best + 1) sp1 = T[v];
-        if (d - best > 1 || best - d > 1) far = min(far, T[v]);
-      }
-      sm1 = warp_min(sm1);
-      sp1 = warp_min(sp1);
-      far = warp_min(far);
-      if (lane == 0) {
-        const int thresh = dmin * (100 + uniq) / 100;
-        const bool interior = best > 0 && best < D - 1;
-        const int sm1s = interior ? sm1 : dmin;
-        const int sp1s = interior ? sp1 : dmin;
-        const int denom = max(sm1s + sp1s - 2 * dmin, 1);
-        float delta = (float)(sm1s - sp1s) / (2.0f * (float)denom);  // IEEE division
-        delta = fminf(fmaxf(delta, -0.5f), 0.5f);
-        const float dv = (float)(best + min_disp) + (interior ? delta : 0.0f);
-        // Windowed: window-local dv with min_disp = 1, shifted to true units.
-        const float out = wstart != nullptr ? (dv - 1.0f) + (float)wstart[y / kTileRows] : dv;
-        disp[p] = far > thresh ? out : 0.0f;
-      }
+      fetch_step<V, MODE>(ring[j], k + P, n, y0, x0, dy, dx, cost, acc, hf, hb, wstart, realigns, W, D, d0, vec);
     }
-    y += dy;
-    x += dx;
   }
 }
 

@@ -6,6 +6,11 @@ each pass takes, along every column (row), the segmented running minimum
 of the labels walking forward and walking backward, and keeps
 min(fwd, bwd).  `propagate_labels` launches the kernel for CUDA tensors
 and runs `propagate_labels_plain` for CPU tensors only.
+
+The kernel stops early where stopping is exact: a round that changes no
+label is a fixed point, so the launches after it return at once (device
+flags; the host reads none on the main path).  `rounds_changed` reads,
+after a synchronize, how many rounds of the last launch changed labels.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
 
 LAUNCHES = {"label_propagate": 0}
+# The per-round change flags of the last kernel launch (int32, one a round).
+LAST_CHANGED = None
 
 
 def _seg_min_scan(lab: torch.Tensor, conn: torch.Tensor, dim: int) -> torch.Tensor:
@@ -67,14 +74,24 @@ def propagate_labels(
         raise ValueError("labels must be int32 and the connectivity uint8")
     if not (conn_v.is_contiguous() and conn_h.is_contiguous()):
         raise ValueError("connectivity must be contiguous")
+    global LAST_CHANGED
     H, W = labels.shape
     out = labels.contiguous().clone()
-    scratch = torch.empty_like(out)
+    changed = torch.zeros(max(rounds, 1), dtype=torch.int32, device=labels.device)
     lib = _build.load()
     err = lib.wass_label_propagate(
-        out.data_ptr(), conn_v.data_ptr(), conn_h.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), conn_v.data_ptr(), conn_h.data_ptr(), changed.data_ptr(),
         H, W, rounds, _build.stream_handle(labels.device),
     )
     _build.check(err, "label_propagate kernel")
     LAUNCHES["label_propagate"] += 1
+    LAST_CHANGED = changed[:rounds]
     return out
+
+
+def rounds_changed() -> int:
+    """Rounds of the last kernel launch that changed a label (a host read:
+    call it after the launch, off the main path)."""
+    if LAST_CHANGED is None:
+        raise RuntimeError("no label_propagate kernel has run")
+    return int(LAST_CHANGED.sum())

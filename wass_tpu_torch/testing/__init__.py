@@ -1,10 +1,11 @@
 """Synthetic sequences for smoke runs and benchmarks of the port.
 
-Scenes come from the JAX package's numpy generator (wass_tpu.testing): a
-ray-traced wave field seen by a known rig, with per-pixel ground truth.
-This module renders (or loads a cached) scene, writes it as frame
-workdirs the stereo stage reads, reads a frame's results back through
-wass_tpu.io, and scores them with the verify_meshes elevation gate.
+Scenes come from the port's copy of the JAX package's numpy generator
+(testing/synthetic.py): a ray-traced wave field seen by a known rig, with
+per-pixel ground truth.  This module renders (or loads a cached) scene,
+writes it as frame workdirs the stereo stage reads, reads a frame's
+results back through the port's io/workdir.py, and scores them with the
+verify_meshes elevation gate.
 """
 
 from __future__ import annotations
@@ -14,9 +15,8 @@ from pathlib import Path
 
 import numpy as np
 
-from wass_tpu.io.workdir import Workdir
-from wass_tpu.testing.synthetic import SyntheticRig, SyntheticScene, WaveField, make_scene
-from wass_tpu_torch.io.png import write_gray
+from wass_tpu_torch.io.workdir import Workdir
+from wass_tpu_torch.testing.synthetic import SyntheticRig, SyntheticScene, WaveField, make_scene
 
 _RIG_KEYS = ("K0", "K1", "R0", "T0", "R1", "T1")
 _WAVE_KEYS = ("amps", "kx", "ky", "phases")
@@ -58,7 +58,7 @@ def write_sequence(seq_dir, img0: np.ndarray, img1: np.ndarray, rig: SyntheticRi
     for i in range(n_frames):
         wd = Workdir(seq_dir / f"{i:06d}_wd").create()
         for cam, img in enumerate((img0, img1)):
-            write_gray(wd.undistorted_path(cam), np.clip(np.asarray(img), 0, 255).astype(np.uint8))
+            wd.save_undistorted(cam, img)
         wd.save_intrinsics(0, rig.K0)
         wd.save_intrinsics(1, rig.K1)
         wd.save_extrinsics(rig.R, rig.T)
@@ -68,7 +68,7 @@ def write_sequence(seq_dir, img0: np.ndarray, img1: np.ndarray, rig: SyntheticRi
 
 def read_frame(wd_path):
     """(plane (4,), mesh (N, 3) cam0 points, kernel launches dict) of one
-    reconstructed frame workdir, read through wass_tpu.io."""
+    reconstructed frame workdir."""
     wd = Workdir(Path(wd_path))
     launches = {}
     for line in (wd.path / "wass_stereo_log.txt").read_text().splitlines():
