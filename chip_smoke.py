@@ -13,7 +13,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    with times from CUDA events at the slice's shapes: the rectified
    2048x1536 pair, D = 640 and 8 paths for K1/K3/K5/K7; Dw = 128 over the
    window starts of the pair's coarse pass for K2/K4/K6; the coarse pass's
-   K3 (384x512, D = 160) timed too.  K7 also on a 2048x1536 serpentine
+   K1 and K3 (384x512, D = 160) timed too; K1 and K2 also over a 9x9
+   census (3 words), at both shapes.  K7 also on a 2048x1536 serpentine
    mask (bands every 4 rows joined at alternating ends) that no 24 rounds
    make converge, where all 24 rounds must change labels; the rounds that
    did work are printed for both masks.  Then at a
@@ -58,8 +59,9 @@ Phases, each printed on its own line; any failure exits non-zero:
 6. A JSON line of per-kernel results (times, launches, and the bound: the
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
-   67 T/s; no single PyTorch call computes any of these functions, so
-   library_ms is null), then the last line
+   67 T/s, and for K1/K2 their popcounts at 16 a clock per SM at the
+   maximum SM clock nvidia-smi reports; no single PyTorch call computes
+   any of these functions, so library_ms is null), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero without a result when there is no CUDA device or when the
@@ -90,6 +92,8 @@ ELEVATION_GATE = 0.02  # verify_meshes trimmed-mean gate, baseline units
 LABEL_ROUNDS = 24  # K7 rounds of the main path (2 x the max_iters of 12)
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_INT_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
+POPC_PER_CLOCK_PER_SM = 16  # __popc results a clock per SM on sm_90, a quarter of the XOR/IADD rate
+CENSUS_9X9 = (9, 9)  # a 3-word census (80 bits), checked beside the default 7x9 (2 words)
 SGM_OPS = 8  # integer operations per cost element and path (3 min, 3 add/sub, 2 compare)
 LOOP_FRAMES = 10  # frames of the sequence-loop timing (phase 5)
 
@@ -155,17 +159,45 @@ def _record(results: dict, name: str, kernel_out, plain_out, what: str) -> None:
     log(f"kernel {name} {what}: bit-equal")
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+_popc_per_s = None
+
+
+def popc_per_s() -> float:
+    """The card's popcount rate: SMs x 16 a clock x the maximum SM clock
+    that nvidia-smi reports (the clock is printed once)."""
+    global _popc_per_s
+    if _popc_per_s is None:
+        import torch
+
+        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                                   capture_output=True, text=True, check=True).stdout.split()[0])
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        _popc_per_s = sms * POPC_PER_CLOCK_PER_SM * mhz * 1e6
+        log(f"popcount rate: {sms} SMs x {POPC_PER_CLOCK_PER_SM} a clock x {mhz:.0f} MHz = {_popc_per_s:.4g}/s")
+    return _popc_per_s
+
+
+def bound(nbytes: float, ops: float, popc: float = 0.0) -> tuple:
     """(ms, "bytes" or "operations"): the least time the card could take
     for one call, the bytes the function must move (each input read once,
     each output written once) over the memory rate or its integer
-    operations over the ALU rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT_OPS_PER_S
+    operations, at the ALU rate and its popcounts at the popcount rate,
+    whichever is larger."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = max(ops / PEAK_INT_OPS_PER_S, popc / popc_per_s() if popc else 0.0)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def set_bound(results: dict, name: str, nbytes: float, ops: float) -> None:
     results[name]["bound_ms"], results[name]["bound_by"] = bound(nbytes, ops)
+
+
+def census_bound(cb, d: int, extra_bytes: int = 0) -> tuple:
+    """K1/K2's bound for an (H, W, d) volume from census words cb: both
+    images' words (and extra_bytes) in, the volume out; an XOR and an add,
+    and a popcount, per word and output."""
+    n = cb.shape[0] * cb.shape[1] * d
+    return bound(2 * cb.numel() * 4 + extra_bytes + n, 2 * n * cb.shape[2], n * cb.shape[2])
 
 
 def label_inputs(valid, disp=None):
@@ -412,6 +444,10 @@ def check_kernels(img_pair, dev) -> dict:
             ccost = sk.census_cost_volume(ccb, ccm, cnd, 1)
             cshape = f"coarse {tuple(ccb.shape[:2])} D={cnd}"
             _record(results, "census_cost", ccost, census_cost_volume(ccb, ccm, cnd, 1), cshape)
+            ck1_bound = census_bound(ccb, cnd)
+            log(f"time census_cost {cshape}: kernel {cuda_ms(lambda: sk.census_cost_volume(ccb, ccm, cnd, 1), 20):.4f} ms, "
+                f"plain {cuda_ms(lambda: census_cost_volume(ccb, ccm, cnd, 1)):.3f} ms, "
+                f"bound {ck1_bound[0]:.4f} ms ({ck1_bound[1]})")
             _record(results, "sgm_wta_fused", sk.sgm_wta_fused(ccost, 8, 96, 8, 1, 1),
                     plain_sgm.sgm_wta_fused_plain(ccost, 8, 96, 8, 1, 1), f"{cshape} directions=8")
             coarse_bound = bound(ccost.numel() + 4 * ccb.shape[0] * ccb.shape[1], SGM_OPS * 8 * ccost.numel())
@@ -434,6 +470,23 @@ def check_kernels(img_pair, dev) -> dict:
         _record(results, "sgm_aggregate_windowed", sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 8),
                 plain_sgm.sgm_aggregate_windowed(wcost, ws, 8, 96, 8), f"{tag} {wshape} directions=8")
 
+        # A 3-word census (9x9) through K1 and K2, at the same shapes and windows.
+        cb9, cm9 = (census_transform(x, CENSUS_9X9, 0.8) for x in (base, match))
+        what = f"census 9x9 (nw={cb9.shape[2]})"
+        _record(results, "census_cost", sk.census_cost_volume(cb9, cm9, nd, 1), census_cost_volume(cb9, cm9, nd, 1),
+                f"{tag} {shape} {what}")
+        wcb9, wcm9 = (x[:wcb.shape[0], :wcb.shape[1]].contiguous() for x in (cb9, cm9))
+        _record(results, "census_cost_windowed", sk.census_cost_volume_windowed(wcb9, wcm9, ws, dw),
+                census_cost_volume_windowed(wcb9, wcm9, ws, dw), f"{tag} {wshape} {what}")
+        if tag == "slice":
+            for name, fn, (b_ms, b_by) in (
+                    ("census_cost", lambda: sk.census_cost_volume(cb9, cm9, nd, 1), census_bound(cb9, nd)),
+                    ("census_cost_windowed", lambda: sk.census_cost_volume_windowed(wcb9, wcm9, ws, dw),
+                     census_bound(cb9, dw, 4 * ws.numel()))):
+                log(f"time {name} {shape if name == 'census_cost' else wshape} {what}: kernel {cuda_ms(fn, 5):.3f} ms, "
+                    f"bound {b_ms:.3f} ms ({b_by})")
+        del cb9, cm9, wcb9, wcm9
+
         if tag == "slice":  # times at the main path's shapes
             timed = {
                 "census_cost": (lambda: sk.census_cost_volume(cb, cm, nd, 1),
@@ -452,9 +505,8 @@ def check_kernels(img_pair, dev) -> dict:
                                     lambda: ck.propagate_labels_plain(init, conn_v, conn_h, LABEL_ROUNDS), 3),
             }
             n, nw, hw, nws = cost.numel(), wcost.numel(), base.numel(), 4 * ws.numel()
-            words = 2 * cb.numel() * 4  # both images' census words
-            set_bound(results, "census_cost", words + n, 2 * n * cb.shape[2])
-            set_bound(results, "census_cost_windowed", words + nws + nw, 2 * nw * cb.shape[2])
+            for name, d, extra in (("census_cost", nd, 0), ("census_cost_windowed", dw, nws)):
+                results[name]["bound_ms"], results[name]["bound_by"] = census_bound(cb, d, extra)
             set_bound(results, "sgm_wta_fused", n + 4 * hw, SGM_OPS * 8 * n)
             set_bound(results, "sgm_wta_fused_windowed", nw + nws + 4 * hw, SGM_OPS * 8 * nw)
             set_bound(results, "sgm_aggregate", 3 * n, SGM_OPS * 8 * n)

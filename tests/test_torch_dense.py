@@ -151,6 +151,52 @@ def test_export_payload_identical(rng):
     assert scales_t.numpy().astype(np.float64).tobytes() == np.asarray(scales_j, np.float64).tobytes()
 
 
+@pytest.mark.parametrize("n", [1, 17, 2240, 65537])
+def test_plane_frame_matches_compiled_export(n):
+    """The plane-frame transform, given the same rotation and translation,
+    bit-equal to the reference's compiled `pts @ Rp.T + Tp`
+    (wass_tpu/stereo/dense.py _stage_export) over points from 1e-2 to 1e3
+    in size, whatever BLAS kernel torch's `@` would take."""
+    rng = np.random.default_rng(n)
+    pts = (rng.standard_normal((n, 3)) * rng.choice([1e-2, 1.0, 30.0, 1e3], (n, 1))).astype(np.float32)
+    Rp = rng.standard_normal((3, 3)).astype(np.float32)
+    Tp = (rng.standard_normal(3) * 10).astype(np.float32)
+    ref = jax.jit(lambda p, r, t: p @ r.T + t)(jnp.asarray(pts), jnp.asarray(Rp), jnp.asarray(Tp))
+    np.testing.assert_array_equal(td.plane_frame(_t(pts), _t(Rp), _t(Tp)).numpy(), np.asarray(ref))
+
+
+def _round_f32(x):
+    """The float32 nearest to the rational x, ties to even."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    cands = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+    return min(cands, key=lambda v: (abs(Fraction(float(v)) - x), int(np.array(v).view(np.int32)) & 1))
+
+
+def test_fma32_rounds_once(rng):
+    """fma32 against exact rational arithmetic: random triples, products
+    that cancel c, and a sum just above a float32 tie, where rounding the
+    float64 sum to float32 directly would round the wrong way."""
+    from fractions import Fraction
+
+    a = (rng.standard_normal(2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    b = rng.standard_normal(2000).astype(np.float32)
+    c = (rng.standard_normal(2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    c[:500] = -(a[:500] * b[:500])  # cancellation
+    # exact a * b + c = 1 + 2^-24 + 2^-70: rounds up to 1 + 2^-23
+    a = np.append(a, np.float32(-(1 + 2.0**-23)))
+    b = np.append(b, np.float32((1 - 2.0**-23) * 2.0**-24))
+    c = np.append(c, np.float32(1 + 2.0**-23))
+    exact = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                      for x, y, z in zip(a, b, c)], np.float32)
+    # without the tie (float64 sums rounded once), then with it (rounded to odd first)
+    np.testing.assert_array_equal(td.fma32(_t(a[:-1]), _t(b[:-1]), _t(c[:-1])).numpy(), exact[:-1])
+    out = td.fma32(_t(a), _t(b), _t(c)).numpy()
+    np.testing.assert_array_equal(out, exact)
+    assert out[-1] == np.float32(1 + 2.0**-23)
+
+
 @pytest.mark.parametrize("sigma", [0.0, -1.0], ids=["sigma0", "auto"])
 def test_slice_given_rectified_images(frame, eager_float_stages, sigma):
     """Port DenseStereoPipeline (CPU, plain versions) vs the JAX one on JAX's

@@ -25,10 +25,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _census_pair(dev, h, w, seed):
+def _census_pair(dev, h, w, seed, win=(7, 9)):
     g = torch.Generator().manual_seed(seed)
     a, b = (torch.rand((h, w), generator=g) * 255 for _ in range(2))
-    return census_transform(a.to(dev), (7, 9), 0.8), census_transform(b.to(dev), (7, 9), 0.8)
+    return census_transform(a.to(dev), win, 0.8), census_transform(b.to(dev), win, 0.8)
 
 
 # D 32, 36, 52, 96 and 160 take lane widths V = 1, 2, 2, 4 and 8 (160 is
@@ -40,6 +40,35 @@ SHAPES = [(48, 64, 32, 1), (37, 101, 36, 3), (101, 77, 52, 1), (61, 70, 96, 0), 
 def test_census_cost_kernel(dev, h, w, d, min_disp):
     cb, cm = _census_pair(dev, h, w, h)
     assert torch.equal(sk.census_cost_volume(cb, cm, d, min_disp), census_cost_volume(cb, cm, d, min_disp))
+
+
+# K1's edges: census words nw = 1 (5x5), 2 (7x9) and 3 (9x9); D % 4 != 0;
+# min_disp 0 and > 0; W < min_disp + D (a column with no match in range,
+# and a volume all max_cost); W not a multiple of the tile; W*D not a
+# multiple of 16 (plain stores in place of the bulk copy); D large enough
+# to narrow the tile to 32 and 16 columns.
+CENSUS_EDGES = [(5, 70, (5, 5), 13, 0), (6, 130, (9, 9), 37, 2), (4, 50, (7, 9), 90, 20), (3, 64, (9, 9), 640, 1),
+                (3, 257, (5, 5), 7, 300), (2, 1001, (7, 9), 52, 1), (3, 99, (7, 9), 41, 0), (2, 33, (9, 9), 3000, 0),
+                (2, 200, (7, 9), 1100, 5)]
+
+
+@pytest.mark.parametrize("h,w,win,d,min_disp", CENSUS_EDGES)
+def test_census_cost_kernel_edges(dev, h, w, win, d, min_disp):
+    cb, cm = _census_pair(dev, h, w, h * w + d, win)
+    assert torch.equal(sk.census_cost_volume(cb, cm, d, min_disp), census_cost_volume(cb, cm, d, min_disp))
+
+
+# K2's edges: nw 1-3, Dw % 16 != 0, W not a multiple of the tile, and window
+# starts that put whole tiles (or the whole row) below x - d < 0.
+WINDOWED_CENSUS_EDGES = [(16, 70, (5, 5), 20, [0, 80]), (16, 130, (9, 9), 52, [3, 0]), (8, 257, (7, 9), 128, [260]),
+                         (24, 100, (9, 9), 12, [0, 150, 7]), (16, 1001, (7, 9), 52, [1, 149])]
+
+
+@pytest.mark.parametrize("h,w,win,dw,ws", WINDOWED_CENSUS_EDGES)
+def test_census_cost_windowed_kernel_edges(dev, h, w, win, dw, ws):
+    cb, cm = _census_pair(dev, h, w, h * w + dw, win)
+    ws = torch.tensor(ws, dtype=torch.int32, device=dev)
+    assert torch.equal(sk.census_cost_volume_windowed(cb, cm, ws, dw), census_cost_volume_windowed(cb, cm, ws, dw))
 
 
 @pytest.mark.parametrize("h,w,d,min_disp", SHAPES)

@@ -349,16 +349,46 @@ def plane_stage(pts: torch.Tensor, valid: torch.Tensor, cfg: DenseStereoConfig, 
     return torch.where(fit.ok, plane, torch.full_like(plane, float("nan"))), fit.ok, valid_f
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 a * b + c rounded once, as a fused multiply-add, with the
+    same bits on every host and device.  The product is exact in float64,
+    and rounding the float64 sum s to float32 rounds the exact value once,
+    unless s landed on a float32 tie (its low 29 bits 1000...0) or, not 0,
+    below float32's normal range.  Only then (rarely; a host read decides)
+    is s first rounded to odd, with TwoSum's error as the sticky bit."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    doubtful = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | ((s != 0) & (s.abs() < 2.0**-126))
+    if bool(doubtful.any()):
+        t = s - p
+        err = (p - (s - t)) + (c - t)
+        fix = (err != 0) & torch.isfinite(err) & ((s.view(torch.int64) & 1) == 0)
+        s = torch.where(fix, torch.nextafter(s, torch.copysign(torch.full_like(s, float("inf")), err)), s)
+    return s.float()
+
+
+def plane_frame(pts: torch.Tensor, Rp: torch.Tensor, Tp: torch.Tensor) -> torch.Tensor:
+    """(..., 3) points -> (N, 3) in the sea-plane frame, p = Rp pts + Tp,
+    in the order of the reference's compiled export (wass_tpu/stereo/dense.py
+    _stage_export: XLA's CPU dot accumulates x r0, then y r1 and z r2 with
+    fused multiply-adds, and adds Tp after).  Written out elementwise, so no
+    BLAS kernel choice moves a bit: the truncating u16 cast of the export
+    is sensitive to the last bit of p."""
+    P = pts.reshape(-1, 3)
+    acc = P[:, 0:1] * Rp[:, 0]
+    acc = fma32(P[:, 1:2], Rp[:, 1], acc)
+    acc = fma32(P[:, 2:3], Rp[:, 2], acc)
+    return acc + Tp
+
+
 def export_u16(pts: torch.Tensor, valid: torch.Tensor, plane: torch.Tensor):
     """The .xyzC payload on the device: valid points in the sea-plane frame,
     quantized to u16 fixed point (scale = 65535 / range, clip, truncate)
     and compacted in scan order.  Returns (q (n, 3) int32, mins (3,) f32,
     scales (3,) f32); the host casts q to uint16."""
     Rp, Tp, _Rinv, _Tinv = rt_from_plane(plane)
-    # A float32 matmul (fused multiply-adds, as the reference's compiled
-    # export): the truncating u16 cast makes the payload sensitive to the
-    # last bit of p.
-    p = pts.reshape(-1, 3) @ Rp.T + Tp
+    p = plane_frame(pts, Rp, Tp)
     fv = valid.reshape(-1)
     big = 1e30
     mins = torch.where(fv[:, None], p, big).amin(0)
