@@ -30,7 +30,9 @@ Phases, each printed on its own line; any failure exits non-zero:
    cached in wass_tpu_torch/_build/) written as 3 frame workdirs, then
    `python -m wass_tpu_torch.cli.main stereo <outdir>`'s entry point with
    the stereo defaults (MAX_DISPARITY = 640, the coarse-to-fine window of
-   128).  Every frame must take the windowed branch, give a plane.txt and
+   128), through the production loop (PNG prefetch threads, 3 frames
+   dispatched ahead, 2 writer threads, the c2f fallback resolved by the
+   writers).  Every frame must take the windowed branch, give a plane.txt and
    a mesh_cam.xyzC that read back through the workdir contract
    (wass_tpu_torch.testing.read_frame), a trimmed-mean elevation error
    below 0.02 baseline units, and must have launched K1, K2, K3, K4 and
@@ -39,7 +41,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    compare byte for byte.
 4b. The other branches, one frame each through SequencePipeline with a
    config override: a forced full-range fallback (c2f_min_coverage 1.01),
-   byte-identical to a c2f_window = 0 frame (K1 + K3 + K7); the
+   byte-identical to a c2f_window = 0 frame (K1 + K3 + K7), whose launch
+   line counts its writer's full-range re-run (K7 twice); the
    left-right check (lr_max_diff 1: K1 + K5 + K7); 2 paths over the
    windows (K2 + K6, the coarse pass on K1 + K5); 5 paths over the
    windows (K2 + K4 after an 8-path coarse pass) and at full range (K1 +
@@ -50,11 +53,27 @@ Phases, each printed on its own line; any failure exits non-zero:
    same configuration's frame with H2 off (phase 4's first frame, the 4b
    frames), no frame may launch the default path's K3-K6, and the runs
    together must launch every H2 kernel and sgm_walk.
-5. Where the c2f frame's time goes: its device stages one after another
-   (CUDA events, a synchronize between stages, 3 repeats), K7's rounds on
-   the frame's own z-gap mask, and the sequence loop's frames/s over
-   LOOP_FRAMES frames through SequencePipeline (3 passes, the first one
-   with the warm-up).  Measurement only: nothing here is counted as a launch of the
+P. Prepare on the card: the scene's surface traced through a known lens
+   (PREP_DIST, |k1| <= 0.05; the render cached in wass_tpu_torch/_build/
+   beside the scene) as PREP_FRAMES raw PNG pairs with calib/ (intrinsics,
+   distortion, ext_R, ext_T), then `prepare`, `genconfig --stage stereo`
+   and `stereo` through the CLI's entry point; every frame must take the
+   windowed branch and meet the 0.02 gate.  Prints prepare's frames/s, the
+   device ms of undistort_image and clahe per image (CUDA events), the host
+   ms of the PNG encode and decode (filter-0 and Paeth rows, and Paeth
+   decodes one after another against the 4-thread prefetcher), then one
+   frame prepared with CLAHE (tiles of CLAHE_TILE_PX, from
+   prepare_config.txt) through SequencePipeline.prepare and reconstructed,
+   its elevation error printed, not gated.
+5. Where the c2f frame's time goes: the sequence loop's frames/s over
+   LOOP_FRAMES frames through SequencePipeline at each (dispatch_depth,
+   writer_threads) of LOOP_SETTINGS (3 passes each, the first one with the
+   warm-up), with the PNG decode ms on the prefetch threads, the main
+   thread's dispatch ms per frame and the peak device memory; the host
+   syncs of one dispatched frame (torch.cuda.set_sync_debug_mode); the
+   frame's device stages one after another (CUDA events, a synchronize
+   between stages, 3 repeats) and K7's rounds on the frame's own z-gap
+   mask.  Measurement only: nothing here is counted as a launch of the
    main path.
 6. A JSON line of per-kernel results (times, launches, and the bound: the
    larger of the bytes the function must move, each input read once and
@@ -73,9 +92,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -96,6 +117,14 @@ POPC_PER_CLOCK_PER_SM = 16  # __popc results a clock per SM on sm_90, a quarter 
 CENSUS_9X9 = (9, 9)  # a 3-word census (80 bits), checked beside the default 7x9 (2 words)
 SGM_OPS = 8  # integer operations per cost element and path (3 min, 3 add/sub, 2 compare)
 LOOP_FRAMES = 10  # frames of the sequence-loop timing (phase 5)
+LOOP_SETTINGS = ((1, 1), (3, 2))  # (dispatch_depth, writer_threads) timed in phase 5
+PREP_FRAMES = 3  # raw frames of phase P
+# The known lens of phase P's raw frames, (k1, k2, p1, p2, k3) per camera:
+# barrel distortion on both, as wide-angle lenses have, so the undistorted
+# images keep every pixel (a pincushion lens leaves a black border, whose
+# points fail the elevation gate).
+PREP_DIST = ([-0.04, 0.01, 2e-4, -1e-4, 0.0], [-0.03, 0.005, 0.0, 0.0, 0.0])
+CLAHE_TILE_PX = 150  # CAM{0,1}_CLAHE_TILEGRIDSIZE of phase P's CLAHE frame
 
 KERNELS = {
     "census_cost": ("wass_tpu_torch/csrc/census_cost.cu", "wass_tpu/stereo/sgm_pallas.py:710"),
@@ -637,7 +666,11 @@ def run_frame(root: Path, name: str, override: dict, required, c2f_end, img0, im
     launches = wass_tpu_torch.launch_counts()
     log(f"branch {name} {override}: {time.time() - t0:.2f} s; launches {launches}")
     wd = seq / "000000_wd"
-    check_frame(name, wd, scene, required, gate=name in GATED)
+    per_frame = check_frame(name, wd, scene, required, gate=name in GATED)
+    if name == "fallback" and per_frame.get("label_propagate") != 2:
+        # The writer's full-range re-run counts for its own frame: K7 runs
+        # once in the windowed pass and once in the re-run.
+        raise AssertionError(f"fallback frame: launches {per_frame}, expected label_propagate=2")
     line = c2f_line(wd)
     if (c2f_end is None and line) or (c2f_end is not None and not line.endswith(c2f_end)):
         raise AssertionError(f"branch {name}: c2f log line {line!r}, expected {c2f_end!r}")
@@ -679,6 +712,191 @@ def run_h2_frames(root: Path, img0, img1, rig, scene) -> dict:
     return totals
 
 
+def paeth_png(img8) -> bytes:
+    """PNG bytes of an (H, W) uint8 image with the Paeth filter on every row
+    (what libpng writers often choose), which the port's decoder
+    reconstructs one anti-diagonal at a time."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    from wass_tpu_torch.io import png
+
+    x = img8.astype(np.int32)
+    a = np.pad(x, ((0, 0), (1, 0)))[:, :-1]
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    c = np.pad(x, ((1, 0), (1, 0)))[:-1, :-1]
+    raw = np.empty((x.shape[0], x.shape[1] + 1), np.uint8)
+    raw[:, 0] = 4
+    raw[:, 1:] = (x - png._paeth(a, b, c)) & 0xFF
+    ihdr = struct.pack(">IIBBBBB", x.shape[1], x.shape[0], 8, 0, 0, 0, 0)
+    return (png._SIGNATURE + png._chunk(b"IHDR", ihdr) + png._chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + png._chunk(b"IEND", b""))
+
+
+def host_png_times(img8, root: Path) -> None:
+    """Phase P: host ms of the port's PNG encode and decode at full size
+    (filter-0 rows, the port's writer; Paeth rows), and Paeth decodes one
+    after another against the prefetcher's 4 threads."""
+    import numpy as np
+
+    from wass_tpu_torch.io import png
+    from wass_tpu_torch.io.prefetch import Prefetcher
+
+    def host_ms(fn, reps=3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return (time.perf_counter() - t0) / reps * 1e3, out
+
+    enc_ms, data = host_ms(lambda: png.encode_gray(img8))
+    dec_ms, back = host_ms(lambda: png.decode_gray(data))
+    paeth = paeth_png(img8)
+    pdec_ms, pback = host_ms(lambda: png.decode_gray(paeth), 2)
+    if not (np.array_equal(back, img8) and np.array_equal(pback, img8)):
+        raise AssertionError("PNG round trip changed the image")
+    log(f"host PNG {img8.shape[1]}x{img8.shape[0]}: encode {enc_ms:.1f} ms ({len(data)} bytes), decode filter-0 "
+        f"{dec_ms:.1f} ms, decode Paeth {pdec_ms:.1f} ms ({len(paeth)} bytes)")
+    paths = []
+    for k in range(8):
+        path = root / f"paeth_{k}.png"
+        path.write_bytes(paeth)
+        paths.append(path)
+    t0 = time.perf_counter()
+    for path in paths:
+        png.read_gray(path)
+    serial = time.perf_counter() - t0
+    with Prefetcher(4) as pf:
+        t0 = time.perf_counter()
+        for t in [pf.submit(path) for path in paths]:
+            pf.take(t)
+        pooled = time.perf_counter() - t0
+    log(f"host PNG: 8 Paeth decodes one after another {serial * 1e3:.1f} ms, on the 4-thread prefetcher "
+        f"{pooled * 1e3:.1f} ms ({serial / pooled:.2f}x)")
+
+
+def run_prepare(root: Path, rig, scene) -> dict:
+    """Phase P: raw frames through a known lens -> `prepare` -> `genconfig`
+    -> `stereo`, on the card, checked like phase 4; the device ms of
+    undistort_image and clahe, the host ms of the PNG codec, prepare's
+    frames/s; then one frame prepared with CLAHE through
+    SequencePipeline.prepare, its elevation error printed, not gated."""
+    import numpy as np
+    import torch
+
+    import wass_tpu_torch
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.cli.main import main as cli_main
+    from wass_tpu_torch.io.png import read_gray
+    from wass_tpu_torch.ops.sampling import undistort_image
+    from wass_tpu_torch.prepare.clahe import clahe
+    from wass_tpu_torch.testing import load_or_render_raw, read_frame, trimmed_elevation_error, write_raw_sequence
+
+    t0 = time.time()
+    raw = load_or_render_raw(rig, SCENE_SEED, *PREP_DIST, root)
+    log(f"phase P: the scene through the lenses {PREP_DIST} ready in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cam0, cam1, calib = write_raw_sequence(root / "smoke_raw", *raw, rig, PREP_FRAMES, *PREP_DIST)
+    log(f"phase P: {PREP_FRAMES} raw pairs written in {time.time() - t0:.2f} s")
+    out = root / "smoke_prepared"
+    if out.exists():
+        shutil.rmtree(out)
+    t0 = time.time()
+    if cli_main(["prepare", str(cam0), str(cam1), str(calib), str(out)]) != 0:
+        raise AssertionError("prepare CLI failed")
+    wall = time.time() - t0
+    log(f"prepare: {PREP_FRAMES} frames in {wall:.3f} s = {PREP_FRAMES / wall:.4f} frames/s "
+        "(raw PNG decode, undistortion on the card, PNG encode and XML files)")
+    if cli_main(["genconfig", str(out), "--stage", "stereo"]) != 0:
+        raise AssertionError("genconfig failed")
+    wass_tpu_torch.reset_launch_counts()
+    if cli_main(["stereo", str(out)]) != 0:
+        raise AssertionError("stereo CLI failed on the prepared frames")
+    launches = wass_tpu_torch.launch_counts()
+    for i, wd in enumerate(sorted(out.glob("*_wd"))):
+        check_frame(f"prepared {i}", wd, scene, WINDOWED_PATH, gate=True)
+        if not c2f_line(wd).endswith("windowed"):
+            raise AssertionError(f"prepared frame {i} did not take the windowed branch: {c2f_line(wd)!r}")
+
+    dev = torch.device("cuda")
+    raw0 = read_gray(cam0 / "000000.png")
+    x = torch.as_tensor(raw0.astype(np.float32), device=dev)
+    K = torch.as_tensor(np.asarray(rig.K0, np.float32), device=dev)
+    dist = torch.as_tensor(np.asarray(PREP_DIST[0], np.float32), device=dev)
+    H, Wd = raw0.shape
+    log(f"device per image {Wd}x{H}: undistort_image {cuda_ms(lambda: undistort_image(x, K, dist), 5):.3f} ms, "
+        f"clahe ({H // CLAHE_TILE_PX}x{Wd // CLAHE_TILE_PX} tiles) "
+        f"{cuda_ms(lambda: clahe(x, 2.0, tiles_x=Wd // CLAHE_TILE_PX, tiles_y=H // CLAHE_TILE_PX), 5):.3f} ms")
+    host_png_times(raw0, root)
+
+    # One frame with CLAHE, through SequencePipeline.prepare and the
+    # options of prepare_config.txt.
+    seq = root / "smoke_clahe"
+    if seq.exists():
+        shutil.rmtree(seq)
+    seq.mkdir()
+    (seq / "prepare_config.txt").write_text(
+        f"CAM0_CLAHE_TILEGRIDSIZE={CLAHE_TILE_PX}\nCAM1_CLAHE_TILEGRIDSIZE={CLAHE_TILE_PX}\n")
+    pipe = load_pipeline(seq)
+    raw1 = read_gray(cam1 / "000000.png")
+    t0 = time.time()
+    pipe.prepare([(raw0.astype(np.float32), raw1.astype(np.float32))], rig.K0, PREP_DIST[0], rig.K1, PREP_DIST[1],
+                 rig.R, rig.T)
+    log(f"prepare with CLAHE ({pipe.cfg.prepare}): 1 frame in {time.time() - t0:.3f} s")
+    wass_tpu_torch.reset_launch_counts()
+    pipe.stereo()
+    add_counts(launches, wass_tpu_torch.launch_counts())
+    plane, mesh, _ = read_frame(seq / "000000_wd")
+    err = trimmed_elevation_error(scene, mesh, plane) if np.all(np.isfinite(plane)) and len(mesh) else float("nan")
+    log(f"frame clahe: {len(mesh)} points, trimmed-mean elevation error {err:.5f} (not gated: CLAHE changes the "
+        f"images on purpose), {c2f_line(seq / '000000_wd') or 'no c2f'}")
+    return launches
+
+
+def dispatch_syncs(img0, img1, rig, cfg) -> list:
+    """Phase 5: the operations that make the dispatching thread wait for the
+    device, in one c2f frame dispatched as the sequence loop dispatches it
+    (deferred fallback), under torch.cuda.set_sync_debug_mode("warn")."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.device import to_device
+    from wass_tpu_torch.stereo import dense
+
+    dev = torch.device("cuda")
+    H, W = img0.shape
+    geom = dense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
+    gp = dense.build_geom_pack(geom, (H, W), dev)
+    pipe = dense.DenseStereoPipeline(cfg, defer_c2f_fallback=True)
+    b8, m8 = (np.clip(np.asarray(x), 0, 255).astype(np.uint8) for x in
+              ((img0, img1) if geom.base_is_cam0 else (img1, img0)))
+
+    def dispatch():
+        b = to_device(torch.from_numpy(b8), dev).float()
+        m = to_device(torch.from_numpy(m8), dev).float()
+        return pipe(dense.rectify_on_device(b, gp["H_base"], (H, W)), dense.rectify_on_device(m, gp["H_match"], (H, W)), gp)
+
+    dispatch()
+    torch.cuda.synchronize()
+    # Switched on before the recording starts: the switch warns once itself.
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            dispatch()
+            host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+    log(f"dispatch of one c2f frame: {len(sites)} host syncs {sites}; host {host_ms:.1f} ms (with the sync checks)")
+    return sites
+
+
 def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
     """Phase 5: the c2f frame's device stages and the sequence loop's rate."""
     import numpy as np
@@ -693,16 +911,26 @@ def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
 
     seq = root / "smoke_loop"
     write_sequence(seq, img0, img1, rig, LOOP_FRAMES)
-    pipe = load_pipeline(seq)
-    rates = []
-    for _ in range(3):
-        t0 = time.time()
-        pipe.stereo()  # returns after the last frame's files are written
-        rates.append(LOOP_FRAMES / (time.time() - t0))
-    log(f"sequence loop: {LOOP_FRAMES} frames a pass, frames/s {' '.join(f'{r:.4f}' for r in rates)} "
-        "(PNG decode to .xyzC written; the first pass includes the warm-up)")
+    for depth, writers in LOOP_SETTINGS:
+        pipe = load_pipeline(seq)
+        pipe.cfg.dispatch_depth, pipe.cfg.writer_threads = depth, writers
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rates, decode, dispatch = [], [], []
+        for _ in range(3):
+            t0 = time.time()
+            pipe.stereo(progress_stream=io.StringIO())  # returns after the last frame's files are written
+            rates.append(LOOP_FRAMES / (time.time() - t0))
+            decode += pipe.loop_stats["decode_s"]
+            dispatch += pipe.loop_stats["dispatch_s"]
+        log(f"sequence loop (dispatch_depth {depth}, writer_threads {writers}): {LOOP_FRAMES} frames a pass, "
+            f"frames/s {' '.join(f'{r:.4f}' for r in rates)} (PNG decode to .xyzC written; the first pass "
+            f"includes the warm-up); PNG decode on the prefetch threads {1e3 * np.mean(decode):.1f} ms an image "
+            f"(max {1e3 * max(decode):.1f}); dispatch on the main thread {1e3 * np.mean(dispatch):.1f} ms a frame "
+            f"(max {1e3 * max(dispatch):.1f}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     cfg = pipe.cfg.stereo  # the AUTO smoothing resolved by the loop
+    dispatch_syncs(img0, img1, rig, cfg)
     dev = torch.device("cuda")
     H, W = img0.shape
     geom = dense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
@@ -813,6 +1041,8 @@ def main() -> int:
     launches = run_main_path(seq, scene)
     for phase in (run_branches, run_h2_frames):
         add_counts(launches, phase(_build.BUILD_DIR, img0, img1, rig, scene))
+    # Phase P: prepare on the card, then stereo on the prepared frames.
+    add_counts(launches, run_prepare(_build.BUILD_DIR, rig, scene))
     unused = [k for k in KERNELS if launches[k] < 1]
     if unused:
         raise AssertionError(f"kernels no main-path run launched: {unused}")

@@ -58,7 +58,7 @@ def frame():
     gp = jd.build_geom_pack(geom, (H, W))
     k1, _ = jax.random.split(jax.random.PRNGKey(0))
     picks = np.asarray(jax.random.randint(k1, (400, 3, 2), 0, jnp.array([W, H])))  # the JAX plane stage's draw
-    return dict(b=b, m=m, br=br, mr=mr, gp=gp, tbr=_t(br), tmr=_t(mr), uv=_t(picks),
+    return dict(scene=sc, b=b, m=m, br=br, mr=mr, gp=gp, tbr=_t(br), tmr=_t(mr), uv=_t(picks),
                 tgp=convert.geom_pack_from_numpy({k: np.asarray(v) for k, v in gp.items()}))
 
 
@@ -99,27 +99,59 @@ def _rel(a, b):
     return np.linalg.norm(a - b, axis=-1) / np.linalg.norm(a, axis=-1)
 
 
-def test_windowed_frame_matches_jax(frame, full_range, monkeypatch):
-    """Both take the windowed branch; windows' coverage within 1e-6,
-    disparity bit-equal; points, mask and plane within the tolerances of
-    test_torch_dense.py:test_slice_given_rectified_images."""
-    _jax_c2f_on_cpu(monkeypatch)
-    cfg = _cfg()
+def _check_frame_against_jax(frame, cfg, branch):
+    """One frame of both packages: disparity bit-equal, points <= 1e-5
+    relative where both are valid, plane <= 1e-4, n_points within 0.1%.
+    Returns both results."""
     pj = jd.DenseStereoPipeline(cfg)
     rj = pj(frame["br"], frame["mr"], frame["b"], frame["m"], frame["gp"])
     pt, rt = _port(frame, cfg)
-    assert pj.last_c2f["fallback"] is False and pt.last_c2f["fallback"] is False
-    assert abs(pt.last_c2f["coverage"] - pj.last_c2f["coverage"]) <= 1e-6
-    assert abs(pt.last_c2f["offband"] - pj.last_c2f["offband"]) <= 1e-6
+    if branch == "windowed":
+        assert pj.last_c2f["fallback"] is False and pt.last_c2f["fallback"] is False
+        assert abs(pt.last_c2f["coverage"] - pj.last_c2f["coverage"]) <= 1e-6
+        assert abs(pt.last_c2f["offband"] - pj.last_c2f["offband"]) <= 1e-6
+    else:
+        assert pj.last_c2f is None and pt.last_c2f is None
     dj, dt = np.asarray(rj.disparity), rt.disparity.numpy()
     np.testing.assert_array_equal(dt, dj)
-    assert not np.array_equal(dt, full_range.disparity.numpy())  # a different branch indeed
     both = np.asarray(rj.valid) & rt.valid.numpy()
     assert both.sum() > 0.5 * H * W
     assert _rel(np.asarray(rj.points)[both], rt.points.numpy()[both]).max() <= 1e-5
     assert bool(rt.plane_ok) and bool(rj.plane_ok)
     np.testing.assert_allclose(rt.plane.numpy(), np.asarray(rj.plane), rtol=0, atol=1e-4)
     assert abs(int(rt.n_points) - int(rj.n_points)) <= 0.001 * int(rj.n_points)
+    return rj, rt
+
+
+def test_windowed_frame_matches_jax(frame, full_range, monkeypatch):
+    """Both take the windowed branch; windows' coverage within 1e-6,
+    disparity bit-equal; points, mask and plane within the tolerances of
+    test_torch_dense.py:test_slice_given_rectified_images."""
+    _jax_c2f_on_cpu(monkeypatch)
+    _rj, rt = _check_frame_against_jax(frame, _cfg(), "windowed")
+    assert not np.array_equal(rt.disparity.numpy(), full_range.disparity.numpy())  # a different branch indeed
+
+
+def _elevation_error(scene, res):
+    """The trimmed-mean elevation error (testing.trimmed_elevation_error) of
+    a frame's valid float points, against its own plane."""
+    from wass_tpu_torch.testing import trimmed_elevation_error
+
+    pts = np.asarray(res.points, np.float64)[np.asarray(res.valid)]
+    return trimmed_elevation_error(scene, pts, np.asarray(res.plane, np.float64))
+
+
+@pytest.mark.parametrize("branch", ["windowed", "full_range"])
+def test_five_path_frame_matches_jax(frame, monkeypatch, branch):
+    """The 5-path set (cv::StereoSGBM's), over the c2f windows and at full
+    range, against the JAX frame as above; the two frames' elevation
+    errors agree, so an error of the 5-path frame is the method's."""
+    _jax_c2f_on_cpu(monkeypatch)
+    cfg = _cfg(directions=5, **({"c2f_window": 0} if branch == "full_range" else {}))
+    rj, rt = _check_frame_against_jax(frame, cfg, branch)
+    ej, et = _elevation_error(frame["scene"], rj), _elevation_error(frame["scene"], rt)
+    print(f"5-path {branch}: elevation error JAX {ej:.6f}, port {et:.6f}")
+    assert abs(et - ej) <= 1e-3 * ej
 
 
 def _assert_same_result(a, b):

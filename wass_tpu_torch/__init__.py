@@ -5,14 +5,19 @@ layout (`stereo/cost.py` <-> `wass_tpu/stereo/cost.py`, ...) and runs the
 dense stereo stage with known extrinsics, coarse-to-fine search and
 full-range fallback included, on an NVIDIA H100:
 
-  cli/       argparse entry point and the sequence stereo loop
+  cli/       argparse entry points (prepare, stereo, genconfig) and the
+             sequence pipeline: prepare, and the production stereo loop
+             (PNG prefetch, dispatch ahead, writer threads)
   stereo/    census, cost volumes, SGM, coarse-to-fine windows, plane fit,
              the dense frame pipeline
-  ops/       sampling, morphology, connected components
+  ops/       sampling and undistortion, morphology, connected components
   core/      geometry, triangulation, rectification (host, float64)
-  prepare/   input-degradation estimate (AUTO smoothing sigma)
+  prepare/   the prepare stage (CLAHE, undistortion, the polarimetric
+             path) and the input-degradation estimate (AUTO smoothing)
   config.py  the self-registering option registry
-  io/        stdlib PNG codec, workdirs, .xyzC, matrix files
+  launches.py  thread-safe kernel launch counts, per frame
+  io/        stdlib PNG codec and its prefetcher, workdirs, .xyzC, matrices
+  utils/     the [P|cur|tot] progress line, the stage timer
   testing/   synthetic wave-field scenes and smoke-run helpers
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
              K5/K6 SGM sums, the H2 pair and folding walks, K7 labels)
@@ -43,5 +48,4 @@ def reset_launch_counts() -> None:
     from wass_tpu_torch.stereo import sgm_kernels
 
     for counts in (sgm_kernels.LAUNCHES, components_kernels.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+        counts.reset()

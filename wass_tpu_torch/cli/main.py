@@ -1,9 +1,16 @@
-"""wass-tpu-torch command line: `wass-tpu-torch stereo <outdir>`.
+"""wass-tpu-torch command line: prepare, stereo and genconfig.
 
-The dense stereo stage of the wasscli flow on the port: every frame
-workdir (NNNNNN_wd with undistorted PNGs, intrinsics and extrinsics) under
-<outdir> is reconstructed, with the options of <outdir>/stereo_config.txt
-when it exists and the reference's defaults otherwise.
+The prepare and dense stereo stages of the wasscli flow on the port:
+
+  prepare CAM0_DIR CAM1_DIR CALIBDIR OUTDIR   raw frame pairs -> frame workdirs
+  stereo OUTDIR                               dense reconstruction of every
+                                              frame workdir under OUTDIR
+  genconfig OUTDIR --stage {prepare,stereo}   the commented option file
+
+stereo reads <outdir>/stereo_config.txt when it exists and takes the
+reference's defaults otherwise.  prepare, as the JAX package's command,
+takes the default prepare options and reads no prepare_config.txt.  Raw
+frames must be 8-bit grayscale PNG, decoded by the port's own codec.
 """
 
 from __future__ import annotations
@@ -11,29 +18,112 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+import numpy as np
+
+DEVICE_HELP = "cuda runs the CUDA kernels (default); cpu runs their plain versions"
+
 
 def load_pipeline(outdir, device: str = "cuda"):
-    """SequencePipeline configured from <outdir>/stereo_config.txt."""
-    from wass_tpu_torch.cli.options import register_all, stereo_config_from_registry
+    """SequencePipeline configured from <outdir>/{prepare,stereo}_config.txt."""
+    from wass_tpu_torch.cli.options import prepare_config_from_registry, register_all, stereo_config_from_registry
     from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
-    from wass_tpu_torch.config import stereo_cfg as reg
+    from wass_tpu_torch.config import registry
 
     register_all()
-    reg.reset()  # no values leak across sequences in one process
-    cfgfile = Path(outdir) / "stereo_config.txt"
-    if cfgfile.exists():
-        reg.load_file(cfgfile)
-    return SequencePipeline(outdir, SequenceConfig(stereo=stereo_config_from_registry(), device=device))
+    for stage in ("prepare", "stereo"):
+        reg = registry(stage)
+        reg.reset()  # no values leak across sequences in one process
+        cfgfile = Path(outdir) / f"{stage}_config.txt"
+        if cfgfile.exists():
+            reg.load_file(cfgfile)
+    cfg = SequenceConfig(prepare=prepare_config_from_registry(), stereo=stereo_config_from_registry(), device=device)
+    return SequencePipeline(outdir, cfg)
+
+
+def read_raw_frame(path) -> np.ndarray:
+    """A raw frame as float32; the port reads 8-bit grayscale PNG only."""
+    from wass_tpu_torch.io.png import read_gray
+
+    try:
+        return read_gray(path).astype(np.float32)
+    except (ValueError, OSError) as e:
+        raise SystemExit(f"wass-tpu-torch prepare: cannot read {path}: raw frames must be 8-bit grayscale PNG ({e})")
+
+
+def prepare(cam0_dir: Path, cam1_dir: Path, calibdir: Path, outdir: Path, continue_if_existing: bool,
+            device: str) -> int:
+    """Prepare all frame pairs into workdirs (wass_prepare)."""
+    from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
+    from wass_tpu_torch.io.matrices import load_matrix
+    from wass_tpu_torch.prepare.prepare import prepare_frame
+    from wass_tpu_torch.utils.progress import progress
+
+    K0 = load_matrix(calibdir / "intrinsics_00.xml")
+    K1 = load_matrix(calibdir / "intrinsics_01.xml")
+    # Distortion files are optional (wass_prepare.cpp:433-443: "Assuming no
+    # distortion" when absent).
+    d0, d1 = (load_matrix(calibdir / f"distortion_0{c}.xml").reshape(-1)
+              if (calibdir / f"distortion_0{c}.xml").exists() else np.zeros(5) for c in (0, 1))
+    ext_R = ext_T = None
+    if (calibdir / "ext_R.xml").exists():
+        ext_R = load_matrix(calibdir / "ext_R.xml")
+        ext_T = load_matrix(calibdir / "ext_T.xml")
+
+    f0 = sorted(cam0_dir.glob("*"))
+    f1 = sorted(cam1_dir.glob("*"))
+    if len(f0) != len(f1):
+        raise SystemExit("wass-tpu-torch prepare: camera folders contain different frame counts")
+
+    pipe = SequencePipeline(outdir, SequenceConfig(device=device))
+    dev = pipe._device()
+    for i, (a, b) in enumerate(zip(f0, f1)):
+        wd_path = pipe.outdir / f"{i:06d}_wd"
+        if continue_if_existing and (wd_path / "undistorted" / "00000001.png").exists():
+            continue
+        prepare_frame(wd_path, read_raw_frame(a), read_raw_frame(b), K0, d0, K1, d1, pipe.cfg.prepare,
+                      ext_R, ext_T, device=dev)
+        progress(i + 1, len(f0))
+    print(f"prepared {len(f0)} frames into {outdir}")
+    return 0
+
+
+def genconfig(outdir: Path, stage: str) -> int:
+    """Write the commented key=value options of a stage (--genconfig)."""
+    from wass_tpu_torch.cli.options import register_all
+    from wass_tpu_torch.config import registry
+
+    register_all()
+    out = outdir / f"{stage}_config.txt" if outdir.is_dir() else outdir
+    out.write_text(registry(stage).to_config_string())
+    print(f"wrote {out}")
+    return 0
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="wass-tpu-torch", description=__doc__.splitlines()[0])
     sub = parser.add_subparsers(dest="command", required=True)
+    pr = sub.add_parser("prepare", help="prepare all frame pairs into workdirs (wass_prepare)")
+    for name in ("cam0_dir", "cam1_dir", "calibdir"):
+        pr.add_argument(name, type=Path)
+    pr.add_argument("outdir", type=Path)
+    pr.add_argument("--continue-if-existing", action="store_true", help="skip frames whose workdir is complete")
+    pr.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help=DEVICE_HELP)
     st = sub.add_parser("stereo", help="dense reconstruction of every frame workdir (wass_stereo)")
     st.add_argument("outdir", type=Path)
-    st.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                    help="cuda runs the CUDA kernels (default); cpu runs their plain versions")
+    st.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help=DEVICE_HELP)
+    gc = sub.add_parser("genconfig", help="write a stage's commented option file")
+    gc.add_argument("outdir", type=Path)
+    gc.add_argument("--stage", default="stereo", choices=("prepare", "stereo"))
     args = parser.parse_args(argv)
+
+    if args.command == "prepare":
+        for d in (args.cam0_dir, args.cam1_dir, args.calibdir):
+            if not d.is_dir():
+                parser.error(f"no such directory: {d}")
+        return prepare(args.cam0_dir, args.cam1_dir, args.calibdir, args.outdir, args.continue_if_existing,
+                       args.device)
+    if args.command == "genconfig":
+        return genconfig(args.outdir, args.stage)
     if not args.outdir.is_dir():
         parser.error(f"no such directory: {args.outdir}")
     planes = load_pipeline(args.outdir, args.device).stereo()

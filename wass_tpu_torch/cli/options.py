@@ -1,17 +1,28 @@
-"""Reference-compatible stereo options and their mapping to the config.
+"""Reference-compatible prepare and stereo options and their mapping to
+the configs.
 
-Copied from the stereo block of wass_tpu/cli/options.py (register_all and
-stereo_config_from_registry), whose package imports jax, onto the port's
-own stereo registry (wass_tpu_torch/config.py): the reference's stereo_config.txt names
-and defaults (wass_stereo.cpp:52-84, 742-761, 1030-1037, PovMesh.cpp:577-579).
+Copied from the prepare and stereo blocks of wass_tpu/cli/options.py
+(register_all, prepare_ and stereo_config_from_registry), whose package
+imports jax, onto the port's own registries (wass_tpu_torch/config.py):
+the reference's prepare_config.txt and stereo_config.txt names and
+defaults (wass_prepare.cpp:36-39; wass_stereo.cpp:52-84, 742-761,
+1030-1037, PovMesh.cpp:577-579).  The matcher block comes with the match
+stage.
 """
 
 from __future__ import annotations
 
-from wass_tpu_torch.config import stereo_cfg
+from wass_tpu_torch.config import prepare_cfg, stereo_cfg
 
 
 def register_all() -> None:
+    # ---- prepare (wass_prepare.cpp:36-39) --------------------------------
+    prepare_cfg.register(float, "CAM0_CLAHE_CLIPLIMIT", 2.0, "CAM0 CLAHE cliplimit parameter")
+    prepare_cfg.register(int, "CAM0_CLAHE_TILEGRIDSIZE", 0, "CAM0 CLAHE tile grid size (set to 0 to disable CLAHE). 150 is a good value to start")
+    prepare_cfg.register(float, "CAM1_CLAHE_CLIPLIMIT", 2.0, "CAM1 CLAHE cliplimit parameter")
+    prepare_cfg.register(int, "CAM1_CLAHE_TILEGRIDSIZE", 0, "CAM1 CLAHE tile grid size (set to 0 to disable CLAHE). 150 is a good value to start")
+
+    # ---- stereo ----------------------------------------------------------
     s = stereo_cfg
     s.register(int, "RANDOM_SEED", -1, "Random seed for ransac. -1 to use system timer")
     s.register(int, "MIN_TRIANGULATED_POINTS", 100, "Minimum number of triangulated point to proceed with plane estimation")
@@ -102,4 +113,18 @@ def stereo_config_from_registry():
         min_triangulated=g("MIN_TRIANGULATED_POINTS"),
         random_seed=max(g("RANDOM_SEED"), 0),
         input_smooth_sigma=g("DENSE_INPUT_SMOOTH_SIGMA"),
+    )
+
+
+def prepare_config_from_registry():
+    """Build the port's PrepareConfig from the registry's values."""
+    from wass_tpu_torch.prepare.prepare import PrepareConfig
+
+    register_all()
+    g = prepare_cfg.get
+    return PrepareConfig(
+        clahe_clip_limit_cam0=g("CAM0_CLAHE_CLIPLIMIT"),
+        clahe_tile_px_cam0=g("CAM0_CLAHE_TILEGRIDSIZE"),
+        clahe_clip_limit_cam1=g("CAM1_CLAHE_CLIPLIMIT"),
+        clahe_tile_px_cam1=g("CAM1_CLAHE_TILEGRIDSIZE"),
     )

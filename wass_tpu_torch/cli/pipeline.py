@@ -1,22 +1,37 @@
-"""Sequence-level dense stereo (the wass_stereo stage over every frame).
+"""Sequence-level orchestration: the prepare stage over every frame pair,
+and the production dense-stereo loop over every frame workdir.
 
-Counterpart of SequencePipeline.stereo in wass_tpu/cli/pipeline.py: the
-AUTO smoothing sigma is resolved once from frame 0, each frame is
-rectified and reconstructed on the device, and one writer thread
-finalizes a frame (plane.txt, mesh_cam.xyzC, P0cam/P1cam, poses,
-stereo_config.txt, wass_stereo_log.txt) while the next one is decoded and
-computed.  output/planes.txt collects the planes.
+Counterpart of SequencePipeline in wass_tpu/cli/pipeline.py.  The stereo
+loop is the JAX package's _stereo_pipelined: PNGs decode on prefetch
+threads (io/prefetch.py) dispatch_depth + 1 frames ahead; the main thread
+uploads, rectifies and dispatches each frame's device work without
+waiting for the device (c2f's fallback decision is deferred); writer
+threads finalize the frames (the c2f fallback resolved and, where it
+trips, the frame re-run at full range; plane.txt, mesh_cam.xyzC,
+P0cam/P1cam, poses, stereo_config.txt, wass_stereo_log.txt) while later
+frames compute; at most dispatch_depth frames are in flight, and a
+`[P|cur|tot]` line follows each finalized frame.  output/planes.txt
+collects the planes.  The AUTO smoothing sigma is resolved once from
+frame 0.
 
-Not ported yet: the prepare / match / autocalibrate stages, the
-frame-sharded multi-device runner, the optical-flow path, debug renders
-and the delta-coded wire format (the .xyzC payload is always the direct
-u16 export).
+On a card each writer thread reads its frames on a CUDA stream of its
+own, after an event recorded at the end of the frame's dispatch: a read on
+the dispatching stream would wait for every frame dispatched since.  The
+one host read left on the dispatching thread is the plane refinement's
+3x3 eigenproblem (stereo/plane.py).
+
+Not ported yet: the match / autocalibrate stages, the frame-sharded
+multi-device runner, the optical-flow path, debug renders and the
+delta-coded wire format (the .xyzC payload is always the direct u16
+export).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional, Sequence
@@ -24,10 +39,15 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+import wass_tpu_torch
+from wass_tpu_torch.core.geometry import rt_from_plane
+from wass_tpu_torch.device import resolve_device, to_device
+from wass_tpu_torch.io.png import read_gray
+from wass_tpu_torch.io.prefetch import Prefetcher
 from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
 from wass_tpu_torch.io.xyzc import save_xyz_quantized
-from wass_tpu_torch.core.geometry import rt_from_plane
-from wass_tpu_torch.io.png import read_gray
+from wass_tpu_torch.launches import frame_scope
+from wass_tpu_torch.prepare.prepare import PrepareConfig, prepare_frame
 from wass_tpu_torch.stereo.dense import (
     DenseStereoConfig,
     DenseStereoPipeline,
@@ -36,14 +56,20 @@ from wass_tpu_torch.stereo.dense import (
     prepare_frame_geometry,
     rectify_on_device,
 )
+from wass_tpu_torch.utils.progress import progress
 
 
 @dataclasses.dataclass
 class SequenceConfig:
+    prepare: PrepareConfig = dataclasses.field(default_factory=PrepareConfig)
     stereo: DenseStereoConfig = dataclasses.field(default_factory=DenseStereoConfig)
     # "cuda" runs the kernels and needs a card; "cpu" runs the plain
     # versions (tests).  No fallback from one to the other.
     device: str = "cuda"
+    # Production-loop knobs (the JAX package's): frames dispatched ahead of
+    # the oldest one not yet finalized, and finalizing writer threads.
+    dispatch_depth: int = 3
+    writer_threads: int = 2
 
 
 class SequencePipeline:
@@ -51,17 +77,27 @@ class SequencePipeline:
         self.outdir = Path(outdir)
         self.cfg = cfg or SequenceConfig()
         self.outdir.mkdir(parents=True, exist_ok=True)
+        # The last stereo loop's host timings: seconds of each PNG decode on
+        # the prefetch threads, and of each frame's dispatch on the main thread.
+        self.loop_stats: dict = {}
+
+    def _device(self) -> torch.device:
+        return resolve_device(self.cfg.device)
+
+    # -- stage 1: prepare --------------------------------------------------
+    def prepare(self, frames, K0, d0, K1, d1, ext_R=None, ext_T=None) -> List[Workdir]:
+        """frames: iterable of (img0, img1) raw grayscale arrays."""
+        device = self._device()
+        return [
+            prepare_frame(self.outdir / f"{i:06d}_wd", img0, img1, K0, d0, K1, d1, self.cfg.prepare,
+                          ext_R, ext_T, device=device)
+            for i, (img0, img1) in enumerate(frames)
+        ]
 
     def workdirs(self) -> List[Workdir]:
         return frame_workdirs(self.outdir)
 
-    def _device(self) -> torch.device:
-        if self.cfg.device == "cuda":
-            from wass_tpu_torch.device import require_cuda
-
-            return require_cuda()
-        return torch.device(self.cfg.device)
-
+    # -- stage 4: dense stereo --------------------------------------------
     def _frame_geometry(self, cache: dict, K0, K1, R, T, shape, device):
         """Geometry + device pack, cached by rig parameters."""
         key = (K0.tobytes(), K1.tobytes(), np.asarray(R).tobytes(), np.asarray(T).tobytes(), shape)
@@ -73,13 +109,23 @@ class SequencePipeline:
             cache[key] = hit
         return hit
 
-    def _finalize_stereo_frame(self, wd: Workdir, geom, res, K0, K1, launches: dict,
-                               c2f: Optional[dict]) -> np.ndarray:
-        """Per-frame outputs; the first host sync of this frame's results.
-        c2f: the frame's resolved coarse-to-fine diagnostics, or None."""
+    def _finalize_stereo_frame(self, wd: Workdir, geom, res, K0, K1, extras: dict) -> np.ndarray:
+        """Per-frame outputs, on a writer thread; the first host reads of the
+        frame's results.  extras: the frame's kernel launches ("launches"),
+        and, when c2f ran, its deferred diagnostics ("c2f"), the pipeline
+        ("pipe"), the rectified pair ("rect") and the geometry pack ("gp")
+        for a full-range re-run."""
         t0 = time.time()
+        c2f = extras.get("c2f")
+        if c2f is not None:
+            # Deferred c2f fallback: read the coverage scalars, re-run the
+            # frame at full range if the guard trips; its launches count
+            # for this frame.
+            with frame_scope(extras["launches"]):
+                res, c2f = extras["pipe"].resolve_fallback(res, c2f, *extras["rect"], extras["gp"])
         log_lines = [
-            "kernel launches: " + " ".join(f"{k}={v}" for k, v in sorted(launches.items()))
+            "kernel launches: "
+            + " ".join(f"{k}={extras['launches'].get(k, 0)}" for k in sorted(wass_tpu_torch.launch_counts()))
         ]
         if c2f is not None:
             log_lines.append(
@@ -113,10 +159,10 @@ class SequencePipeline:
 
         if np.all(np.isfinite(plane)):
             # Sea-plane-frame u16 payload quantized and compacted on the
-            # device; the host writes exactly the 6n payload bytes.
+            # device; the host fetches exactly the n_points payload rows.
             plane32 = torch.as_tensor(plane, dtype=torch.float32)
             _Rp, _Tp, Rinv, Tinv = (a.numpy().astype(np.float64) for a in rt_from_plane(plane32))
-            q, mins, scales = export_u16(res.points, res.valid, plane32.to(res.points.device))
+            q, mins, scales = export_u16(res.points, res.valid, plane32.to(res.points.device), n_points)
             save_xyz_quantized(
                 wd.path / "mesh_cam.xyzC",
                 q.cpu().numpy().astype(np.uint16),
@@ -139,9 +185,10 @@ class SequencePipeline:
                 f.write(f"[INFO] {ln}\n")
             f.write(f"[INFO] finalize wall time: {time.time()-t0:.3f}s\n")
 
-    def stereo(self, wds: Optional[Sequence[Workdir]] = None) -> List[np.ndarray]:
+    def stereo(self, wds: Optional[Sequence[Workdir]] = None, progress_stream=None) -> List[np.ndarray]:
         """Dense reconstruction of every frame; returns the planes (nan rows
-        for failed frames) and writes output/planes.txt."""
+        for failed frames) and writes output/planes.txt.  Progress lines go
+        to progress_stream (stdout by default)."""
         wds = list(wds if wds is not None else self.workdirs())
         if self.cfg.stereo.input_smooth_sigma < 0 and wds:
             # AUTO pre-smoothing, resolved once per sequence from frame 0.
@@ -151,46 +198,88 @@ class SequencePipeline:
                 self.cfg.stereo,
                 input_smooth_sigma=resolve_smooth_sigma(-1.0, read_gray(wds[0].undistorted_path(0)).astype(np.float32), "dense"),
             )
-        planes = self._stereo_loop(wds)
+        planes = self._stereo_pipelined(wds, progress_stream)
         self._write_sequence_outputs(wds, planes)
         return planes
 
-    def _stereo_loop(self, wds) -> List[np.ndarray]:
-        """Frames in order.  A frame's finalize (device-to-host copies, file
-        writes) runs on the writer thread while the main thread decodes and
-        computes the next frame; one finalize at a time, so at most two
-        frames' results are alive.  The c2f fallback is decided inside the
-        frame, before its full-resolution pass (the pipeline's default, not
-        deferred): a re-run from the writer thread would launch kernels
-        from a second thread and blur the per-frame launch counts."""
-        import wass_tpu_torch
-
+    def _stereo_pipelined(self, wds, progress_stream=None) -> List[np.ndarray]:
         device = self._device()
-        pipe = DenseStereoPipeline(self.cfg.stereo)
+        on_card = device.type == "cuda"
+        # Deferred c2f fallback: the dispatching thread never waits for the
+        # coverage scalars; the writers resolve them.
+        pipe = DenseStereoPipeline(self.cfg.stereo, defer_c2f_fallback=True)
+        depth = max(1, self.cfg.dispatch_depth)
         geom_cache: dict = {}
-        planes: List[np.ndarray] = []
-        pending = None
-        with ThreadPoolExecutor(max_workers=1) as writer:
-            for wd in wds:
-                img0 = read_gray(wd.undistorted_path(0))  # uint8, cast on the device
-                img1 = read_gray(wd.undistorted_path(1))
+        planes: List[np.ndarray] = [None] * len(wds)
+        inflight: deque = deque()
+        dispatch_s: List[float] = []
+        writer_local = threading.local()
+
+        def finalize(wd, geom, res, K0, K1, extras):
+            if not on_card:
+                return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras)
+            stream = getattr(writer_local, "stream", None)
+            if stream is None:
+                stream = writer_local.stream = torch.cuda.Stream(device)
+            stream.wait_event(extras["ready"])
+            c2f = extras["c2f"] or {}
+            for t in (*res, *extras["rect"], c2f.get("coverage"), c2f.get("offband")):
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(stream)
+            with torch.cuda.stream(stream):
+                return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras)
+
+        def pop_oldest():
+            j, fut = inflight.popleft()
+            planes[j] = fut.result()
+            progress(j + 1, len(wds), stream=progress_stream)
+
+        prefetcher = Prefetcher(4)
+        tickets: dict = {}
+
+        def submit(i):
+            if 0 <= i < len(wds) and i not in tickets:
+                tickets[i] = (prefetcher.submit(wds[i].undistorted_path(0)), prefetcher.submit(wds[i].undistorted_path(1)))
+
+        writers = ThreadPoolExecutor(max_workers=max(1, self.cfg.writer_threads), thread_name_prefix="stereo-writer")
+        try:
+            for i in range(depth + 1):
+                submit(i)
+            for i, wd in enumerate(wds):
+                ticket0, ticket1 = tickets.pop(i)
+                img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
+                submit(i + depth + 1)
+                t0 = time.perf_counter()
                 K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
                 R, T = wd.load_extrinsics()
                 geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, device)
                 b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
                 H, W = img0.shape
-                b = torch.as_tensor(b_img).to(device).to(torch.float32)
-                m = torch.as_tensor(m_img).to(device).to(torch.float32)
-                before = wass_tpu_torch.launch_counts()
-                base_rect = rectify_on_device(b, geom.H_base, (H, W))
-                match_rect = rectify_on_device(m, geom.H_match, (H, W))
-                res = pipe(base_rect, match_rect, gp)
-                launches = {k: v - before[k] for k, v in wass_tpu_torch.launch_counts().items()}
-                if pending is not None:
-                    planes.append(pending.result())
-                pending = writer.submit(self._finalize_stereo_frame, wd, geom, res, K0, K1, launches, pipe.last_c2f)
-            if pending is not None:
-                planes.append(pending.result())
+                launches: dict = {}
+                with frame_scope(launches):
+                    # uint8 upload from pinned memory, cast on the device.
+                    b = to_device(torch.from_numpy(b_img), device).to(torch.float32)
+                    m = to_device(torch.from_numpy(m_img), device).to(torch.float32)
+                    base_rect = rectify_on_device(b, gp["H_base"], (H, W))
+                    match_rect = rectify_on_device(m, gp["H_match"], (H, W))
+                    res = pipe(base_rect, match_rect, gp)
+                extras = {"launches": launches, "c2f": pipe.last_c2f, "pipe": pipe,
+                          "rect": (base_rect, match_rect), "gp": gp}
+                if on_card:
+                    extras["ready"] = torch.cuda.Event()
+                    extras["ready"].record()
+                inflight.append((i, writers.submit(finalize, wd, geom, res, K0, K1, extras)))
+                dispatch_s.append(time.perf_counter() - t0)
+                # Bound the frames in flight; the oldest one's writer has
+                # usually finished by now.
+                while len(inflight) > depth:
+                    pop_oldest()
+            while inflight:
+                pop_oldest()
+        finally:
+            writers.shutdown(wait=True)
+            prefetcher.close()
+            self.loop_stats = {"decode_s": list(prefetcher.decode_s), "dispatch_s": dispatch_s}
         return planes
 
     def _write_sequence_outputs(self, wds, planes) -> None:

@@ -21,6 +21,16 @@ def require_cuda(index: int = 0) -> torch.device:
     return torch.device("cuda", index)
 
 
+def resolve_device(name) -> torch.device:
+    """The device an entry point runs on: "cuda" (the default of the
+    entry points) needs a card and raises without one; "cpu" is asked
+    for explicitly (the tests)."""
+    device = torch.device(name)
+    if device.type == "cuda":
+        return require_cuda(device.index or 0)
+    return device
+
+
 def on_cuda(*tensors: torch.Tensor) -> bool:
     """True when the tensors all lie on one CUDA device, False when they
     all lie on the CPU; raises on any other mix.  Kernel wrappers launch
@@ -31,3 +41,13 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if len(devices) == 1 and next(iter(devices)).type == "cuda":
         return True
     raise ValueError(f"tensors must all be on the CPU or on one CUDA device, got {sorted(map(str, devices))}")
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device` without waiting for the device: on CUDA a
+    copy from pinned memory, enqueued on the current stream (a copy from
+    pageable memory synchronizes the stream first)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -47,6 +47,14 @@ def _unfilter(data: bytes, H: int, W: int) -> np.ndarray:
     if (ftype > 4).any():
         y = int(np.flatnonzero(ftype > 4)[0])
         raise ValueError(f"bad PNG filter type {ftype[y]} in row {y}")
+    if not (ftype >= 2).any():
+        # None / Sub only (the port's writer: None): rows are independent,
+        # so the whole image is a copy and one cumulative sum (uint8 wraps).
+        out = filt.copy()
+        sub = ftype == 1
+        if sub.any():
+            out[sub] = np.cumsum(filt[sub], axis=1, dtype=np.uint8)
+        return out
     if not (ftype >= 3).any():
         # None / Sub / Up: each row is one vector operation (uint8 wraps).
         out = np.empty((H, W), np.uint8)
@@ -96,7 +104,13 @@ def decode_gray(buf: bytes) -> np.ndarray:
     W, H, depth, ctype, _comp, _filt, interlace = header
     if depth != 8 or ctype != 0 or interlace != 0:
         raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {ctype}, interlace {interlace}")
-    return _unfilter(zlib.decompress(b"".join(idat)), H, W)
+    try:
+        data = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"corrupt PNG image data ({e})") from e
+    if len(data) != H * (W + 1):
+        raise ValueError(f"PNG image data of {len(data)} bytes for {W}x{H} pixels")
+    return _unfilter(data, H, W)
 
 
 def write_gray(path, img: np.ndarray) -> None:

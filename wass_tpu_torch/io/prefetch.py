@@ -1,0 +1,61 @@
+"""Threaded PNG prefetch: decode frames ahead of the stereo loop.
+
+The port's counterpart of the JAX package's native Prefetcher
+(wass_tpu/native/__init__.py:170-203, a C++ thread pool on libpng), with
+its interface: submit(path) -> ticket, take(ticket) -> (H, W) uint8,
+close().  The native library does not build where the port runs (no
+libpng headers), so a pool of Python threads decodes with the port's
+codec (io/png.py): zlib.decompress, most of a filter-0 decode, releases
+the interpreter lock.  A decode error is raised by take(), in the
+caller's thread.
+"""
+
+from __future__ import annotations
+
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Dict, List
+
+import numpy as np
+
+from wass_tpu_torch.io.png import read_gray
+
+
+class Prefetcher:
+    def __init__(self, n_threads: int = 4):
+        self._pool = ThreadPoolExecutor(max_workers=n_threads, thread_name_prefix="png-prefetch")
+        self._pending: Dict[int, Future] = {}
+        self._next = 0
+        # Seconds each decode took on its worker thread, in completion order.
+        self.decode_s: List[float] = []
+
+    def _decode(self, path) -> np.ndarray:
+        t0 = time.perf_counter()
+        try:
+            img = read_gray(path)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from e
+        self.decode_s.append(time.perf_counter() - t0)
+        return img
+
+    def submit(self, path) -> int:
+        ticket = self._next
+        self._next += 1
+        self._pending[ticket] = self._pool.submit(self._decode, path)
+        return ticket
+
+    def take(self, ticket: int) -> np.ndarray:
+        """The decoded image of a ticket (waits for it); raises what its
+        decode raised."""
+        return self._pending.pop(ticket).result()
+
+    def close(self) -> None:
+        """Drop the images not taken and stop the threads."""
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self._pending.clear()
+
+    def __enter__(self) -> "Prefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

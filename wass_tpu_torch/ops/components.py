@@ -33,8 +33,7 @@ def label_components(
     H, W = valid.shape
     dev = valid.device
     idx = torch.arange(H * W, dtype=torch.int32, device=dev).reshape(H, W)
-    inf = torch.tensor(INT32_MAX, dtype=torch.int32, device=dev)
-    init = torch.where(valid, idx, inf)
+    init = torch.where(valid, idx, INT32_MAX)
     if edge_h is None:
         edge_h = torch.ones((H, W - 1), dtype=torch.bool, device=dev)
     if edge_v is None:
@@ -46,20 +45,26 @@ def label_components(
         [torch.zeros((H, 1), dtype=torch.bool, device=dev), edge_h & valid[:, :-1] & valid[:, 1:]], 1
     ).to(torch.uint8)
     labels = propagate_labels(init, conn_v, conn_h, 2 * max_iters)
-    return torch.where(valid, labels, inf)
+    return torch.where(valid, labels, INT32_MAX)
 
 
-def _modal_label(labels: torch.Tensor, valid: torch.Tensor) -> int:
-    """Label of the largest component; ties go to the smallest label.
+def _modal_label(labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Label of the largest component, a 0-dim int32 tensor on the labels'
+    device (no host read): a histogram of the valid labels, which are
+    linear indices of the grid, by one index_add_, then its first maximum
+    (torch.max along a dimension, whose index a 0-dim tensor would read on
+    the host), so ties go to the smallest label; INT32_MAX when nothing is
+    valid.
     Above 2^20 pixels the vote runs on a stride-4 sample, as the reference."""
-    if labels.numel() > (1 << 20):
+    n = labels.numel()
+    if n > (1 << 20):
         labels = labels[::4, ::4]
         valid = valid[::4, ::4]
-    flat = labels[valid]
-    if flat.numel() == 0:
-        return INT32_MAX
-    values, counts = torch.unique_consecutive(torch.sort(flat).values, return_counts=True)
-    return int(values[torch.argmax(counts)])
+    bins = torch.where(valid, labels, n).reshape(-1).to(torch.int64)  # invalid pixels go to bin n
+    hist = torch.zeros(n + 1, dtype=torch.int32, device=labels.device)
+    hist.index_add_(0, bins, torch.ones_like(bins, dtype=torch.int32))
+    count, best = torch.max(hist[:n], 0)  # the first maximum; no host read
+    return torch.where(count > 0, best.to(torch.int32), INT32_MAX)
 
 
 def biggest_component_mask(

@@ -19,8 +19,9 @@ import torch
 
 from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
+from wass_tpu_torch.launches import LaunchCounts
 
-LAUNCHES = {"label_propagate": 0}
+LAUNCHES = LaunchCounts({"label_propagate": 0})
 # The per-round change flags of the last kernel launch (int32, one a round).
 LAST_CHANGED = None
 
@@ -84,7 +85,7 @@ def propagate_labels(
         H, W, rounds, _build.stream_handle(labels.device),
     )
     _build.check(err, "label_propagate kernel")
-    LAUNCHES["label_propagate"] += 1
+    LAUNCHES.add("label_propagate")
     LAST_CHANGED = changed[:rounds]
     return out
 

@@ -1,4 +1,5 @@
-"""Image sampling: bilinear / bicubic sampling, homography warp, resize.
+"""Image sampling: bilinear / bicubic sampling, homography warp, lens
+(un)distortion, resize.
 
 Counterpart of wass_tpu/ops/sampling.py.  Images are (H, W) float
 tensors; coordinates are (x, y) with (0, 0) at the centre of the top-left
@@ -80,8 +81,9 @@ def warp_homography(
     img: torch.Tensor, Hm: torch.Tensor, out_shape, interp: str = "linear", fill: float = 0.0
 ) -> torch.Tensor:
     """out(u, v) = img(Hm^-1 (u, v)) (cv::warpPerspective: Hm maps source
-    to destination)."""
-    Hi = torch.linalg.inv(Hm)
+    to destination).  The inverse skips linalg.inv's error check, a host
+    read of the solver's status."""
+    Hi = torch.linalg.inv_ex(Hm).inverse
     h, w = out_shape
     u = torch.arange(w, dtype=img.dtype, device=img.device)
     v = torch.arange(h, dtype=img.dtype, device=img.device)
@@ -92,6 +94,57 @@ def warp_homography(
     sy = (Hi[1, 0] * uu + Hi[1, 1] * vv + Hi[1, 2]) / ww
     sampler = bilinear_sample if interp == "linear" else bicubic_sample
     return sampler(img, sx, sy, fill=fill)
+
+
+def _distortion_terms(dist: torch.Tensor, like: torch.Tensor):
+    """k1, k2, p1, p2, k3, k4, k5, k6 as 0-dim tensors: the OpenCV model's
+    8 coefficients, zero-padded after the given ones."""
+    d = torch.zeros(8, dtype=like.dtype, device=like.device)
+    flat = dist.reshape(-1)
+    d[: flat.numel()] = flat.to(d)
+    return d.unbind()
+
+
+def distort_points(pts: torch.Tensor, K: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
+    """Ideal (undistorted) pixel points (..., 2) -> distorted pixel points,
+    by the OpenCV rational + tangential model; dist = (k1, k2, p1, p2[, k3[,
+    k4, k5, k6]]) as in cv::undistort (wass_prepare.cpp:268 uses 5 terms)."""
+    k1, k2, p1, p2, k3, k4, k5, k6 = _distortion_terms(dist, pts)
+    x = (pts[..., 0] - K[0, 2]) / K[0, 0]
+    y = (pts[..., 1] - K[1, 2]) / K[1, 1]
+    r2 = x * x + y * y
+    radial = (1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2) / (1 + k4 * r2 + k5 * r2 * r2 + k6 * r2 * r2 * r2)
+    xd = x * radial + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+    yd = y * radial + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+    return torch.stack([xd * K[0, 0] + K[0, 2], yd * K[1, 1] + K[1, 2]], dim=-1)
+
+
+def undistort_points(pts: torch.Tensor, K: torch.Tensor, dist: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Inverse of distort_points by `iters` fixed-point iterations
+    (cv::undistortPoints; the reference's fori_loop, here a Python loop)."""
+    k1, k2, p1, p2, k3, k4, k5, k6 = _distortion_terms(dist, pts)
+    xd = (pts[..., 0] - K[0, 2]) / K[0, 0]
+    yd = (pts[..., 1] - K[1, 2]) / K[1, 1]
+    x, y = xd, yd
+    for _ in range(iters):
+        r2 = x * x + y * y
+        radial = (1 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2) / (1 + k4 * r2 + k5 * r2 * r2 + k6 * r2 * r2 * r2)
+        dx = 2 * p1 * x * y + p2 * (r2 + 2 * x * x)
+        dy = p1 * (r2 + 2 * y * y) + 2 * p2 * x * y
+        x, y = (xd - dx) / radial, (yd - dy) / radial
+    return torch.stack([x * K[0, 0] + K[0, 2], y * K[1, 1] + K[1, 2]], dim=-1)
+
+
+def undistort_image(img: torch.Tensor, K: torch.Tensor, dist: torch.Tensor, interp: str = "linear") -> torch.Tensor:
+    """cv::undistort: each output pixel samples the source at its distorted
+    position (the same K for input and output)."""
+    H, W = img.shape
+    v = torch.arange(H, dtype=img.dtype, device=img.device)
+    u = torch.arange(W, dtype=img.dtype, device=img.device)
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    src = distort_points(torch.stack([uu, vv], dim=-1), K, dist)
+    sampler = bilinear_sample if interp == "linear" else bicubic_sample
+    return sampler(img, src[..., 0], src[..., 1])
 
 
 def resize(img: torch.Tensor, out_shape, interp: str = "cubic", fill: float = 0.0) -> torch.Tensor:

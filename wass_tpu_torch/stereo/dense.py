@@ -179,9 +179,14 @@ def build_geom_pack(geom: FrameGeometry, image_shape, device) -> dict:
     }
 
 
-def rectify_on_device(img: torch.Tensor, Hm: np.ndarray, out_shape) -> torch.Tensor:
-    """Rectification warp (cv::warpPerspective with linear interpolation)."""
-    return warp_homography(img, torch.as_tensor(np.asarray(Hm, np.float32), device=img.device), out_shape)
+def rectify_on_device(img: torch.Tensor, Hm, out_shape) -> torch.Tensor:
+    """Rectification warp (cv::warpPerspective with linear interpolation).
+    Hm: the float64 host homography, or its float32 copy on img's device
+    (the geometry pack's H_base / H_match), which spares a host-to-device
+    copy that waits for the stream."""
+    if not isinstance(Hm, torch.Tensor):
+        Hm = torch.as_tensor(np.asarray(Hm, np.float32), device=img.device)
+    return warp_homography(img, Hm, out_shape)
 
 
 # --------------------------------------------------------------------------
@@ -237,28 +242,25 @@ def triangulate_dense(disp, geom_pack: dict, base_rect, match_rect, cfg: DenseSt
         torch.arange(W, dtype=torch.float32, device=dev),
         indexing="ij",
     )
-    u8 = torch.uint8
-
-    def code(c):
-        return torch.tensor(c, dtype=u8, device=dev)
-
+    # The codes enter as Python scalars: a code tensor made on the device
+    # would be a host-to-device copy that waits for the stream.
     valid = disp > cfg.min_disp
-    reasons = torch.where(valid, code(FAIL_OK), code(FAIL_NO_DISPARITY))
+    reasons = torch.full(disp.shape, FAIL_NO_DISPARITY, dtype=torch.uint8, device=dev).masked_fill_(valid, FAIL_OK)
     roi = geom_pack["roi_mask"]
     valid = valid & roi
-    reasons = torch.where(~roi, code(FAIL_OUTSIDE_BBOX), reasons)
+    reasons = torch.where(~roi, FAIL_OUTSIDE_BBOX, reasons)
 
     xm = xx - disp  # match-image x
     in_match = (xm >= 0) & (xm < W)
     valid = valid & in_match
-    reasons = torch.where(~in_match, code(FAIL_OUTSIDE_BBOX), reasons)
+    reasons = torch.where(~in_match, FAIL_OUTSIDE_BBOX, reasons)
 
     uv_base = homogeneous_transform(geom_pack["Hi_base"], torch.stack([xx, yy], -1))
     uv_match = homogeneous_transform(geom_pack["Hi_match"], torch.stack([xm, yy], -1))
     for uv in (uv_base, uv_match):  # in-image gates, 1 px margin
         in_img = (uv[..., 0] >= 1) & (uv[..., 0] < W - 1) & (uv[..., 1] >= 1) & (uv[..., 1] < H - 1)
         valid = valid & in_img
-        reasons = torch.where(~in_img, code(FAIL_OUTSIDE_IMAGE), reasons)
+        reasons = torch.where(~in_img, FAIL_OUTSIDE_IMAGE, reasons)
 
     if cfg.discard_burned:
         # Saturation tested on the rectified images (DISCARD_BURNED_AREAS).
@@ -266,7 +268,7 @@ def triangulate_dense(disp, geom_pack: dict, base_rect, match_rect, cfg: DenseSt
         valid = valid & ~burned_base
         burned = burned_match_mask(disp, match_rect > 254.0, cfg.min_disp, cfg.num_disp)
         valid = valid & ~burned
-        reasons = torch.where(burned_base | burned, code(FAIL_BURNED), reasons)
+        reasons = torch.where(burned_base | burned, FAIL_BURNED, reasons)
 
     K0, K1 = geom_pack["K0"], geom_pack["K1"]
     base_is_cam0 = geom_pack["base_is_cam0"]
@@ -288,7 +290,7 @@ def triangulate_dense(disp, geom_pack: dict, base_rect, match_rect, cfg: DenseSt
     if cfg.min_angle_deg > 0:
         ang_ok = ang.abs() >= cfg.min_angle_deg
         valid = valid & ang_ok
-        reasons = torch.where(~ang_ok, code(FAIL_ANGLE), reasons)
+        reasons = torch.where(~ang_ok, FAIL_ANGLE, reasons)
 
     pts = triangulate_normalized(p, q, geom_pack["R"], geom_pack["T"])
 
@@ -297,8 +299,8 @@ def triangulate_dense(disp, geom_pack: dict, base_rect, match_rect, cfg: DenseSt
     too_close = (dist < cfg.cam_distance / 10.0) | (pts[..., 2] < 1.0)
     too_far = (dist > cfg.cam_distance * 200.0) | ~(pts[..., 2] < 1e30)
     ok = reasons == FAIL_OK
-    reasons = torch.where(ok & too_close, code(FAIL_TOO_CLOSE), reasons)
-    reasons = torch.where((reasons == FAIL_OK) & too_far, code(FAIL_TOO_DISTANT), reasons)
+    reasons = torch.where(ok & too_close, FAIL_TOO_CLOSE, reasons)
+    reasons = torch.where((reasons == FAIL_OK) & too_far, FAIL_TOO_DISTANT, reasons)
     valid = valid & ~too_close & ~too_far
     return pts, valid, reasons
 
@@ -382,11 +384,15 @@ def plane_frame(pts: torch.Tensor, Rp: torch.Tensor, Tp: torch.Tensor) -> torch.
     return acc + Tp
 
 
-def export_u16(pts: torch.Tensor, valid: torch.Tensor, plane: torch.Tensor):
+def export_u16(pts: torch.Tensor, valid: torch.Tensor, plane: torch.Tensor, n_points: Optional[int] = None):
     """The .xyzC payload on the device: valid points in the sea-plane frame,
     quantized to u16 fixed point (scale = 65535 / range, clip, truncate)
-    and compacted in scan order.  Returns (q (n, 3) int32, mins (3,) f32,
-    scales (3,) f32); the host casts q to uint16."""
+    and compacted in scan order, as the reference's _stage_export: the
+    running count of the valid mask scatters each point into a full
+    (H*W, 3) buffer, so nothing waits for the device until the caller
+    slices the first n_points rows (read from `valid` when not given).
+    Returns (q (n, 3) int32, mins (3,) f32, scales (3,) f32); the host
+    casts q to uint16."""
     Rp, Tp, _Rinv, _Tinv = rt_from_plane(plane)
     p = plane_frame(pts, Rp, Tp)
     fv = valid.reshape(-1)
@@ -395,8 +401,13 @@ def export_u16(pts: torch.Tensor, valid: torch.Tensor, plane: torch.Tensor):
     maxs = torch.where(fv[:, None], p, -big).amax(0)
     rngs = torch.where(maxs - mins > 0, maxs - mins, 1.0)
     scales = 65535.0 / rngs
-    q = torch.clamp((p[fv] - mins) * scales, 0.0, 65535.0).to(torch.int32)
-    return q, mins, scales
+    q = torch.clamp((p - mins) * scales, 0.0, 65535.0).to(torch.int32)
+    HW = fv.shape[0]
+    target = torch.where(fv, torch.cumsum(fv, 0) - 1, HW)  # invalid rows land in row HW, dropped
+    out = torch.zeros((HW + 1, 3), dtype=torch.int32, device=q.device).index_copy_(0, target, q)
+    if n_points is None:
+        n_points = int(fv.sum())
+    return out[:n_points], mins, scales
 
 
 def _c2f_active(cfg: DenseStereoConfig, shape) -> bool:

@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from wass_tpu_torch.device import to_device
+
 
 class PlaneFit(NamedTuple):
     plane: torch.Tensor  # (4,) a, b, c, d with ||n|| = 1, c >= 0
@@ -48,7 +50,7 @@ def ransac_find_plane(
     mindist = H * 0.01
     if uv is None:
         uv = draw_pixels(rounds, H, W, seed)
-    uv = torch.as_tensor(uv, device=points.device).to(torch.int64)
+    uv = to_device(torch.as_tensor(uv), points.device).to(torch.int64)
 
     npix = H * W
     stride = 4 if npix > (1 << 21) else (2 if npix > (1 << 20) else 1)
@@ -78,9 +80,11 @@ def ransac_find_plane(
     dist = (pts_s @ planes[:, :3].T + planes[None, :, 3]).abs()
     counts = ((dist < distance_threshold) & valid_s[:, None]).sum(0)
     counts = torch.where(good, counts, 0)
-    best = torch.argmax(counts)
+    # The first best hypothesis, as argmax; a 0-dim tensor index would be a
+    # host read, so index_select picks it.
+    best_count, best = torch.max(counts, 0)
     n_valid = valid_s.sum()
-    return PlaneFit(planes[best], counts[best], counts[best] >= n_valid // 10)
+    return PlaneFit(planes.index_select(0, best.reshape(1))[0], best_count, best_count >= n_valid // 10)
 
 
 def crop_plane(plane: torch.Tensor, points: torch.Tensor, valid: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -104,9 +108,11 @@ def refine_plane(
     centroid = torch.einsum("...c,...->c", points, w) / wsum
     diff = torch.where(m[..., None], points - centroid, 0.0)
     A = torch.einsum("...i,...j,...->ij", diff, diff, w)
-    # The 3x3 eigenproblem runs on the host (LAPACK), not worth a device solver.
+    # The 3x3 eigenproblem runs on the host (LAPACK), not worth a device
+    # solver: the frame's one host read on the dispatching thread (the
+    # plane parity with the reference rests on these float bits).
     _evals, evecs = torch.linalg.eigh(A.cpu())
-    n = evecs[:, 0].to(points.device)
+    n = to_device(evecs[:, 0], points.device)
     n = n / torch.clamp_min(torch.linalg.norm(n), 1e-20)
     n = torch.where(n[2] < 0, -n, n)
     d = -(n * centroid).sum()

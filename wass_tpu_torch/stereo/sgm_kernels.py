@@ -37,11 +37,12 @@ import torch
 
 from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
+from wass_tpu_torch.launches import LaunchCounts
 from wass_tpu_torch.stereo import cost as _cost
 from wass_tpu_torch.stereo import sgm as _sgm
 from wass_tpu_torch.stereo.sgm import TILE_ROWS, _check_p2, _tri
 
-LAUNCHES = {
+LAUNCHES = LaunchCounts({
     "census_cost": 0,
     "census_cost_windowed": 0,
     "sgm_wta_fused": 0,
@@ -54,7 +55,7 @@ LAUNCHES = {
     "sgm_tri_dir_partial_windowed_h2": 0,
     "sgm_tri_dir_wta_windowed_h2": 0,
     "sgm_walk": 0,
-}
+})
 
 # The horizontal pair in image layout, folded into the row walks
 # (wass_tpu/stereo/sgm_pallas.py:_USE_H2); off by default, as there.
@@ -125,7 +126,7 @@ def census_cost_volume(
         H, W, nw, num_disp, min_disp, _build.stream_handle(census_base.device),
     )
     _build.check(err, "census_cost kernel")
-    LAUNCHES["census_cost"] += 1
+    LAUNCHES.add("census_cost")
     return out
 
 
@@ -147,7 +148,7 @@ def census_cost_volume_windowed(
         H, W, nw, win_disp, _build.stream_handle(census_base.device),
     )
     _build.check(err, "census_cost_windowed kernel")
-    LAUNCHES["census_cost_windowed"] += 1
+    LAUNCHES.add("census_cost_windowed")
     return out
 
 
@@ -184,7 +185,7 @@ def sgm_wta_fused(
         _build.stream_handle(cost.device),
     )
     _build.check(err, "sgm_wta_fused kernel")
-    LAUNCHES["sgm_wta_fused"] += 1
+    LAUNCHES.add("sgm_wta_fused")
     return disp
 
 
@@ -221,7 +222,7 @@ def sgm_wta_fused_windowed(
         H, W, D, P1, P2, directions, uniqueness_ratio, _build.stream_handle(cost.device),
     )
     _build.check(err, "sgm_wta_fused_windowed kernel")
-    LAUNCHES["sgm_wta_fused_windowed"] += 1
+    LAUNCHES.add("sgm_wta_fused_windowed")
     return disp
 
 
@@ -243,7 +244,7 @@ def sgm_aggregate(cost: torch.Tensor, P1: int, P2: int, directions: int = 8) -> 
         cost.data_ptr(), acc.data_ptr(), H, W, D, P1, P2, directions, _build.stream_handle(cost.device),
     )
     _build.check(err, "sgm_aggregate kernel")
-    LAUNCHES["sgm_aggregate"] += 1
+    LAUNCHES.add("sgm_aggregate")
     return acc
 
 
@@ -269,7 +270,7 @@ def sgm_aggregate_windowed(
         _build.stream_handle(cost.device),
     )
     _build.check(err, "sgm_aggregate_windowed kernel")
-    LAUNCHES["sgm_aggregate_windowed"] += 1
+    LAUNCHES.add("sgm_aggregate_windowed")
     return acc
 
 
@@ -328,7 +329,7 @@ def _launch_walk(key, cost, acc, walk, P1, P2, wstart=None, hf=None, hb=None, wt
         H, W, D, P1, P2, _WALK_CODES[walk], int(wta), min_disp, uniq, _build.stream_handle(cost.device),
     )
     _build.check(err, f"{key} kernel")
-    LAUNCHES[key] += 1
+    LAUNCHES.add(key)
     return disp if wta else acc
 
 
@@ -345,7 +346,7 @@ def sgm_pair_img(cost: torch.Tensor, P1: int, P2: int):
     err = lib.wass_sgm_pair_img(cost.data_ptr(), hf.data_ptr(), hb.data_ptr(), H, W, D, P1, P2,
                                 _build.stream_handle(cost.device))
     _build.check(err, "sgm_pair_img kernel")
-    LAUNCHES["sgm_pair_img"] += 1
+    LAUNCHES.add("sgm_pair_img")
     return hf, hb
 
 

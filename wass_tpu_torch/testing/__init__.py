@@ -5,11 +5,14 @@ Scenes come from the port's copy of the JAX package's numpy generator
 per-pixel ground truth.  This module renders (or loads a cached) scene,
 writes it as frame workdirs the stereo stage reads, reads a frame's
 results back through the port's io/workdir.py, and scores them with the
-verify_meshes elevation gate.
+verify_meshes elevation gate; and it renders (or loads cached) raw frames
+seen through a known lens distortion and writes them as the prepare
+stage's input.
 """
 
 from __future__ import annotations
 
+import hashlib
 import shutil
 from pathlib import Path
 
@@ -64,6 +67,70 @@ def write_sequence(seq_dir, img0: np.ndarray, img1: np.ndarray, rig: SyntheticRi
         wd.save_extrinsics(rig.R, rig.T)
         wds.append(wd.path)
     return wds
+
+
+def distort_image(img: np.ndarray, K: np.ndarray, dist) -> np.ndarray:
+    """An approximate raw frame of the ideal image `img` through a lens with
+    distortion `dist` (OpenCV's model): each raw pixel samples img
+    (bilinear, 0 outside) at its undistorted position.  Prepare's
+    undistortion takes it back to img up to the two resamplings; for raw
+    frames resampled once, as a camera records them, see load_or_render_raw."""
+    import torch
+
+    from wass_tpu_torch.ops.sampling import bilinear_sample, undistort_points
+
+    H, W = img.shape
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    vv, uu = torch.meshgrid(torch.arange(H, dtype=torch.float32), torch.arange(W, dtype=torch.float32), indexing="ij")
+    src = undistort_points(torch.stack([uu, vv], -1), f32(K), f32(np.reshape(dist, -1)))
+    return bilinear_sample(f32(img), src[..., 0], src[..., 1]).numpy()
+
+
+def load_or_render_raw(rig: SyntheticRig, seed: int, dist0, dist1, cache_dir) -> tuple:
+    """The raw frames (img0, img1) of load_or_make_scene(width, height,
+    seed)'s surface seen through lenses with distortions dist0 / dist1
+    (synthetic.render_raw: each raw pixel traced along its own ray), cached
+    as .npz in cache_dir by seed and lenses."""
+    from wass_tpu_torch.testing.synthetic import render_raw
+
+    key = hashlib.sha256(np.asarray([dist0, dist1], np.float64).tobytes()).hexdigest()[:12]
+    cache = Path(cache_dir) / f"raw_{rig.width}x{rig.height}_{seed}_{key}.npz"
+    if cache.exists():
+        z = np.load(cache)
+        return z["img0"], z["img1"]
+    img0, img1 = render_raw(seed, rig, dist0, dist1, wave_amplitude=WAVE_AMPLITUDE)
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    tmp = cache.with_suffix(".tmp.npz")
+    np.savez(tmp, img0=img0, img1=img1)
+    tmp.replace(cache)
+    return img0, img1
+
+
+def write_raw_sequence(root, raw0: np.ndarray, raw1: np.ndarray, rig: SyntheticRig, n_frames: int,
+                       dist0=None, dist1=None) -> tuple:
+    """The input of the prepare stage: n_frames copies of the raw pair
+    (raw0, raw1) as 8-bit PNGs in root/cam0 and root/cam1, and root/calib
+    with intrinsics_0{0,1}.xml, ext_R.xml, ext_T.xml and, for each lens
+    given, distortion_0{0,1}.xml.  Returns (cam0, cam1, calib)."""
+    from wass_tpu_torch.io import png
+    from wass_tpu_torch.io.matrices import save_matrix_xml
+
+    root = Path(root)
+    dirs = tuple(root / d for d in ("cam0", "cam1", "calib"))
+    for d in dirs:
+        if d.exists():
+            shutil.rmtree(d)
+        d.mkdir(parents=True)
+    for cam, (img, K, dist) in enumerate(((raw0, rig.K0, dist0), (raw1, rig.K1, dist1))):
+        if dist is not None:
+            save_matrix_xml(dirs[2] / f"distortion_0{cam}.xml", "distortion", np.reshape(dist, (1, -1)))
+        save_matrix_xml(dirs[2] / f"intrinsics_0{cam}.xml", "intrinsics", K)
+        data = png.encode_gray(np.clip(np.asarray(img), 0, 255).astype(np.uint8))
+        for i in range(n_frames):
+            (dirs[cam] / f"{i:06d}.png").write_bytes(data)
+    save_matrix_xml(dirs[2] / "ext_R.xml", "ext_R", rig.R)
+    save_matrix_xml(dirs[2] / "ext_T.xml", "ext_T", np.reshape(rig.T, (3, 1)))
+    return dirs
 
 
 def read_frame(wd_path):
