@@ -65,6 +65,35 @@ P. Prepare on the card: the scene's surface traced through a known lens
    frame prepared with CLAHE (tiles of CLAHE_TILE_PX, from
    prepare_config.txt) through SequencePipeline.prepare and reconstructed,
    its elevation error printed, not gated.
+M. Match and autocalibrate on the card (phase M): MATCH_FRAMES workdirs of
+   the scene's pair without ext_R/ext_T.  First the iidyn kernel against
+   its plain version on frame 0's first-round payoff (C = 4000 features x
+   3 candidates = 12000), a planted clique at C = 2000 and one above the
+   shared-memory capacity (the global-memory variant): bit-equal x, update
+   count and Nash error after 64 updates and at convergence (the plain
+   version adds in the kernel's order); the kernel's time per round beside
+   the plain version's.
+   Then `match` and `autocalibrate` through the CLI's entry point with the
+   matcher defaults (AUTO budget 4000, grid cell 8, 20000 iidyn
+   iterations, 20 rounds, AUTO LK window and smoothing) but
+   FEATURE_HESSIAN_THRESHOLD = MATCH_HESSIAN, and `stereo` on frame 0
+   with the match stage's extrinsics and again with the pooled ones.
+   Gates: >= 400 pose-inlier matches, <= 0.5 px epipolar error and the
+   pose within dR 5e-3 and dT 2e-2 of the rig a frame, the pooled pose
+   within the same (verify_matcher.m:6-8), byte-identical matches*.txt
+   across the frames (the same pair), both stereo frames windowed with a
+   plane and a mesh, iidyn launched.  The two frames' elevation errors are
+   printed, not gated at 0.02: the pose that one pair gives is a few 1e-4
+   from the rig in R (printed), and the mesh error follows it.  That is
+   the method's spread on one pair, not the port's: on this pair the JAX
+   package's own pooled pose moves between 2e-5 and 5.5e-4 in R when
+   N(0, 0.01) grey levels are added to the images, and the port's stage
+   on the JAX package's features gives the JAX package's pose to 5e-7
+   for four draws of five (tests/torch_match_witness.py, on the CPU).
+   Then,
+   measurement only, the device ms of each match and autocalibrate stage
+   on frame 0's pair, and frame 0 matched with the default threshold
+   (printed, not gated).
 5. Where the c2f frame's time goes: the sequence loop's frames/s over
    LOOP_FRAMES frames through SequencePipeline at each (dispatch_depth,
    writer_threads) of LOOP_SETTINGS (3 passes each, the first one with the
@@ -79,8 +108,9 @@ P. Prepare on the card: the scene's surface traced through a known lens
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
    67 T/s, and for K1/K2 their popcounts at 16 a clock per SM at the
-   maximum SM clock nvidia-smi reports; no single PyTorch call computes
-   any of these functions, so library_ms is null), then the last line
+   maximum SM clock nvidia-smi reports; iidyn's is its iterations' rows of
+   A, 4 C bytes each; no single PyTorch call computes any of these
+   functions, so library_ms is null), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Exits non-zero without a result when there is no CUDA device or when the
@@ -125,6 +155,20 @@ PREP_FRAMES = 3  # raw frames of phase P
 # points fail the elevation gate).
 PREP_DIST = ([-0.04, 0.01, 2e-4, -1e-4, 0.0], [-0.03, 0.005, 0.0, 0.0, 0.0])
 CLAHE_TILE_PX = 150  # CAM{0,1}_CLAHE_TILEGRIDSIZE of phase P's CLAHE frame
+MATCH_FRAMES = 3  # frame workdirs of phase M (the same pair)
+# FEATURE_HESSIAN_THRESHOLD of phase M's matcher_config.txt, the value the
+# JAX package's own tests use for these synthetic scenes
+# (tests/test_match.py:110): with the default 1e-4 the scene's smooth
+# texture leaves ~400 features an image and fewer matches than the 400
+# gate, in the JAX package as in the port (190 and 177 on the CPU,
+# tests/torch_match_witness.py; phase M prints the card's).
+MATCH_HESSIAN = 3e-5
+IIDYN_CAP = 64  # updates of the capped kernel-vs-plain iidyn runs
+IIDYN_ITERS = 20000  # MatchConfig.iidyn_iters
+IIDYN_PLAIN_TIMED = 200  # updates of the plain iidyn timing
+# The reference's matcher gates (verify_matcher.m:6-8): matches a frame,
+# average epipolar px, pooled max |dR| and max |dT| against the rig.
+MATCH_GATES = (400, 0.5, 5e-3, 2e-2)
 
 KERNELS = {
     "census_cost": ("wass_tpu_torch/csrc/census_cost.cu", "wass_tpu/stereo/sgm_pallas.py:710"),
@@ -142,6 +186,8 @@ KERNELS = {
     # The single non-H2 walks of the H2 compositions (_run_tri_dir_wta, and
     # _run_tri_dir, _run_tri_dir_windowed, _run_tri_dir_wta_windowed).
     "sgm_walk": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:602"),
+    # Not a Pallas kernel: the match rounds' lax.while_loop, one kernel a round.
+    "iidyn": ("wass_tpu_torch/csrc/iidyn.cu", "wass_tpu/match/iidyn.py:25"),
 }
 # The default path's SGM keys, which no H2 frame may launch.
 DEFAULT_SGM = ("sgm_wta_fused", "sgm_wta_fused_windowed", "sgm_aggregate", "sgm_aggregate_windowed")
@@ -854,6 +900,279 @@ def run_prepare(root: Path, rig, scene) -> dict:
     return launches
 
 
+def iidyn_case(results: dict, what: str, A, x0, mask) -> int:
+    """Phase M: the iidyn kernel against its plain version, which adds its
+    sums in the kernel's order: capped at IIDYN_CAP updates, then both run
+    to convergence (IIDYN_ITERS at most): the same update count, x and
+    Nash error bit for bit, so the same group (x > 0.7 max x).  Returns
+    the kernel's updates."""
+    import torch
+
+    from wass_tpu_torch.match import iidyn as im
+
+    for cap in (IIDYN_CAP, IIDYN_ITERS):
+        xk, itk, ek = im.iidyn(A, x0, mask, max_iters=cap)
+        xp, itp, ep = im.iidyn_plain(A, x0, mask, max_iters=cap)
+        itk = int(itk)
+        err = float((xk - xp).abs().max())
+        if itk != itp or not torch.equal(xk, xp) or not torch.equal(ek, ep):
+            raise AssertionError(f"iidyn {what}: at most {cap} updates: kernel {itk}, plain {itp}, max |dx| {err}, "
+                                 f"Nash error {float(ek)} and {float(ep)}")
+        results["iidyn"]["max_abs_err"] = max(results["iidyn"]["max_abs_err"], err)
+    group = xk > 0.7 * xk.max()
+    log(f"kernel iidyn {what}: bit-equal to the plain version after {IIDYN_CAP} updates and at convergence "
+        f"({itk} updates, Nash error {float(ek):.3g}, group of {int(group.sum())})")
+    return itk
+
+
+def planted_clique(C: int, g: int, seed: int, n_live: int, dev):
+    """A symmetric (C, C) payoff, 0-0.05 noise with a g-clique of 0.9-1;
+    the first n_live candidates live (the clique among them), and the
+    initial population over them."""
+    import torch
+
+    from wass_tpu_torch.match.iidyn import initial_population
+
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.rand((C, C), generator=gen) * 0.05
+    A[:g, :g] = 0.9 + 0.1 * torch.rand((g, g), generator=gen)
+    A = ((A + A.T) / 2).fill_diagonal_(0.0)
+    live = (torch.arange(C) < n_live).to(dev)
+    return A.to(dev), initial_population(torch.rand(C, generator=gen).to(dev), live), live
+
+
+def check_iidyn(results: dict, wd: Path, dev) -> None:
+    """Phase M: iidyn on frame 0's first-round payoff (the matcher's AUTO
+    budget at 2048x1536: 4000 features x 3 candidates), on a planted
+    clique at C = 2000 and above the shared-memory capacity, with the
+    kernel's and the plain version's time for the frame's first round."""
+    import torch
+
+    from wass_tpu_torch.io.workdir import Workdir
+    from wass_tpu_torch.match import iidyn as im
+    from wass_tpu_torch.match.features import detect_features
+    from wass_tpu_torch.match.matcher import generate_candidates, payoff_matrix
+    from wass_tpu_torch.match.pipeline import MatchConfig
+    from wass_tpu_torch.prepare.degradation import resolve_smooth_sigma
+    from wass_tpu_torch.stereo.cost import gauss_blur
+
+    cfg = MatchConfig(hessian_threshold=MATCH_HESSIAN)
+    w = Workdir(wd)
+    img0, img1 = w.load_undistorted(0), w.load_undistorted(1)
+    sigma = resolve_smooth_sigma(cfg.input_smooth_sigma, img0, "match")
+    f0, f1 = (detect_features(gauss_blur(torch.as_tensor(x, device=dev), sigma), max_features=4000, grid_cell=8,
+                              hessian_threshold=cfg.hessian_threshold) for x in (img0, img1))
+    log(f"frame 0 features (threshold {cfg.hessian_threshold:g}): {int(f0.valid.sum())} and {int(f1.valid.sum())} "
+        "valid of 4000")
+    cand = generate_candidates(f0, f1)
+    pay = payoff_matrix(f0, f1, cand)
+    C = pay.shape[0]
+    # match_frame's first draws: row 0 of the rounds' uniforms.
+    u = torch.rand((cfg.max_rounds, C), generator=torch.Generator(device=dev).manual_seed(cfg.seed), device=dev)[0]
+    x0 = im.initial_population(u, cand.valid)
+    iters = iidyn_case(results, f"frame 0 round 0 (C = {C}, {int(cand.valid.sum())} live)", pay, x0, cand.valid)
+    # Above the shared-memory capacity 2000 candidates stay live, so that
+    # the run converges within the cap (an update moves one candidate).
+    for c, g, seed in ((2000, 60, 1), (im.SMEM_MAX_C + 1, 80, 2)):
+        A, cx0, live = planted_clique(c, g, seed, 2000, dev)
+        variant = "shared memory" if c <= im.SMEM_MAX_C else "global memory, 2000 live"
+        iidyn_case(results, f"planted {g}-clique C = {c} ({variant})", A, cx0, live)
+        del A
+    torch.cuda.empty_cache()
+
+    res = results["iidyn"]
+    res["ms"] = cuda_ms(lambda: im.iidyn(pay, x0, cand.valid, max_iters=IIDYN_ITERS), 3)
+    res["plain_ms"] = cuda_ms(lambda: im.iidyn_plain(pay, x0, cand.valid, max_iters=IIDYN_ITERS))
+    # The bound: every update must read one row of A, 4 C bytes.
+    set_bound(results, "iidyn", iters * 4.0 * C, 0.0)
+    plain200 = cuda_ms(lambda: im.iidyn_plain(pay, x0, cand.valid, max_iters=IIDYN_PLAIN_TIMED))
+    log(f"time iidyn frame 0 round 0 (C = {C}): kernel {res['ms']:.3f} ms for {iters} updates "
+        f"({1e3 * res['ms'] / max(iters, 1):.2f} us an update), plain {res['plain_ms']:.3f} ms for the same round, "
+        f"plain {plain200:.3f} ms for {IIDYN_PLAIN_TIMED} updates ({1e3 * plain200 / IIDYN_PLAIN_TIMED:.1f} us an "
+        f"update), bound {res['bound_ms']:.4f} ms ({res['bound_by']}, a share of {res['bound_ms'] / res['ms']:.4f})")
+    del pay
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def timed_stages(targets):
+    """Replace each (module, attribute, label) function by a wrapper that
+    synchronizes before and after the call and appends its device ms
+    (CUDA events) to times[label]; iidyn's updates go to times["iidyn
+    updates"].  The originals come back after the block."""
+    import torch
+
+    times: dict = {}
+    saved = []
+    for mod, attr, label in targets:
+        fn = getattr(mod, attr)
+
+        def timed(*args, _fn=fn, _label=label, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            out = _fn(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            times.setdefault(_label, []).append(start.elapsed_time(end))
+            if _label == "iidyn round":
+                times.setdefault("iidyn updates", []).append(int(out[1]))
+            return out
+
+        setattr(mod, attr, timed)
+        saved.append((mod, attr, fn))
+    try:
+        yield times
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def profile_match(seq: Path, rig) -> None:
+    """Phase M, measurement only: the device ms of each stage of one
+    match_frame on frame 0's pair and of one autocalibrate_sequence over the
+    phase's workdirs (the host float64 polish in host ms)."""
+    from wass_tpu_torch.calib import autocalibrate as ac
+    from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
+    from wass_tpu_torch.match import matcher
+    from wass_tpu_torch.match import pipeline as mp
+
+    cfg = mp.MatchConfig(hessian_threshold=MATCH_HESSIAN)
+    w = Workdir(seq / "000000_wd")
+    img0, img1 = w.load_undistorted(0), w.load_undistorted(1)
+    stages = [(mp, "gauss_blur", "input smoothing, per image"), (mp, "detect_features", "features, per image"),
+              (mp, "generate_candidates", "candidates"), (mp, "payoff_matrix", "payoff"),
+              (matcher, "iidyn", "iidyn round"), (mp, "refine_matches_lk", "LK"),
+              (mp, "relative_pose_ransac", "pose RANSAC + GN")]
+    t0 = time.perf_counter()
+    with timed_stages(stages) as times:
+        mp.match_frame(img0, img1, rig.K0, rig.K1, cfg)
+    wall = time.perf_counter() - t0
+    for name, t in times.items():
+        if name == "iidyn updates":
+            continue
+        vals = " ".join(f"{v:.3f}" for v in t)
+        log(f"match stage {name}: {vals} ms" + (f" ({' '.join(map(str, times['iidyn updates']))} updates)"
+                                               if name == "iidyn round" else ""))
+    log(f"match_frame on frame 0: {wall:.3f} s wall, {len(times['iidyn round'])} rounds, "
+        f"stage sum {sum(sum(t) for k, t in times.items() if k != 'iidyn updates'):.1f} ms")
+    res = mp.match_frame(img0, img1, rig.K0, rig.K1)
+    log(f"match_frame on frame 0 with the default threshold ({mp.MatchConfig().hessian_threshold:g}; not gated): "
+        + ("no pose" if res is None else f"{res.n_matches} pose-inlier matches, epipolar avg {res.epi_avg:.4f} px"))
+
+    stages = [(ac, "relative_pose_ransac", "RANSAC + GN"), (ac, "lm_refine_two_view", "BA"),
+              (ac, "lm_refine_pose_epipolar", "device polish round")]
+    host: list = []
+    f64 = ac.polish_pose_f64
+
+    def timed_f64(*args, **kwargs):
+        t = time.perf_counter()
+        out = f64(*args, **kwargs)
+        host.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    ac.polish_pose_f64 = timed_f64
+    t0 = time.perf_counter()
+    try:
+        with timed_stages(stages) as times:
+            res = ac.autocalibrate_sequence(frame_workdirs(seq), ac.AutocalConfig())
+    finally:
+        ac.polish_pose_f64 = f64
+    wall = time.perf_counter() - t0
+    for name, t in times.items():
+        log(f"autocalibrate stage {name}: {' '.join(f'{v:.3f}' for v in t)} ms")
+    log(f"autocalibrate host float64 polish rounds: {' '.join(f'{v:.1f}' for v in host)} ms; "
+        f"{wall:.3f} s wall ({res.n_inliers} pooled inliers; median px {res.epi_med_before:.5f} -> "
+        f"{res.epi_med_after:.5f})")
+
+
+def pose_error(wd, rig) -> tuple:
+    """max |dR| and max |dT| (T normalized) of a workdir's extrinsics against the rig."""
+    import numpy as np
+
+    R, T = wd.load_extrinsics()
+    return float(np.abs(R - rig.R).max()), float(np.abs(T.ravel() / np.linalg.norm(T) - rig.T / np.linalg.norm(rig.T)).max())
+
+
+def run_match_phase(root: Path, scene, results: dict, dev) -> dict:
+    """Phase M: the iidyn kernel check; then `match`, a stereo frame with
+    the match stage's extrinsics, `autocalibrate` and a stereo frame with
+    the pooled extrinsics, through the CLI's entry point and
+    SequencePipeline on the card, gated (the two frames' elevation errors
+    printed); then the stage times (not counted)."""
+    import numpy as np
+
+    import wass_tpu_torch
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.cli.main import main as cli_main
+    from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
+    from wass_tpu_torch.testing import write_sequence
+
+    t_phase = time.time()
+    rig = scene.rig
+    seq = root / "smoke_match"
+    write_sequence(seq, scene.img0, scene.img1, rig, MATCH_FRAMES)
+    for wd in seq.glob("*_wd"):  # no extrinsics: match and autocalibrate must find them
+        (wd / "ext_R.xml").unlink()
+        (wd / "ext_T.xml").unlink()
+    (seq / "matcher_config.txt").write_text(f"FEATURE_HESSIAN_THRESHOLD={MATCH_HESSIAN}\n")
+    check_iidyn(results, seq / "000000_wd", dev)
+    wd0 = Workdir(seq / "000000_wd")
+
+    def stereo_frame0(what: str, gate: bool) -> None:
+        t0 = time.time()
+        load_pipeline(seq).stereo([wd0], progress_stream=io.StringIO())
+        log(f"stereo of frame 0 with the {what}: {time.time() - t0:.2f} s")
+        check_frame(f"match 0 ({what})", wd0.path, scene, WINDOWED_PATH, gate=gate)
+        if not c2f_line(wd0.path).endswith("windowed"):
+            raise AssertionError(f"the frame with the {what} did not take the windowed branch: {c2f_line(wd0.path)!r}")
+
+    min_matches, max_epi, max_dr, max_dt = MATCH_GATES
+    wass_tpu_torch.reset_launch_counts()
+    t0 = time.time()
+    if cli_main(["match", str(seq)]) != 0:
+        raise AssertionError("match CLI failed")
+    t_match = time.time() - t0
+    wds = frame_workdirs(seq)
+    for i, wd in enumerate(wds):
+        n, avg = (wd.path / "matcher_stats.csv").read_text().splitlines()[1].split(";")[:2]
+        wall = [ln for ln in (wd.path / "wass_match_log.txt").read_text().splitlines() if "wall time" in ln]
+        d_r, d_t = pose_error(wd, rig)
+        log(f"match frame {i}: {n} pose-inlier matches, epipolar avg {float(avg):.4f} px, its pose max |dR| {d_r:.3g} "
+            f"max |dT| {d_t:.3g}, {wall[0].split('] ')[-1]}")
+        if int(n) < min_matches or not float(avg) <= max_epi or not (d_r <= max_dr and d_t <= max_dt):
+            raise AssertionError(f"match frame {i}: {n} matches, {avg} px, |dR| {d_r}, |dT| {d_t} (gates {MATCH_GATES})")
+    for name in ("matches.txt", "matches_epionly.txt", "matches_unfiltered.txt"):
+        data = [(wd.path / name).read_bytes() for wd in wds]
+        if any(d != data[0] for d in data[1:]):
+            raise AssertionError(f"{name} differs across the frames of one pair")
+    log("match files: matches.txt, matches_epionly.txt, matches_unfiltered.txt byte-identical across the frames")
+    stereo_frame0("match stage's extrinsics", gate=False)
+
+    t0 = time.time()
+    if cli_main(["autocalibrate", str(seq)]) != 0:
+        raise AssertionError("autocalibrate CLI failed")
+    t_autocal = time.time() - t0
+    log((seq / "wass_autocalibrate_log.txt").read_text().strip().replace("\n", "; "))
+    d_r, d_t = pose_error(wd0, rig)
+    log(f"pooled pose against the rig: max |dR| {d_r:.3g} (gate {max_dr}), max |dT| {d_t:.3g} (gate {max_dt})")
+    if not (d_r <= max_dr and d_t <= max_dt):
+        raise AssertionError(f"pooled pose: |dR| {d_r}, |dT| {d_t}")
+    R, T = wd0.load_extrinsics()
+    for wd in wds[1:]:
+        if any(not np.array_equal(a, b) for a, b in zip(wd.load_extrinsics(), (R, T))):
+            raise AssertionError(f"{wd.path.name}: extrinsics differ from frame 0's")
+    stereo_frame0("pooled extrinsics", gate=False)
+    launches = wass_tpu_torch.launch_counts()
+    log(f"phase M: match {MATCH_FRAMES} frames {t_match:.2f} s ({t_match / MATCH_FRAMES:.2f} s a frame), "
+        f"autocalibrate {t_autocal:.2f} s; launches {launches}")
+    if launches["iidyn"] < 1:
+        raise AssertionError(f"phase M launched no iidyn kernel: {launches}")
+    profile_match(seq, rig)
+    log(f"phase M: {time.time() - t_phase:.1f} s wall")
+    return launches
+
+
 def dispatch_syncs(img0, img1, rig, cfg) -> list:
     """Phase 5: the operations that make the dispatching thread wait for the
     device, in one c2f frame dispatched as the sequence loop dispatches it
@@ -1043,6 +1362,8 @@ def main() -> int:
         add_counts(launches, phase(_build.BUILD_DIR, img0, img1, rig, scene))
     # Phase P: prepare on the card, then stereo on the prepared frames.
     add_counts(launches, run_prepare(_build.BUILD_DIR, rig, scene))
+    # Phase M: match and autocalibrate on the card, then stereo with the recovered extrinsics.
+    add_counts(launches, run_match_phase(_build.BUILD_DIR, scene, results, dev))
     unused = [k for k in KERNELS if launches[k] < 1]
     if unused:
         raise AssertionError(f"kernels no main-path run launched: {unused}")

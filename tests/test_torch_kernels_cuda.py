@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import wass_tpu_torch
+from wass_tpu_torch.match import iidyn as im
 from wass_tpu_torch.ops import components_kernels as ck
 from wass_tpu_torch.stereo import sgm_kernels as sk
 from wass_tpu_torch.stereo import sgm as plain_sgm
@@ -337,3 +338,58 @@ def test_wrappers_count_launches_and_check_inputs(dev, monkeypatch):
         sk.sgm_aggregate_windowed(wcost, ws, 8, 96, 4)
     with pytest.raises(ValueError):
         sk.sgm_aggregate_windowed(wcost[:12], ws, 8, 96, 2)  # H % 8 != 0
+
+
+def _planted_clique(C, g, seed):
+    """A symmetric (C, C) payoff: 0-0.05 noise with a g-clique of 0.9-1."""
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.rand((C, C), generator=gen) * 0.05
+    A[:g, :g] = 0.9 + 0.1 * torch.rand((g, g), generator=gen)
+    A = (A + A.T) / 2
+    A.fill_diagonal_(0.0)
+    return A
+
+
+# (C, clique size, seed): the shared-memory variant, and above
+# iidyn.SMEM_MAX_C the global-memory one.
+IIDYN_CASES = [(40, 12, 0), (300, 30, 1), (2000, 60, 2), (4097, 50, 3), (im.SMEM_MAX_C + 1, 80, 4)]
+
+
+@pytest.mark.parametrize("C,g,seed", IIDYN_CASES)
+@pytest.mark.parametrize("masked", [False, True])
+def test_iidyn_kernel(dev, C, g, seed, masked):
+    """Bit-equal to the plain version, which adds its sums in the kernel's
+    order: capped at 24 updates (below any convergence here), and at up to
+    4000 (the same update count, x and Nash error; the unmasked C = 4097
+    case is still running at the cap)."""
+    A = _planted_clique(C, g, seed).to(dev)
+    gen = torch.Generator().manual_seed(seed + 100)
+    mask = (torch.rand(C, generator=gen) > 0.25).to(dev) if masked else None
+    if C > im.SMEM_MAX_C:  # 2000 live, so that the run converges (an update moves one candidate)
+        mask = (torch.arange(C, device=dev) < 2000) & (mask if masked else True)
+    x0 = im.initial_population(torch.rand(C, generator=gen).to(dev), mask)
+    for cap in (24, 4000):
+        xk, itk, ek = im.iidyn(A, x0, mask, max_iters=cap)
+        xp, itp, ep = im.iidyn_plain(A, x0, mask, max_iters=cap)
+        assert int(itk) == itp <= cap and (itp == 24 or cap > 24)
+        assert torch.equal(xk, xp) and torch.equal(ek, ep)
+    if mask is not None:
+        assert float(xk[~mask].abs().max()) == 0.0
+
+
+def test_iidyn_wrapper_counts_and_checks(dev):
+    A = _planted_clique(64, 8, 5).to(dev)
+    x0 = torch.full((64,), 1.0 / 64, device=dev)
+    wass_tpu_torch.reset_launch_counts()
+    im.iidyn(A, x0, max_iters=10)
+    im.iidyn_plain(A, x0, max_iters=10)
+    counts = wass_tpu_torch.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "iidyn": 1}
+    with pytest.raises(ValueError):
+        im.iidyn(A.double(), x0.double())
+    with pytest.raises(ValueError):
+        im.iidyn(A[:, :32].contiguous(), x0)
+    with pytest.raises(ValueError):
+        im.iidyn(A, x0.cpu())  # mixed devices
+    with pytest.raises(ValueError):
+        im.iidyn(A, x0, torch.ones(64, dtype=torch.uint8, device=dev))

@@ -1,5 +1,6 @@
-"""The port runs without jax and without any module of the JAX package,
-and its stdlib PNG codec agrees with imageio and OpenCV."""
+"""The port runs without jax and without any module of the JAX package
+(a dense frame, the stereo CLI, and the match stage through the CLI), and
+its stdlib PNG codec agrees with imageio and OpenCV."""
 
 import ast
 import io
@@ -46,8 +47,12 @@ class _Refuse(importlib.abc.MetaPathFinder):
 
 sys.meta_path.insert(0, _Refuse())
 import numpy as np
+import torch
+torch.set_num_threads(2)  # the test workers share the host's cores
 import wass_tpu_torch
+import wass_tpu_torch.calib.autocalibrate
 import wass_tpu_torch.cli.pipeline
+import wass_tpu_torch.match.pipeline
 from wass_tpu_torch.cli.main import main
 from wass_tpu_torch.testing import make_scene, read_frame, write_sequence
 from wass_tpu_torch.stereo.dense import DenseStereoConfig, dense_stereo_frame
@@ -64,15 +69,25 @@ with tempfile.TemporaryDirectory() as tmp:
     assert main(["stereo", str(seq), "--device", "cpu"]) == 0
     plane, mesh, _ = read_frame(seq / "000000_wd")
     assert mesh.shape[1] == 3 and len(mesh) > 0
+with tempfile.TemporaryDirectory() as tmp:
+    seq = Path(tmp)
+    sc = make_scene(seed=3, width=256, height=192, wave_amplitude=0.25)
+    write_sequence(seq, sc.img0, sc.img1, sc.rig, 1)
+    (seq / "matcher_config.txt").write_text(
+        "NUM_FEATURES_PER_IMAGE=400\nMATCHER_MAX_ROUNDS=4\nFEATURE_HESSIAN_THRESHOLD=3e-5\nFEATURE_MIN_DISTANCE=8\n")
+    assert main(["match", str(seq), "--device", "cpu"]) == 0
+    n_matches = int((seq / "000000_wd" / "matcher_stats.csv").read_text().splitlines()[1].split(";")[0])
+    assert n_matches > 8
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wass_tpu")]
 assert all(shared(m) for m in loaded), loaded
-print("OK", int(res.n_points), len(mesh))
+print("OK", int(res.n_points), len(mesh), n_matches)
 """ % (SHARED,)
 
 
 def test_port_runs_without_jax():
     """jax and every module of the JAX package are refused at import; a
-    frame and the stereo CLI still run."""
+    frame, the stereo CLI and the match CLI still run, and the match and
+    calibration modules import."""
     proc = subprocess.run([sys.executable, "-c", _NOJAX_RUN], cwd=ROOT, capture_output=True, text=True,
                           timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stderr[-3000:]

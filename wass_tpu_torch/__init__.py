@@ -1,17 +1,22 @@
-"""wass_tpu_torch — the PyTorch/CUDA port of wass_tpu's dense-stereo path.
+"""wass_tpu_torch — the PyTorch/CUDA port of wass_tpu.
 
 The JAX package `wass_tpu` stays the reference; this package mirrors its
 layout (`stereo/cost.py` <-> `wass_tpu/stereo/cost.py`, ...) and runs the
-dense stereo stage with known extrinsics, coarse-to-fine search and
-full-range fallback included, on an NVIDIA H100:
+prepare, match, autocalibrate and dense stereo stages (coarse-to-fine
+search and full-range fallback included) on an NVIDIA H100:
 
-  cli/       argparse entry points (prepare, stereo, genconfig) and the
-             sequence pipeline: prepare, and the production stereo loop
-             (PNG prefetch, dispatch ahead, writer threads)
+  cli/       argparse entry points (prepare, match, autocalibrate, stereo,
+             genconfig) and the sequence pipeline: prepare, match,
+             autocalibrate, and the production stereo loop (PNG prefetch,
+             dispatch ahead, writer threads)
+  match/     features, candidates and payoff, the game-theoretic rounds
+             (iidyn), LK refinement, relative-pose RANSAC, the frame stage
+  calib/     two-view bundle adjustment, the Sampson polish, the pooled
+             sequence autocalibration
   stereo/    census, cost volumes, SGM, coarse-to-fine windows, plane fit,
              the dense frame pipeline
   ops/       sampling and undistortion, morphology, connected components
-  core/      geometry, triangulation, rectification (host, float64)
+  core/      geometry, epipolar errors, triangulation, rectification
   prepare/   the prepare stage (CLAHE, undistortion, the polarimetric
              path) and the input-degradation estimate (AUTO smoothing)
   config.py  the self-registering option registry
@@ -20,7 +25,8 @@ full-range fallback included, on an NVIDIA H100:
   utils/     the [P|cur|tot] progress line, the stage timer
   testing/   synthetic wave-field scenes and smoke-run helpers
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
-             K5/K6 SGM sums, the H2 pair and folding walks, K7 labels)
+             K5/K6 SGM sums, the H2 pair and folding walks, K7 labels,
+             the iidyn loop)
 
 Kernel wrappers launch the CUDA kernel for CUDA tensors and run the plain
 PyTorch version for CPU tensors only.  This package never imports jax.
@@ -37,15 +43,17 @@ __version__ = "0.1.0"
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
+    from wass_tpu_torch.match import iidyn
     from wass_tpu_torch.ops import components_kernels
     from wass_tpu_torch.stereo import sgm_kernels
 
-    return {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES}
+    return {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES, **iidyn.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
+    from wass_tpu_torch.match import iidyn
     from wass_tpu_torch.ops import components_kernels
     from wass_tpu_torch.stereo import sgm_kernels
 
-    for counts in (sgm_kernels.LAUNCHES, components_kernels.LAUNCHES):
+    for counts in (sgm_kernels.LAUNCHES, components_kernels.LAUNCHES, iidyn.LAUNCHES):
         counts.reset()

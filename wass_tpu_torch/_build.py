@@ -49,6 +49,7 @@ _SIGNATURES = {
     "wass_sgm_walk": [_PTR] * 6 + [_INT] * 9 + [_PTR],
     "wass_sgm_lane_width": [_INT],
     "wass_label_propagate": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
+    "wass_iidyn": [_PTR] * 6 + [_INT, _c.c_float, _INT, _PTR],
 }
 
 

@@ -1,21 +1,28 @@
-"""wass-tpu-torch command line: prepare, stereo and genconfig.
+"""wass-tpu-torch command line: prepare, match, autocalibrate, stereo and genconfig.
 
-The prepare and dense stereo stages of the wasscli flow on the port:
+The wasscli flow on the port:
 
   prepare CAM0_DIR CAM1_DIR CALIBDIR OUTDIR   raw frame pairs -> frame workdirs
+  match OUTDIR                                sparse matches and a pose for
+                                              a subset of the frames
+  autocalibrate OUTDIR                        the rig's extrinsics from the
+                                              pooled matches, written to
+                                              every frame workdir
   stereo OUTDIR                               dense reconstruction of every
                                               frame workdir under OUTDIR
-  genconfig OUTDIR --stage {prepare,stereo}   the commented option file
+  genconfig OUTDIR --stage {prepare,matcher,stereo}   the commented option file
 
-stereo reads <outdir>/stereo_config.txt when it exists and takes the
-reference's defaults otherwise.  prepare, as the JAX package's command,
-takes the default prepare options and reads no prepare_config.txt.  Raw
-frames must be 8-bit grayscale PNG, decoded by the port's own codec.
+match and stereo read <outdir>/matcher_config.txt and
+<outdir>/stereo_config.txt when they exist and take the reference's
+defaults otherwise.  prepare, as the JAX package's command, takes the
+default prepare options and reads no prepare_config.txt.  Raw frames must
+be 8-bit grayscale PNG, decoded by the port's own codec.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -24,19 +31,25 @@ DEVICE_HELP = "cuda runs the CUDA kernels (default); cpu runs their plain versio
 
 
 def load_pipeline(outdir, device: str = "cuda"):
-    """SequencePipeline configured from <outdir>/{prepare,stereo}_config.txt."""
-    from wass_tpu_torch.cli.options import prepare_config_from_registry, register_all, stereo_config_from_registry
+    """SequencePipeline configured from <outdir>/{prepare,matcher,stereo}_config.txt."""
+    from wass_tpu_torch.cli.options import (
+        match_config_from_registry,
+        prepare_config_from_registry,
+        register_all,
+        stereo_config_from_registry,
+    )
     from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
     from wass_tpu_torch.config import registry
 
     register_all()
-    for stage in ("prepare", "stereo"):
+    for stage in ("prepare", "matcher", "stereo"):
         reg = registry(stage)
         reg.reset()  # no values leak across sequences in one process
         cfgfile = Path(outdir) / f"{stage}_config.txt"
         if cfgfile.exists():
             reg.load_file(cfgfile)
-    cfg = SequenceConfig(prepare=prepare_config_from_registry(), stereo=stereo_config_from_registry(), device=device)
+    cfg = SequenceConfig(prepare=prepare_config_from_registry(), match=match_config_from_registry(),
+                         stereo=stereo_config_from_registry(), device=device)
     return SequencePipeline(outdir, cfg)
 
 
@@ -108,12 +121,15 @@ def main(argv=None) -> int:
     pr.add_argument("outdir", type=Path)
     pr.add_argument("--continue-if-existing", action="store_true", help="skip frames whose workdir is complete")
     pr.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help=DEVICE_HELP)
-    st = sub.add_parser("stereo", help="dense reconstruction of every frame workdir (wass_stereo)")
-    st.add_argument("outdir", type=Path)
-    st.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help=DEVICE_HELP)
+    for name, text in (("match", "feature-match a random subset of frames (wass_match)"),
+                       ("autocalibrate", "sequence-wide extrinsic refinement (wass_autocalibrate)"),
+                       ("stereo", "dense reconstruction of every frame workdir (wass_stereo)")):
+        stage = sub.add_parser(name, help=text)
+        stage.add_argument("outdir", type=Path)
+        stage.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help=DEVICE_HELP)
     gc = sub.add_parser("genconfig", help="write a stage's commented option file")
     gc.add_argument("outdir", type=Path)
-    gc.add_argument("--stage", default="stereo", choices=("prepare", "stereo"))
+    gc.add_argument("--stage", default="stereo", choices=("prepare", "matcher", "stereo"))
     args = parser.parse_args(argv)
 
     if args.command == "prepare":
@@ -126,8 +142,18 @@ def main(argv=None) -> int:
         return genconfig(args.outdir, args.stage)
     if not args.outdir.is_dir():
         parser.error(f"no such directory: {args.outdir}")
-    planes = load_pipeline(args.outdir, args.device).stereo()
-    print(f"reconstructed {len(planes)} frames")
+    pipe = load_pipeline(args.outdir, args.device)
+    if args.command == "match":
+        print(f"matched {pipe.match()} frames")
+    elif args.command == "autocalibrate":
+        res = pipe.autocalibrate()
+        if res is None:
+            print("wass-tpu-torch autocalibrate: autocalibration failed (no matches?)", file=sys.stderr)
+            return 1
+        print(f"epipolar error {res.epi_med_before:.4f} -> {res.epi_med_after:.4f} px "
+              f"({res.n_inliers} inliers, {'accepted' if res.improved else 'kept RANSAC pose'})")
+    else:
+        print(f"reconstructed {len(pipe.stereo())} frames")
     return 0
 
 

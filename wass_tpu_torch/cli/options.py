@@ -1,18 +1,19 @@
-"""Reference-compatible prepare and stereo options and their mapping to
-the configs.
+"""Reference-compatible prepare, matcher and stereo options and their
+mapping to the configs.
 
-Copied from the prepare and stereo blocks of wass_tpu/cli/options.py
-(register_all, prepare_ and stereo_config_from_registry), whose package
-imports jax, onto the port's own registries (wass_tpu_torch/config.py):
-the reference's prepare_config.txt and stereo_config.txt names and
-defaults (wass_prepare.cpp:36-39; wass_stereo.cpp:52-84, 742-761,
-1030-1037, PovMesh.cpp:577-579).  The matcher block comes with the match
-stage.
+Copied from the prepare, matcher and stereo blocks of
+wass_tpu/cli/options.py (register_all and the *_config_from_registry
+functions), whose package imports jax, onto the port's own registries
+(wass_tpu_torch/config.py): the reference's prepare_config.txt,
+matcher_config.txt and stereo_config.txt names and defaults
+(wass_prepare.cpp:36-39; wass_match.cpp:39-45, FeatureSet.cpp:42-47,
+GTMatcher.cpp:33; wass_stereo.cpp:52-84, 742-761, 1030-1037,
+PovMesh.cpp:577-579).
 """
 
 from __future__ import annotations
 
-from wass_tpu_torch.config import prepare_cfg, stereo_cfg
+from wass_tpu_torch.config import matcher_cfg, prepare_cfg, stereo_cfg
 
 
 def register_all() -> None:
@@ -21,6 +22,26 @@ def register_all() -> None:
     prepare_cfg.register(int, "CAM0_CLAHE_TILEGRIDSIZE", 0, "CAM0 CLAHE tile grid size (set to 0 to disable CLAHE). 150 is a good value to start")
     prepare_cfg.register(float, "CAM1_CLAHE_CLIPLIMIT", 2.0, "CAM1 CLAHE cliplimit parameter")
     prepare_cfg.register(int, "CAM1_CLAHE_TILEGRIDSIZE", 0, "CAM1 CLAHE tile grid size (set to 0 to disable CLAHE). 150 is a good value to start")
+
+    # ---- matcher ---------------------------------------------------------
+    m = matcher_cfg
+    m.register(int, "NUM_FEATURES_PER_IMAGE", 0, "Maxmum number of image features to extract (0 = auto: 2000 below 1.5 MP, 4000 above)")
+    m.register(float, "MATCHER_LAMBDA", 1e-5, "Matcher payoff lambda")
+    m.register(float, "MATCHER_POPULATION_THRESHOLD", 0.7, "Matcher population threshold")
+    m.register(int, "MATCHER_MIN_GROUP_SIZE", 5, "Matcher minimum required group size")
+    m.register(int, "MATCHER_MAX_ROUNDS", 20, "Matcher maximum number of rounds to perform")
+    m.register(float, "MATCHER_MAX_EPI_DISTANCE", 0.5, "Max matches epipolar distance")
+    m.register(bool, "MATCHER_SKIP_GT", False, "Skip game-theoretic matcher and use the nearest match only.")
+    m.register(float, "FEATURE_MIN_DISTANCE", 0.0, "Minimum distance allowed between two features (in px; 0 = auto: 12 below 1.5 MP, 8 above)")
+    m.register(float, "FEATURE_HESSIAN_THRESHOLD", 0.0001, "Detector determinant-of-Hessian threshold")
+    m.register(int, "FEATURE_N_OCTAVES", 4, "Scale-space octaves")
+    m.register(int, "FEATURE_N_LAYERS", 4, "Scale-space layers per octave")
+    m.register(int, "FEATURE_INIT_SAMPLES", 1, "Compatibility option (OpenSURF init samples)")
+    m.register(int, "AREA_SUBDIVISION", 5, "Number of image subdivisons to improve feature distribution")
+    m.register(float, "NNDR", 0.25, "Nearest neighbour distance ratio used to select best matches. Note: ignored if MATCHER_SKIP_GT=false")
+    # Framework extensions (not in the reference's INCFG set):
+    m.register(float, "MATCHER_INPUT_SMOOTH_SIGMA", -1.0, "Gaussian pre-smoothing of the 8-bit inputs before detection/LK (negative = AUTO from the estimated input degradation; 0 disables)")
+    m.register(int, "MATCHER_LK_WIN", 0, "LK refinement half-window (0 = auto: scales with image width)")
 
     # ---- stereo ----------------------------------------------------------
     s = stereo_cfg
@@ -113,6 +134,29 @@ def stereo_config_from_registry():
         min_triangulated=g("MIN_TRIANGULATED_POINTS"),
         random_seed=max(g("RANDOM_SEED"), 0),
         input_smooth_sigma=g("DENSE_INPUT_SMOOTH_SIGMA"),
+    )
+
+
+def match_config_from_registry():
+    """Build the port's MatchConfig from the registry's values."""
+    from wass_tpu_torch.match.pipeline import MatchConfig
+
+    register_all()
+    g = matcher_cfg.get
+    return MatchConfig(
+        num_features=g("NUM_FEATURES_PER_IMAGE"),
+        nndr=g("NNDR"),
+        matcher_lambda=g("MATCHER_LAMBDA"),
+        population_threshold=g("MATCHER_POPULATION_THRESHOLD"),
+        min_group_size=g("MATCHER_MIN_GROUP_SIZE"),
+        max_rounds=g("MATCHER_MAX_ROUNDS"),
+        max_epi_distance=g("MATCHER_MAX_EPI_DISTANCE"),
+        skip_gt=g("MATCHER_SKIP_GT"),
+        hessian_threshold=g("FEATURE_HESSIAN_THRESHOLD"),
+        feature_grid_cell=0 if g("FEATURE_MIN_DISTANCE") <= 0 else max(int(g("FEATURE_MIN_DISTANCE")), 2),
+        area_subdivision=g("AREA_SUBDIVISION"),
+        input_smooth_sigma=g("MATCHER_INPUT_SMOOTH_SIGMA"),
+        lk_win=g("MATCHER_LK_WIN"),
     )
 
 

@@ -1,5 +1,6 @@
-"""Sequence-level orchestration: the prepare stage over every frame pair,
-and the production dense-stereo loop over every frame workdir.
+"""Sequence-level orchestration: prepare every frame pair, match a subset
+of the frames, autocalibrate the rig from the pooled matches, and run the
+production dense-stereo loop over every frame workdir.
 
 Counterpart of SequencePipeline in wass_tpu/cli/pipeline.py.  The stereo
 loop is the JAX package's _stereo_pipelined: PNGs decode on prefetch
@@ -20,10 +21,10 @@ the dispatching stream would wait for every frame dispatched since.  The
 one host read left on the dispatching thread is the plane refinement's
 3x3 eigenproblem (stereo/plane.py).
 
-Not ported yet: the match / autocalibrate stages, the frame-sharded
-multi-device runner, the optical-flow path, debug renders and the
-delta-coded wire format (the .xyzC payload is always the direct u16
-export).
+Not ported yet: the match stage's debug renders (matches.jpg), the
+frame-sharded multi-device runner, the optical-flow path, the stereo
+debug renders and the delta-coded wire format (the .xyzC payload is
+always the direct u16 export).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-import wass_tpu_torch
+from wass_tpu_torch.calib.autocalibrate import AutocalConfig, autocalibrate_sequence
 from wass_tpu_torch.core.geometry import rt_from_plane
 from wass_tpu_torch.device import resolve_device, to_device
 from wass_tpu_torch.io.png import read_gray
@@ -47,7 +48,10 @@ from wass_tpu_torch.io.prefetch import Prefetcher
 from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
 from wass_tpu_torch.io.xyzc import save_xyz_quantized
 from wass_tpu_torch.launches import frame_scope
+from wass_tpu_torch.match.pipeline import MatchConfig, match_frame
+from wass_tpu_torch.ops import components_kernels
 from wass_tpu_torch.prepare.prepare import PrepareConfig, prepare_frame
+from wass_tpu_torch.stereo import sgm_kernels
 from wass_tpu_torch.stereo.dense import (
     DenseStereoConfig,
     DenseStereoPipeline,
@@ -62,7 +66,11 @@ from wass_tpu_torch.utils.progress import progress
 @dataclasses.dataclass
 class SequenceConfig:
     prepare: PrepareConfig = dataclasses.field(default_factory=PrepareConfig)
+    match: MatchConfig = dataclasses.field(default_factory=MatchConfig)
+    autocal: AutocalConfig = dataclasses.field(default_factory=AutocalConfig)
     stereo: DenseStereoConfig = dataclasses.field(default_factory=DenseStereoConfig)
+    match_subset: int = 50  # frames matched at most (wasscli.py:259)
+    seed: int = 0  # the numpy draw of the matched subset
     # "cuda" runs the kernels and needs a card; "cpu" runs the plain
     # versions (tests).  No fallback from one to the other.
     device: str = "cuda"
@@ -97,6 +105,62 @@ class SequencePipeline:
     def workdirs(self) -> List[Workdir]:
         return frame_workdirs(self.outdir)
 
+    # -- stage 2: match ----------------------------------------------------
+    def match(self, wds: Optional[Sequence[Workdir]] = None) -> int:
+        """Match a random subset of at most match_subset frames; each writes
+        ext_R/ext_T, matches.txt, matches_epionly.txt,
+        matches_unfiltered.txt, matcher_stats.csv and wass_match_log.txt.
+        Returns the number of frames matched."""
+        wds = list(wds if wds is not None else self.workdirs())
+        device = self._device()
+        rng = np.random.default_rng(self.cfg.seed)
+        if len(wds) > self.cfg.match_subset:
+            sel = rng.choice(len(wds), self.cfg.match_subset, replace=False)
+            wds = [wds[i] for i in sorted(sel)]
+        n_ok = 0
+        for wd in wds:
+            t0 = time.time()
+            img0 = wd.load_undistorted(0)
+            img1 = wd.load_undistorted(1)
+            res = match_frame(img0, img1, wd.load_intrinsics(0), wd.load_intrinsics(1), self.cfg.match, device)
+            with open(wd.path / "wass_match_log.txt", "w") as f:
+                if res is None:
+                    f.write("[ERROR] match stage failed (no pose recovered)\n")
+                else:
+                    f.write(f"[INFO] matches: {res.n_matches}\n")
+                    f.write(f"[INFO] epipolar error avg/std/min/max: {res.epi_avg:.4f} {res.epi_std:.4f} "
+                            f"{res.epi_min:.4f} {res.epi_max:.4f} px\n")
+                    f.write("[INFO] matches.jpg / matches_epifilter.jpg: not written (the port has no debug "
+                            "renders yet)\n")
+                f.write(f"[INFO] wall time: {time.time() - t0:.3f}s\n")
+            if res is None:
+                continue
+            wd.save_extrinsics(res.R, res.T)
+            wd.save_matches("matches.txt", res.uv0_pose, res.uv1_pose)
+            wd.save_matches("matches_epionly.txt", res.uv0_epi, res.uv1_epi)
+            wd.save_matches("matches_unfiltered.txt", res.uv0_all, res.uv1_all)
+            wd.save_matcher_stats(res.n_matches, res.epi_avg, res.epi_std, res.epi_min, res.epi_max)
+            n_ok += 1
+        return n_ok
+
+    # -- stage 3: autocalibrate -------------------------------------------
+    def autocalibrate(self):
+        """The pooled reduction over every frame's matches_epionly.txt;
+        writes wass_autocalibrate_log.txt, and ext_R/ext_T and H.xml to every
+        workdir on success.  Returns the AutocalResult or None."""
+        t0 = time.time()
+        res = autocalibrate_sequence(self.workdirs(), self.cfg.autocal, self._device())
+        with open(self.outdir / "wass_autocalibrate_log.txt", "w") as f:
+            if res is None:
+                f.write("[ERROR] autocalibrate failed (no pooled matches)\n")
+            else:
+                f.write(f"[INFO] pooled inliers: {res.n_inliers}\n")
+                f.write(f"[INFO] median epipolar error before/after BA: "
+                        f"{res.epi_med_before:.6f} / {res.epi_med_after:.6f} px\n")
+                f.write(f"[INFO] accepted (improved): {res.improved}\n")
+            f.write(f"[INFO] wall time: {time.time() - t0:.3f}s\n")
+        return res
+
     # -- stage 4: dense stereo --------------------------------------------
     def _frame_geometry(self, cache: dict, K0, K1, R, T, shape, device):
         """Geometry + device pack, cached by rig parameters."""
@@ -125,7 +189,8 @@ class SequencePipeline:
                 res, c2f = extras["pipe"].resolve_fallback(res, c2f, *extras["rect"], extras["gp"])
         log_lines = [
             "kernel launches: "
-            + " ".join(f"{k}={extras['launches'].get(k, 0)}" for k in sorted(wass_tpu_torch.launch_counts()))
+            + " ".join(f"{k}={extras['launches'].get(k, 0)}"
+                       for k in sorted({**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES}))
         ]
         if c2f is not None:
             log_lines.append(
