@@ -66,13 +66,15 @@ P. Prepare on the card: the scene's surface traced through a known lens
    prepare_config.txt) through SequencePipeline.prepare and reconstructed,
    its elevation error printed, not gated.
 M. Match and autocalibrate on the card (phase M): MATCH_FRAMES workdirs of
-   the scene's pair without ext_R/ext_T.  First the iidyn kernel against
-   its plain version on frame 0's first-round payoff (C = 4000 features x
-   3 candidates = 12000), a planted clique at C = 2000 and one above the
-   shared-memory capacity (the global-memory variant): bit-equal x, update
-   count and Nash error after 64 updates and at convergence (the plain
-   version adds in the kernel's order); the kernel's time per round beside
-   the plain version's.
+   the scene's pair without ext_R/ext_T.  First the iidyn kernel (one
+   thread-block cluster) against its plain version on frame 0's
+   first-round payoff (C = 4000 features x 3 candidates = 12000) and on
+   the cluster's edges, planted cliques: C = 2000; 5 live of 3000 (CTAs
+   that hold none); one live; C not a multiple of GROUPS x THREADS; the
+   largest C whose payoff takes 30% of the card's free memory: bit-equal
+   x, update count and Nash error after 64 updates and at convergence (the
+   plain version adds in the kernel's order); the kernel's time per round
+   beside the plain version's, with the cluster's shape and the card.
    Then `match` and `autocalibrate` through the CLI's entry point with the
    matcher defaults (AUTO budget 4000, grid cell 8, 20000 iidyn
    iterations, 20 rounds, AUTO LK window and smoothing) but
@@ -90,10 +92,14 @@ M. Match and autocalibrate on the card (phase M): MATCH_FRAMES workdirs of
    N(0, 0.01) grey levels are added to the images, and the port's stage
    on the JAX package's features gives the JAX package's pose to 5e-7
    for four draws of five (tests/torch_match_witness.py, on the CPU).
-   Then,
-   measurement only, the device ms of each match and autocalibrate stage
-   on frame 0's pair, and frame 0 matched with the default threshold
-   (printed, not gated).
+   Then, measurement only, the device ms of each match and autocalibrate
+   stage on frame 0's pair and frame 0 matched with the default threshold
+   (printed, not gated).  Then POOL_SEEDS' four distinct scenes of the rig
+   (the three new ones rendered on the card), one workdir each, through
+   `match` and `autocalibrate`: the pooled pose gated as above, the
+   elevation error of the first scene's frame made with it printed, not
+   gated.  Last, a line of iidyn's times: frame 0's first round, the
+   match frame's 20 rounds and its wall time, with the card.
 5. Where the c2f frame's time goes: the sequence loop's frames/s over
    LOOP_FRAMES frames through SequencePipeline at each (dispatch_depth,
    writer_threads) of LOOP_SETTINGS (3 passes each, the first one with the
@@ -108,8 +114,9 @@ M. Match and autocalibrate on the card (phase M): MATCH_FRAMES workdirs of
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
    67 T/s, and for K1/K2 their popcounts at 16 a clock per SM at the
-   maximum SM clock nvidia-smi reports; iidyn's is its iterations' rows of
-   A, 4 C bytes each; no single PyTorch call computes any of these
+   maximum SM clock nvidia-smi reports; iidyn's is its updates' rows of A
+   at the live columns, 4 n_live bytes each; no single PyTorch call
+   computes any of these
    functions, so library_ms is null), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -156,6 +163,9 @@ PREP_FRAMES = 3  # raw frames of phase P
 PREP_DIST = ([-0.04, 0.01, 2e-4, -1e-4, 0.0], [-0.03, 0.005, 0.0, 0.0, 0.0])
 CLAHE_TILE_PX = 150  # CAM{0,1}_CLAHE_TILEGRIDSIZE of phase P's CLAHE frame
 MATCH_FRAMES = 3  # frame workdirs of phase M (the same pair)
+# Phase M's pooled scenes: make_scene seeds of the same rig (SCENE_SEED's
+# and three more), one workdir each, rendered on the card (render_pair).
+POOL_SEEDS = (SCENE_SEED, 11, 12, 13)
 # FEATURE_HESSIAN_THRESHOLD of phase M's matcher_config.txt, the value the
 # JAX package's own tests use for these synthetic scenes
 # (tests/test_match.py:110): with the default 1e-4 the scene's smooth
@@ -926,26 +936,27 @@ def iidyn_case(results: dict, what: str, A, x0, mask) -> int:
 
 
 def planted_clique(C: int, g: int, seed: int, n_live: int, dev):
-    """A symmetric (C, C) payoff, 0-0.05 noise with a g-clique of 0.9-1;
-    the first n_live candidates live (the clique among them), and the
-    initial population over them."""
+    """A (C, C) payoff of 0-0.05 noise, made on the card, with a g-clique
+    of 0.9-1 and symmetric over the first n_live candidates, which are the
+    live ones (the dynamics read no other entry of A); and the initial
+    population over them."""
     import torch
 
     from wass_tpu_torch.match.iidyn import initial_population
 
-    gen = torch.Generator().manual_seed(seed)
-    A = torch.rand((C, C), generator=gen) * 0.05
-    A[:g, :g] = 0.9 + 0.1 * torch.rand((g, g), generator=gen)
-    A = ((A + A.T) / 2).fill_diagonal_(0.0)
-    live = (torch.arange(C) < n_live).to(dev)
-    return A.to(dev), initial_population(torch.rand(C, generator=gen).to(dev), live), live
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.rand((C, C), generator=gen, device=dev) * 0.05
+    A[:g, :g] = 0.9 + 0.1 * torch.rand((g, g), generator=gen, device=dev)
+    A[:n_live, :n_live] = ((A[:n_live, :n_live] + A[:n_live, :n_live].T) / 2).fill_diagonal_(0.0)
+    live = torch.arange(C, device=dev) < n_live
+    return A, initial_population(torch.rand(C, generator=gen, device=dev), live), live
 
 
-def check_iidyn(results: dict, wd: Path, dev) -> None:
+def check_iidyn(results: dict, wd: Path, dev, card: str) -> int:
     """Phase M: iidyn on frame 0's first-round payoff (the matcher's AUTO
-    budget at 2048x1536: 4000 features x 3 candidates), on a planted
-    clique at C = 2000 and above the shared-memory capacity, with the
-    kernel's and the plain version's time for the frame's first round."""
+    budget at 2048x1536: 4000 features x 3 candidates) and on the
+    cluster's edges (planted cliques), with the kernel's and the plain
+    version's time for the frame's first round.  Returns its updates."""
     import torch
 
     from wass_tpu_torch.io.workdir import Workdir
@@ -970,28 +981,41 @@ def check_iidyn(results: dict, wd: Path, dev) -> None:
     # match_frame's first draws: row 0 of the rounds' uniforms.
     u = torch.rand((cfg.max_rounds, C), generator=torch.Generator(device=dev).manual_seed(cfg.seed), device=dev)[0]
     x0 = im.initial_population(u, cand.valid)
-    iters = iidyn_case(results, f"frame 0 round 0 (C = {C}, {int(cand.valid.sum())} live)", pay, x0, cand.valid)
-    # Above the shared-memory capacity 2000 candidates stay live, so that
-    # the run converges within the cap (an update moves one candidate).
-    for c, g, seed in ((2000, 60, 1), (im.SMEM_MAX_C + 1, 80, 2)):
-        A, cx0, live = planted_clique(c, g, seed, 2000, dev)
-        variant = "shared memory" if c <= im.SMEM_MAX_C else "global memory, 2000 live"
-        iidyn_case(results, f"planted {g}-clique C = {c} ({variant})", A, cx0, live)
+    n_live = int(cand.valid.sum())
+    iters = iidyn_case(results, f"frame 0 round 0 (C = {C}, {n_live} live)", pay, x0, cand.valid)
+    # The cluster's edges: a planted clique; 5 live of 3000 (11 of the 16
+    # CTAs hold none); one live; C not a multiple of GROUPS x THREADS; the
+    # largest C for which A takes 30% of the card's free memory (2000 live,
+    # so that the run converges: an update moves one candidate).
+    G, T = im.GROUPS, im.THREADS
+    big = int((0.3 * torch.cuda.mem_get_info(dev)[0] / 4) ** 0.5)
+    for what, c, n in (("planted 60-clique", 2000, 2000), ("5 live", 3000, 5), ("one live", 3000, 1),
+                       (f"C = 2 x {G} x {T} + 13, a 60-clique", 2 * G * T + 13, 2000),
+                       ("the largest C, a 60-clique", big, 2000)):
+        A, cx0, live = planted_clique(c, 60, c + n, n, dev)
+        iidyn_case(results, f"{what} (C = {c}, {n} live)", A, cx0, live)
         del A
     torch.cuda.empty_cache()
 
     res = results["iidyn"]
     res["ms"] = cuda_ms(lambda: im.iidyn(pay, x0, cand.valid, max_iters=IIDYN_ITERS), 3)
     res["plain_ms"] = cuda_ms(lambda: im.iidyn_plain(pay, x0, cand.valid, max_iters=IIDYN_ITERS))
-    # The bound: every update must read one row of A, 4 C bytes.
-    set_bound(results, "iidyn", iters * 4.0 * C, 0.0)
+    # The bound: every update must read the row of A at the live columns,
+    # 4 n_live bytes; once, x, Ax and the diagonal at the live columns, the
+    # mask, and x written for all C.  The whole row, 4 C bytes an update,
+    # is printed beside it.
+    set_bound(results, "iidyn", iters * 4.0 * n_live + 12.0 * n_live + 5.0 * C, 0.0)
+    row_ms = bound(iters * 4.0 * C, 0.0)[0]
     plain200 = cuda_ms(lambda: im.iidyn_plain(pay, x0, cand.valid, max_iters=IIDYN_PLAIN_TIMED))
-    log(f"time iidyn frame 0 round 0 (C = {C}): kernel {res['ms']:.3f} ms for {iters} updates "
-        f"({1e3 * res['ms'] / max(iters, 1):.2f} us an update), plain {res['plain_ms']:.3f} ms for the same round, "
-        f"plain {plain200:.3f} ms for {IIDYN_PLAIN_TIMED} updates ({1e3 * plain200 / IIDYN_PLAIN_TIMED:.1f} us an "
-        f"update), bound {res['bound_ms']:.4f} ms ({res['bound_by']}, a share of {res['bound_ms'] / res['ms']:.4f})")
+    log(f"time iidyn frame 0 round 0 (C = {C}, {n_live} live; cluster of {G} CTAs x {T} threads; {card}): kernel "
+        f"{res['ms']:.3f} ms for {iters} updates ({1e3 * res['ms'] / max(iters, 1):.3f} us an update), plain "
+        f"{res['plain_ms']:.3f} ms for the same round, plain {plain200:.3f} ms for {IIDYN_PLAIN_TIMED} updates "
+        f"({1e3 * plain200 / IIDYN_PLAIN_TIMED:.1f} us an update), bound {res['bound_ms']:.4f} ms ({res['bound_by']}, "
+        f"a share of {res['bound_ms'] / res['ms']:.4f}), whole rows (4 C bytes an update) {row_ms:.4f} ms "
+        f"(a share of {row_ms / res['ms']:.4f})")
     del pay
     torch.cuda.empty_cache()
+    return iters
 
 
 @contextlib.contextmanager
@@ -1028,10 +1052,11 @@ def timed_stages(targets):
             setattr(mod, attr, fn)
 
 
-def profile_match(seq: Path, rig) -> None:
+def profile_match(seq: Path, rig) -> tuple:
     """Phase M, measurement only: the device ms of each stage of one
     match_frame on frame 0's pair and of one autocalibrate_sequence over the
-    phase's workdirs (the host float64 polish in host ms)."""
+    phase's workdirs (the host float64 polish in host ms).  Returns the
+    match frame's iidyn rounds (ms, updates) and wall s."""
     from wass_tpu_torch.calib import autocalibrate as ac
     from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
     from wass_tpu_torch.match import matcher
@@ -1056,6 +1081,7 @@ def profile_match(seq: Path, rig) -> None:
                                                if name == "iidyn round" else ""))
     log(f"match_frame on frame 0: {wall:.3f} s wall, {len(times['iidyn round'])} rounds, "
         f"stage sum {sum(sum(t) for k, t in times.items() if k != 'iidyn updates'):.1f} ms")
+    rounds = (sum(times["iidyn round"]), sum(times["iidyn updates"]), wall)
     res = mp.match_frame(img0, img1, rig.K0, rig.K1)
     log(f"match_frame on frame 0 with the default threshold ({mp.MatchConfig().hessian_threshold:g}; not gated): "
         + ("no pose" if res is None else f"{res.n_matches} pose-inlier matches, epipolar avg {res.epi_avg:.4f} px"))
@@ -1084,6 +1110,7 @@ def profile_match(seq: Path, rig) -> None:
     log(f"autocalibrate host float64 polish rounds: {' '.join(f'{v:.1f}' for v in host)} ms; "
         f"{wall:.3f} s wall ({res.n_inliers} pooled inliers; median px {res.epi_med_before:.5f} -> "
         f"{res.epi_med_after:.5f})")
+    return rounds
 
 
 def pose_error(wd, rig) -> tuple:
@@ -1094,18 +1121,62 @@ def pose_error(wd, rig) -> tuple:
     return float(np.abs(R - rig.R).max()), float(np.abs(T.ravel() / np.linalg.norm(T) - rig.T / np.linalg.norm(rig.T)).max())
 
 
-def run_match_phase(root: Path, scene, results: dict, dev) -> dict:
+def run_pooled_scenes(root: Path, scene, dev) -> dict:
+    """Phase M: POOL_SEEDS' scenes of the rig, one workdir each, through
+    `match` and `autocalibrate`; the pooled pose against the rig (gated
+    as a pooled pose), and the elevation error of the first scene's frame
+    made with it (printed, not gated).  Returns the launches."""
+    import wass_tpu_torch
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.cli.main import main as cli_main
+    from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
+    from wass_tpu_torch.testing import WAVE_AMPLITUDE, write_pairs
+    from wass_tpu_torch.testing.synthetic import render_pair
+
+    t0 = time.time()
+    rig = scene.rig
+    pairs = [(scene.img0, scene.img1)] + [render_pair(seed, rig, dev, WAVE_AMPLITUDE) for seed in POOL_SEEDS[1:]]
+    seq = root / "smoke_pool"
+    write_pairs(seq, pairs, rig)
+    for wd in seq.glob("*_wd"):
+        (wd / "ext_R.xml").unlink()
+        (wd / "ext_T.xml").unlink()
+    (seq / "matcher_config.txt").write_text(f"FEATURE_HESSIAN_THRESHOLD={MATCH_HESSIAN}\n")
+    log(f"pooled scenes {POOL_SEEDS}: rendered and written in {time.time() - t0:.1f} s")
+    wass_tpu_torch.reset_launch_counts()
+    if cli_main(["match", str(seq)]) != 0 or cli_main(["autocalibrate", str(seq)]) != 0:
+        raise AssertionError("match or autocalibrate CLI failed on the pooled scenes")
+    for seed, wd in zip(POOL_SEEDS, frame_workdirs(seq)):
+        n, avg = (wd.path / "matcher_stats.csv").read_text().splitlines()[1].split(";")[:2]
+        log(f"pooled scene {seed}: {n} pose-inlier matches, epipolar avg {float(avg):.4f} px (not gated)")
+    wd0 = Workdir(seq / "000000_wd")
+    d_r, d_t = pose_error(wd0, rig)
+    _, _, max_dr, max_dt = MATCH_GATES
+    log(f"pooled pose of {len(POOL_SEEDS)} distinct scenes against the rig: max |dR| {d_r:.3g} (gate {max_dr}), "
+        f"max |dT| {d_t:.3g} (gate {max_dt}); "
+        + (seq / "wass_autocalibrate_log.txt").read_text().strip().replace("\n", "; "))
+    if not (d_r <= max_dr and d_t <= max_dt):
+        raise AssertionError(f"pooled pose of the distinct scenes: |dR| {d_r}, |dT| {d_t}")
+    load_pipeline(seq).stereo([wd0], progress_stream=io.StringIO())
+    check_frame(f"pool 0 (scene {POOL_SEEDS[0]}, the pooled extrinsics)", wd0.path, scene, WINDOWED_PATH, gate=False)
+    log(f"pooled scenes: {time.time() - t0:.1f} s")
+    return wass_tpu_torch.launch_counts()
+
+
+def run_match_phase(root: Path, scene, results: dict, dev, card: str) -> dict:
     """Phase M: the iidyn kernel check; then `match`, a stereo frame with
     the match stage's extrinsics, `autocalibrate` and a stereo frame with
     the pooled extrinsics, through the CLI's entry point and
     SequencePipeline on the card, gated (the two frames' elevation errors
-    printed); then the stage times (not counted)."""
+    printed); then the stage times (not counted); then the pooled distinct
+    scenes."""
     import numpy as np
 
     import wass_tpu_torch
     from wass_tpu_torch.cli.main import load_pipeline
     from wass_tpu_torch.cli.main import main as cli_main
     from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
+    from wass_tpu_torch.match import iidyn as im
     from wass_tpu_torch.testing import write_sequence
 
     t_phase = time.time()
@@ -1116,7 +1187,7 @@ def run_match_phase(root: Path, scene, results: dict, dev) -> dict:
         (wd / "ext_R.xml").unlink()
         (wd / "ext_T.xml").unlink()
     (seq / "matcher_config.txt").write_text(f"FEATURE_HESSIAN_THRESHOLD={MATCH_HESSIAN}\n")
-    check_iidyn(results, seq / "000000_wd", dev)
+    iters = check_iidyn(results, seq / "000000_wd", dev, card)
     wd0 = Workdir(seq / "000000_wd")
 
     def stereo_frame0(what: str, gate: bool) -> None:
@@ -1168,7 +1239,12 @@ def run_match_phase(root: Path, scene, results: dict, dev) -> dict:
         f"autocalibrate {t_autocal:.2f} s; launches {launches}")
     if launches["iidyn"] < 1:
         raise AssertionError(f"phase M launched no iidyn kernel: {launches}")
-    profile_match(seq, rig)
+    rounds_ms, updates, wall = profile_match(seq, rig)
+    add_counts(launches, run_pooled_scenes(root, scene, dev))
+    res = results["iidyn"]
+    log(f"iidyn on {card}, a cluster of {im.GROUPS} CTAs x {im.THREADS} threads: frame 0 round 0 {res['ms']:.3f} ms "
+        f"({1e3 * res['ms'] / max(iters, 1):.3f} us an update), the match frame's 20 rounds {rounds_ms:.3f} ms "
+        f"({updates} updates, {1e3 * rounds_ms / max(updates, 1):.3f} us an update), match_frame wall {wall:.3f} s")
     log(f"phase M: {time.time() - t_phase:.1f} s wall")
     return launches
 
@@ -1363,7 +1439,7 @@ def main() -> int:
     # Phase P: prepare on the card, then stereo on the prepared frames.
     add_counts(launches, run_prepare(_build.BUILD_DIR, rig, scene))
     # Phase M: match and autocalibrate on the card, then stereo with the recovered extrinsics.
-    add_counts(launches, run_match_phase(_build.BUILD_DIR, scene, results, dev))
+    add_counts(launches, run_match_phase(_build.BUILD_DIR, scene, results, dev, smi))
     unused = [k for k in KERNELS if launches[k] < 1]
     if unused:
         raise AssertionError(f"kernels no main-path run launched: {unused}")

@@ -24,6 +24,7 @@ from wass_tpu_torch.core import rectify as trect
 from wass_tpu_torch.core.triangulate import triangulate_normalized as t_tri
 from wass_tpu_torch.prepare import degradation as tdeg
 from wass_tpu_torch.stereo import dense as tdense
+from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 
 def _t(a):

@@ -20,6 +20,7 @@ from wass_tpu_torch.io import xyzc as txyzc
 from wass_tpu_torch.io.workdir import Workdir as TWorkdir
 from wass_tpu_torch.io.workdir import frame_workdirs as tframe_workdirs
 from wass_tpu_torch.testing import synthetic as tsyn
+from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 SCENE_FIELDS = ("img0", "img1", "depth0", "points0")
 RIG_FIELDS = ("K0", "K1", "R0", "T0", "R1", "T1", "R", "T")
@@ -39,6 +40,17 @@ def test_make_scene_bit_equal(seed):
     pts = a.points0.reshape(-1, 3)[::5] * 1.002
     plane = a.rig.plane_cam0()
     np.testing.assert_array_equal(b.elevation_error(pts, plane), a.elevation_error(pts, plane))
+
+
+def test_render_pair_matches_make_scene():
+    """The torch tracer (phase M of chip_smoke.py renders its pooled scenes
+    with it on the card) gives the JAX package's make_scene images: on the
+    CPU to within float64 rounding of the float32 images."""
+    rig = jsyn.make_rig(width=64, height=48)
+    ref = jsyn.make_scene(seed=12, rig=rig, wave_amplitude=0.25)
+    img0, img1 = tsyn.render_pair(12, tsyn.make_rig(width=64, height=48), "cpu", wave_amplitude=0.25)
+    np.testing.assert_allclose(img0, ref.img0, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(img1, ref.img1, rtol=0, atol=1e-4)
 
 
 def _frame_arrays(rng):

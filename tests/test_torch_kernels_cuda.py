@@ -350,31 +350,76 @@ def _planted_clique(C, g, seed):
     return A
 
 
-# (C, clique size, seed): the shared-memory variant, and above
-# iidyn.SMEM_MAX_C the global-memory one.
-IIDYN_CASES = [(40, 12, 0), (300, 30, 1), (2000, 60, 2), (4097, 50, 3), (im.SMEM_MAX_C + 1, 80, 4)]
+# (C, clique size, seed).
+IIDYN_CASES = [(40, 12, 0), (300, 30, 1), (2000, 60, 2), (4097, 50, 3)]
+
+
+def _iidyn_equal(A, x0, mask, caps=(24, 4000), capped=True):
+    """The kernel and the plain version (which adds in the kernel's order):
+    the same update count, x and Nash error, capped at 24 updates and at up
+    to 4000.  capped: the first run stops at its cap (it is below the
+    run's convergence), so that the cap is exercised."""
+    for cap in caps:
+        xk, itk, ek = im.iidyn(A, x0, mask, max_iters=cap)
+        xp, itp, ep = im.iidyn_plain(A, x0, mask, max_iters=cap)
+        assert int(itk) == itp <= cap
+        if capped and cap == caps[0]:
+            assert itp == cap
+        assert torch.equal(xk, xp) and torch.equal(ek, ep)
+    if mask is not None:
+        assert float(xk[~mask].abs().max()) == 0.0
+    return itp
 
 
 @pytest.mark.parametrize("C,g,seed", IIDYN_CASES)
 @pytest.mark.parametrize("masked", [False, True])
 def test_iidyn_kernel(dev, C, g, seed, masked):
-    """Bit-equal to the plain version, which adds its sums in the kernel's
-    order: capped at 24 updates (below any convergence here), and at up to
-    4000 (the same update count, x and Nash error; the unmasked C = 4097
-    case is still running at the cap)."""
+    """Bit-equal to the plain version, capped (below any convergence here)
+    and at up to 4000 updates (the unmasked C = 4097 case is still running
+    at the cap)."""
     A = _planted_clique(C, g, seed).to(dev)
     gen = torch.Generator().manual_seed(seed + 100)
     mask = (torch.rand(C, generator=gen) > 0.25).to(dev) if masked else None
-    if C > im.SMEM_MAX_C:  # 2000 live, so that the run converges (an update moves one candidate)
-        mask = (torch.arange(C, device=dev) < 2000) & (mask if masked else True)
     x0 = im.initial_population(torch.rand(C, generator=gen).to(dev), mask)
-    for cap in (24, 4000):
-        xk, itk, ek = im.iidyn(A, x0, mask, max_iters=cap)
-        xp, itp, ep = im.iidyn_plain(A, x0, mask, max_iters=cap)
-        assert int(itk) == itp <= cap and (itp == 24 or cap > 24)
-        assert torch.equal(xk, xp) and torch.equal(ek, ep)
-    if mask is not None:
-        assert float(xk[~mask].abs().max()) == 0.0
+    _iidyn_equal(A, x0, mask)
+
+
+def _cluster_case(case, dev):
+    """(A, mask) of the cluster's edges: CTAs that hold no live candidate
+    (5 live: 11 of 16 CTAs); a run of ceil(C / GROUPS) columns with nothing
+    live; one live candidate; C not a multiple of GROUPS x THREADS; the
+    largest C the card's free memory takes for A (2000 live, so that the
+    run converges: an update moves one candidate)."""
+    C = {"not a multiple": 2 * im.GROUPS * im.THREADS + 13, "largest": None}.get(case, 3000)
+    if C is None:
+        free, _ = torch.cuda.mem_get_info(dev)
+        C = int((0.4 * free / 4) ** 0.5)
+    gen = torch.Generator(device=dev).manual_seed(C)
+    A = torch.rand((C, C), generator=gen, device=dev) * 0.05
+    n = min(C, 2000)
+    A[:n, :n] = _planted_clique(n, 60, C).to(dev)
+    mask = torch.zeros(C, dtype=torch.bool, device=dev)
+    if case == "empty CTAs":
+        mask[torch.randperm(C, generator=gen, device=dev)[:5]] = True
+    elif case == "empty run":
+        mask[:n] = torch.rand(n, generator=gen, device=dev) < 0.5
+        R = -(-C // im.GROUPS)
+        mask[R:2 * R] = False
+    elif case == "one live":
+        mask[1234] = True
+    else:
+        mask[:n] = True
+    return A, mask, gen
+
+
+@pytest.mark.parametrize("case", ["empty CTAs", "empty run", "one live", "not a multiple", "largest"])
+def test_iidyn_kernel_cluster_edges(dev, case):
+    A, mask, gen = _cluster_case(case, dev)
+    x0 = im.initial_population(torch.rand(A.shape[0], generator=gen, device=dev), mask)
+    # 5 live and one live converge within the first cap.
+    its = _iidyn_equal(A, x0, mask, capped=case not in ("empty CTAs", "one live"))
+    if case == "one live":
+        assert its == 1
 
 
 def test_iidyn_wrapper_counts_and_checks(dev):

@@ -132,27 +132,60 @@ def test_iidyn_plain_short_runs_match_jax(rng, max_iters):
     np.testing.assert_allclose(float(et), float(ej), rtol=1e-4, atol=1e-9)
 
 
-@pytest.mark.parametrize("C", [5, 1024, 1500, 12000])
-def test_block_sum_is_the_kernels_order(rng, C):
-    """_block_sum adds as csrc/iidyn.cu's block reduction does: thread t
-    sums v[t], v[t + 1024], ... from 0, then xor shuffles over each warp's
-    lanes and over the 32 warp sums (modelled here one float32 add at a
-    time), so the plain loop and the kernel give the same bits."""
+def _cluster_mask(rng, C, case):
+    """The live sets of the order test: all live; 27% live; half live with
+    a run of C / GROUPS columns that holds nothing live (one CTA's range,
+    were the columns split evenly); one live."""
+    if case == "all":
+        return np.ones(C, bool)
+    if case == "27%":
+        return rng.random(C) < 0.27
+    if case == "one":
+        live = np.zeros(C, bool)
+        live[rng.integers(C)] = True
+        return live
+    live = rng.random(C) < 0.5
+    R = -(-C // tiidyn.GROUPS)
+    live[R:2 * R] = False
+    return live
+
+
+@pytest.mark.parametrize("mask", ["all", "27%", "empty run", "one"])
+@pytest.mark.parametrize("C", [5, 1024, 1500, 12000, 40000])
+def test_block_sum_is_the_kernels_order(rng, C, mask):
+    """_block_sum adds as csrc/iidyn.cu's cluster reduction does, modelled
+    here one float32 add at a time: of the L live candidates in index
+    order, CTA g holds those of rank [g L // GROUPS, (g + 1) L // GROUPS);
+    thread t sums the CTA's elements t, t + THREADS, ... from 0; xor
+    shuffles fold each warp's lanes, then the warp sums, then the CTA sums
+    (the last two modelled as a 32-lane butterfly with 0 beyond them: the
+    same bits as the kernel's narrower butterflies).  With one live
+    candidate all CTAs but one hold nothing; C = 40000 gives a CTA more
+    live candidates than its threads' chunks of loads (4 x THREADS), so the
+    update pass loops."""
+    G, T = tiidyn.GROUPS, tiidyn.THREADS
     v = rng.standard_normal((2, C)).astype(np.float32)
+    live = _cluster_mask(rng, C, mask)
+    cols = np.flatnonzero(live)
+    L = len(cols)
+
+    def butterfly(a):
+        a = np.array(list(a) + [0.0] * (32 - len(a)), np.float32)
+        for o in (16, 8, 4, 2, 1):
+            a = np.array([np.float32(a[lane] + a[lane ^ o]) for lane in range(32)], np.float32)
+        return a[0]
+
     ref = []
     for row in v:
-        lanes = np.zeros(1024, np.float32)
-        for t in range(1024):
-            for x in row[t::1024]:
-                lanes[t] = np.float32(lanes[t] + x)
-
-        def shuffle_sum(a):
-            for o in (16, 8, 4, 2, 1):
-                a = np.array([np.float32(a[lane] + a[lane ^ o]) for lane in range(32)], np.float32)
-            return a[0]
-
-        ref.append(shuffle_sum(np.array([shuffle_sum(w) for w in lanes.reshape(32, 32)], np.float32)))
-    np.testing.assert_array_equal(tiidyn._block_sum(_t(v)).numpy(), np.array(ref, np.float32))
+        parts = []
+        for g in range(G):
+            lanes = np.zeros(T, np.float32)
+            for j, c in enumerate(cols[g * L // G:(g + 1) * L // G]):
+                lanes[j % T] = np.float32(lanes[j % T] + row[c])
+            parts.append(butterfly([butterfly(w) for w in lanes.reshape(T // 32, 32)]))
+        ref.append(butterfly(parts))
+    got = tiidyn._block_sum(_t(v), tiidyn._layout(_t(live))).numpy()
+    np.testing.assert_array_equal(got, np.array(ref, np.float32))
 
 
 def test_initial_population_matches_jax(rng):

@@ -14,6 +14,7 @@ from wass_tpu_torch.io.workdir import frame_workdirs
 from wass_tpu_torch.io.xyzc import load_camera_mesh
 from wass_tpu_torch.testing import make_scene
 from wass_tpu_torch.testing.synthetic import make_rig
+from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 W, H, N_FRAMES = 384, 288, 6
 MATCH_FILES = ("ext_R.xml", "ext_T.xml", "matches.txt", "matches_epionly.txt", "matches_unfiltered.txt",

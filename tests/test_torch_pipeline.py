@@ -21,6 +21,7 @@ from wass_tpu.testing import make_rig, make_scene
 from wass_tpu_torch.cli.main import main as torch_main
 from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
 from wass_tpu_torch.stereo import plane as tplane
+from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -17,6 +17,7 @@ from wass_tpu.stereo import dense as jd
 from wass_tpu.testing import make_rig, make_scene
 from wass_tpu_torch.cli.main import main as torch_main
 from wass_tpu_torch.stereo import plane as tplane
+from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module", autouse=True)

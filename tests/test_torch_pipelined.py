@@ -27,6 +27,7 @@ from wass_tpu_torch.testing import write_sequence
 from wass_tpu_torch.testing.synthetic import make_rig, make_scene
 from wass_tpu_torch.utils.progress import progress
 from wass_tpu_torch.utils.timer import StageTimer
+from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 N_FRAMES = 4
 # c2f at 256x192: windows of 32 disparities over num_disp 96.

@@ -23,6 +23,7 @@ from wass_tpu_torch.cli.main import main as torch_main
 from wass_tpu_torch.io.workdir import Workdir as TWorkdir
 from wass_tpu_torch.stereo import plane as tplane
 from wass_tpu_torch.testing import distort_image, write_raw_sequence
+from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 N_FRAMES = 2
 DIST0 = [-0.04, 0.01, 4e-4, -2e-4, 0.0]

@@ -9,190 +9,266 @@
 // the kernel runs the loop, then writes the final x, the update count and
 // sqrt of the final state's Nash error.
 //
-// Design: one block of 1024 threads runs the loop.  x, Ax and the live
-// flags stay in shared memory (9 C bytes: C up to ~25.7k in the 227 KB a
-// block may use); above that the same kernel keeps x and Ax in global
-// scratch (template parameter kShared false).  An iteration is two passes
-// over the C candidates, each ending in one block reduction:
-//   A. normalize x (the previous update's simplex division), and reduce
-//      xAx = x . Ax with the argmax of Ax over live and the argmin of Ax
-//      over live & x > 0 as (value, index) pairs, ties to the lowest index
-//      (jnp.argmax/argmin; an empty argmin gives index 0 as over +inf);
-//   B. read the row A[idx, :] and update x and Ax; reduce the Nash error
-//      of the state before the update (it needs xAx, known after A) and
-//      the sum of the new x for the next simplex division.
-// Every thread then computes the same scalars (idx, delta, mu) from the
-// reduced values, so the loop's branches are uniform.  The update is
-// written with __fmul_rn/__fadd_rn/__fdiv_rn so that nvcc contracts no
-// multiply-add: x and Ax get the plain version's rounding; only the sums'
-// order differs (a tree here, PyTorch's order there).
+// Bound on the H100: each update must read one row of A, 4 C bytes (48 KB
+// at C = 12000: 14 ns at 3.35 TB/s), or only its live columns, 4 n_live
+// bytes.  What limits the loop is its dependency chain: an update cannot
+// start before the previous one has reduced its scalars over all
+// candidates, so the design shortens the chain of one update.
+//
+// Design: one thread-block cluster of G = 16 CTAs (a non-portable size:
+// the portable limit is 8) of T = 256 threads each.
+//   - Of the L live columns in index order, CTA g holds those of rank
+//     [g L / G, (g + 1) L / G): in the prologue every CTA counts L, then
+//     compacts its share into shared memory with a block prefix scan
+//     (ballot + popc), 16 bytes a column: the column, x (unnormalized
+//     after the first update), Ax and the diagonal A[j, j].  Thread t takes
+//     the list's elements t, t + T, ...  Candidates that are not live add
+//     exactly +0 to every sum and are never read again, so no pass walks
+//     them.  (Equal column ranges, one a CTA, would leave most CTAs with
+//     nothing to do: the matcher's live candidates come first.)
+//   - An update is one pass and one cluster reduction.  The pass reads
+//     the row A[idx, :] at the thread's live columns (all loads of a chunk
+//     issued before any is used), updates x and Ax, and folds the next
+//     state's selection into the same pass: the reduction carries the sum
+//     S of the new unnormalized x~, sum x~ . Ax_new (divided by S after,
+//     giving the next xAx), the Nash error of the state before the update
+//     (its xAx is known from the previous reduction), and the argmax of
+//     Ax_new over live and its argmin over live & x~ > 0 (the x > 0 set
+//     does not depend on the normalization).  Each argmax/argmin entry
+//     carries (Ax, column, x~, A[j, j]), so the scalars of the next update
+//     (den, mu0) need no dependent load.
+//   - The reduction: xor shuffles within each warp, the W = T / 32 warp
+//     sums folded by warp 0 the same way, then lane g of warp 0 stores the
+//     CTA's partial into CTA g's shared slot [parity][rank] (distributed
+//     shared memory), one barrier.cluster arrive/wait, and every warp of
+//     every CTA folds the G partials with shuffles too: all threads hold
+//     the same bits, so the loop's branches are uniform.  (Adding the G
+//     partials one after another in rank order is G - 1 dependent adds;
+//     the butterfly is log2 G shuffle steps.)  The
+//     slots alternate with the update's parity, so one cluster barrier an
+//     update is enough (a CTA writes slot p again only after every CTA has
+//     passed the next barrier, i.e. read slot p).
+// An update's time on the H100 is this chain of folds and barriers, not
+// its bytes.  Keeping recent rows of A in shared memory, or gathering
+// both candidates' rows before the scalars choose, did not shorten it.
+// The update is written with __fmul_rn/__fadd_rn/__fdiv_rn so that nvcc
+// contracts no multiply-add; match/iidyn.py:iidyn_plain runs the same
+// operations and adds its sums in this order (_block_sum), so the two give
+// the same bits.
 //
 // The loop's semantics (iidyn.py:83-108): an iteration computes the error
 // of the state before its update and the loop test reads that error, so
 // the loop applies one update past the first state with err < toll^2; the
-// count is of updates; the final error is recomputed on the final state.
+// count is of updates; the final error is recomputed on the final state
+// (one more reduction).  argmax/argmin ties go to the lowest column; an
+// empty set's winner is column 0, as jnp.argmax/argmin's, and is never
+// chosen while any candidate is live (its gap is -inf).
 //
-// Bound on the H100: each iteration must read one row of A, 4 C bytes
-// (48 KB at C = 12000: 14 ns at 3.35 TB/s).  What limits the kernel is the
-// dependency chain: every iteration waits for two block reductions and a
-// row load before the next can start (a few microseconds), so it reads a
-// small share of that bound.  A thread-block cluster with distributed
-// shared memory could spread the passes over several SMs.
+// The cluster's shape is fixed at compile time (kGroups x kThreads, the
+// shape measured fastest on the H100; match/iidyn.py's GROUPS and THREADS
+// mirror it).  IIDYN_GROUPS and IIDYN_THREADS override it for a build
+// that emulates the cluster on a host.
+//
+// Capacity: a CTA's shared memory holds ceil(C / G) columns at 16 bytes:
+// 16 CTAs hold ~229k candidates (a (C, C) float32 payoff on an 80 GB card
+// stops at ~141k).  Above it the launcher's cudaFuncSetAttribute fails.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+#ifndef IIDYN_GROUPS
+#define IIDYN_GROUPS 16
+#endif
+#ifndef IIDYN_THREADS
+#define IIDYN_THREADS 256
+#endif
+constexpr int kGroups = IIDYN_GROUPS;    // CTAs a cluster (a power of two, at most 16)
+constexpr int kThreads = IIDYN_THREADS;  // threads a CTA (a power of two, 32-1024)
+static_assert(kGroups >= 1 && kGroups <= 16 && (kGroups & (kGroups - 1)) == 0, "IIDYN_GROUPS");
+static_assert(kThreads >= 32 && kThreads <= 1024 && (kThreads & (kThreads - 1)) == 0, "IIDYN_THREADS");
+constexpr int kChunk = 4;         // row loads a thread keeps in flight
+constexpr int kNoCluster = -2;    // wass_iidyn: no cluster of this shape fits the card
 
-struct ArgBest {
+// An argmax/argmin entry: Ax value, column, unnormalized x, diagonal.
+struct Best {
   float v;
   int i;
+  float x;
+  float d;
 };
+
+// One partial of the cluster reduction (48 bytes: three 16-byte stores).
+struct __align__(16) Part {
+  float s, xax, err, pad;
+  Best mx, mn;
+};
+
+// Shared memory of a CTA: the slots [2][kGroups], the warp partials
+// [32] and the scan counts [32] ahead of the live columns' four arrays.
+constexpr size_t kHeaderBytes = sizeof(Part) * (2 * kGroups + 32) + 32 * sizeof(int);
+constexpr size_t kBytesPerColumn = 16;
 
 // (v, i) better than (w, j) for a max: larger value, or equal value and
 // lower index.  NaN never wins (no NaN occurs for finite payoffs).
 __device__ __forceinline__ bool max_better(float v, int i, float w, int j) { return v > w || (v == w && i < j); }
 __device__ __forceinline__ bool min_better(float v, int i, float w, int j) { return v < w || (v == w && i < j); }
 
-struct SelectPart {
-  float xax;
-  ArgBest mx, mn;
-};
+__device__ __forceinline__ Part identity() {
+  Part p;
+  p.s = p.xax = p.err = p.pad = 0.0f;
+  p.mx = {-INFINITY, 0x7fffffff, 0.0f, 0.0f};
+  p.mn = {INFINITY, 0x7fffffff, 0.0f, 0.0f};
+  return p;
+}
 
-struct UpdatePart {
-  float sum, err;
-};
+// p = p (+) q: the sums add, the better entry wins.
+__device__ __forceinline__ void fold(Part& p, const Part& q) {
+  p.s = __fadd_rn(p.s, q.s);
+  p.xax = __fadd_rn(p.xax, q.xax);
+  p.err = __fadd_rn(p.err, q.err);
+  if (max_better(q.mx.v, q.mx.i, p.mx.v, p.mx.i)) p.mx = q.mx;
+  if (min_better(q.mn.v, q.mn.i, p.mn.v, p.mn.i)) p.mn = q.mn;
+}
 
-__device__ __forceinline__ SelectPart warp_select(SelectPart p) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float xax = __shfl_xor_sync(0xffffffffu, p.xax, o);
-    const float mxv = __shfl_xor_sync(0xffffffffu, p.mx.v, o);
-    const int mxi = __shfl_xor_sync(0xffffffffu, p.mx.i, o);
-    const float mnv = __shfl_xor_sync(0xffffffffu, p.mn.v, o);
-    const int mni = __shfl_xor_sync(0xffffffffu, p.mn.i, o);
-    p.xax += xax;
-    if (max_better(mxv, mxi, p.mx.v, p.mx.i)) p.mx = {mxv, mxi};
-    if (min_better(mnv, mni, p.mn.v, p.mn.i)) p.mn = {mnv, mni};
+__device__ __forceinline__ Best shfl_best(const Best& b, int o) {
+  return {__shfl_xor_sync(0xffffffffu, b.v, o), __shfl_xor_sync(0xffffffffu, b.i, o),
+          __shfl_xor_sync(0xffffffffu, b.x, o), __shfl_xor_sync(0xffffffffu, b.d, o)};
+}
+
+// The xor butterfly over groups of `width` lanes (a power of two): lane l
+// adds lane l ^ width / 2, then l ^ width / 4, ...  When every group of
+// lanes starts with the same values, every lane ends with the same bits
+// (each step combines the same two operands on both lanes of a pair).
+__device__ __forceinline__ Part warp_fold(Part p, int width) {
+  for (int o = width >> 1; o > 0; o >>= 1) {
+    Part q;
+    q.s = __shfl_xor_sync(0xffffffffu, p.s, o);
+    q.xax = __shfl_xor_sync(0xffffffffu, p.xax, o);
+    q.err = __shfl_xor_sync(0xffffffffu, p.err, o);
+    q.mx = shfl_best(p.mx, o);
+    q.mn = shfl_best(p.mn, o);
+    fold(p, q);
   }
   return p;
 }
 
-__device__ __forceinline__ UpdatePart warp_update(UpdatePart p) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    p.sum += __shfl_xor_sync(0xffffffffu, p.sum, o);
-    p.err += __shfl_xor_sync(0xffffffffu, p.err, o);
-  }
-  return p;
-}
-
-// Block reductions: each warp reduces, warp 0 reduces the warp results;
-// every thread returns the block's result.  `scratch` holds kWarps entries
-// and `out` one; two barriers.
-__device__ SelectPart block_select(SelectPart p, SelectPart* scratch, SelectPart* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  p = warp_select(p);
-  if (lane == 0) scratch[warp] = p;
+// Every thread's partial -> the cluster's, in every thread of every CTA:
+// the warp's 32 lanes, then its W warp sums (lane l of warp 0 reads warp
+// l mod W), then the G CTA partials (lane l of every warp reads CTA
+// l mod G's), each folded in halves by the butterfly.
+__device__ Part cluster_reduce(Part p, Part* slots, Part* wpart, int parity, cg::cluster_group& cluster) {
+  constexpr int W = kThreads / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, rank = (int)cluster.block_rank();
+  p = warp_fold(p, 32);
+  if (lane == 0) wpart[warp] = p;
   __syncthreads();
   if (warp == 0) {
-    p = warp_select(scratch[lane]);  // kWarps == 32
-    if (lane == 0) *out = p;
+    p = warp_fold(wpart[lane & (W - 1)], W);
+    if (lane < kGroups) *cluster.map_shared_rank(&slots[parity * kGroups + rank], lane) = p;
   }
-  __syncthreads();
-  return *out;
+  cluster.sync();
+  Part r = warp_fold(slots[parity * kGroups + (lane & (kGroups - 1))], kGroups);
+  if (!(r.mx.v > -INFINITY)) r.mx.i = 0;  // an empty set's winner: column 0
+  if (!(r.mn.v < INFINITY)) r.mn.i = 0;
+  return r;
 }
 
-__device__ UpdatePart block_update(UpdatePart p, UpdatePart* scratch, UpdatePart* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  p = warp_update(p);
-  if (lane == 0) scratch[warp] = p;
-  __syncthreads();
-  if (warp == 0) {
-    p = warp_update(scratch[lane]);
-    if (lane == 0) *out = p;
-  }
-  __syncthreads();
-  return *out;
-}
-
-// Pass A: x[i] /= denom (the simplex division of the last update; denom 1
-// for the first state), then the partial xAx, argmax and argmin.
-__device__ SelectPart pass_select(float* x, const float* ax, const uint8_t* live, int C, float denom) {
-  SelectPart p{0.0f, {-INFINITY, 0x7fffffff}, {INFINITY, 0x7fffffff}};
-  for (int i = threadIdx.x; i < C; i += kThreads) {
-    const float xi = __fdiv_rn(x[i], denom);
-    x[i] = xi;
-    const float a = ax[i];
-    p.xax = __fadd_rn(p.xax, __fmul_rn(xi, a));
-    const bool lv = live[i] != 0;
-    const float vmax = lv ? a : -INFINITY;
-    const float vmin = (lv && xi > 0.0f) ? a : INFINITY;
-    if (max_better(vmax, i, p.mx.v, p.mx.i)) p.mx = {vmax, i};
-    if (min_better(vmin, i, p.mn.v, p.mn.i)) p.mn = {vmin, i};
-  }
-  return p;
-}
-
-// The Nash error of the state (x, Ax) with xAx known: one thread's part.
-__device__ __forceinline__ float err_term(float xi, float a, float xax, bool lv) {
+// The Nash error's term min(xAx - Ax_i, x_i)^2 of a live candidate.
+__device__ __forceinline__ float err_term(float xi, float a, float xax) {
   const float d = __fsub_rn(xax, a);
   const float t = d < xi ? d : xi;
-  return lv ? __fmul_rn(t, t) : 0.0f;
+  return __fmul_rn(t, t);
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads, 1)
-    iidyn_kernel(const float* __restrict__ A, float* x_io, float* ax_io, const uint8_t* live_g, int* it_out,
-                 float* err_out, int C, float toll2, int max_iters) {
+__global__ void __launch_bounds__(kThreads)
+    iidyn_kernel(const float* __restrict__ A, float* __restrict__ x_io, const float* __restrict__ ax_in,
+                 const uint8_t* __restrict__ live, int* it_out, float* err_out, int C, float toll2,
+                 int max_iters) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ SelectPart sel_scratch[kWarps];
-  __shared__ UpdatePart upd_scratch[kWarps];
-  __shared__ SelectPart sel_out;
-  __shared__ UpdatePart upd_out;
+  Part* slots = reinterpret_cast<Part*>(smem);
+  Part* wpart = slots + 2 * kGroups;
+  int* wcount = reinterpret_cast<int*>(wpart + 32);
+  int* s_col = wcount + 32;
 
-  float* x;
-  float* ax;
-  const uint8_t* live;
-  if constexpr (kShared) {
-    x = reinterpret_cast<float*>(smem);
-    ax = x + C;
-    uint8_t* lv = reinterpret_cast<uint8_t*>(ax + C);
-    for (int i = threadIdx.x; i < C; i += kThreads) {
-      x[i] = x_io[i];
-      ax[i] = ax_io[i];
-      lv[i] = live_g[i];
-    }
-    live = lv;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int T = kThreads, W = kThreads / 32, G = kGroups;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, rank = (int)cluster.block_rank();
+  const int cap = (C + G - 1) / G;  // live columns a CTA holds at most
+  float* s_x = reinterpret_cast<float*>(s_col + cap);
+  float* s_ax = s_x + cap;
+  float* s_d = s_ax + cap;
+
+  // Prologue: L, the count of live columns (every CTA counts them all) ...
+  int cnt = 0;
+  for (int i = tid; i < C; i += T) cnt += live[i] != 0;
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+  if (lane == 0) wcount[warp] = cnt;
+  __syncthreads();
+  int L = 0;
+  for (int w = 0; w < W; ++w) L += wcount[w];
+  __syncthreads();  // wcount is rewritten below
+  // ... then this CTA's share, the live columns of ranks [r0, r1), compacted
+  // in index order with a block prefix scan (ballot + popc).
+  const int r0 = (int)((long long)rank * L / G), r1 = (int)((long long)(rank + 1) * L / G);
+  const int n = r1 - r0;
+  for (int base = 0, seen = 0; base < C && seen < r1; base += T) {
+    const int i = base + tid;
+    const bool lv = i < C && live[i] != 0;
+    const unsigned b = __ballot_sync(0xffffffffu, lv);
+    if (lane == 0) wcount[warp] = __popc(b);
     __syncthreads();
-  } else {
-    x = x_io;  // global scratch, updated in place
-    ax = ax_io;
-    live = live_g;
+    int off = seen, total = 0;
+    for (int w = 0; w < W; ++w) {
+      const int c = wcount[w];
+      off += w < warp ? c : 0;
+      total += c;
+    }
+    const int rk = off + __popc(b & ((1u << lane) - 1u));
+    if (lv && rk >= r0 && rk < r1) {
+      const int j = rk - r0;
+      s_col[j] = i;
+      s_x[j] = x_io[i];
+      s_ax[j] = ax_in[i];
+      s_d[j] = A[(size_t)i * C + i];
+    }
+    seen += total;
+    __syncthreads();  // wcount is rewritten by the next chunk
   }
+  cluster.sync();  // every CTA runs (and has compacted) before any slot is written
 
+  // The first state's selection (x as given: its sum is 1, denominator 1).
+  Part p = identity();
+  for (int j = tid; j < n; j += T) {
+    const float xi = s_x[j], a = s_ax[j];
+    p.xax = __fadd_rn(p.xax, __fmul_rn(xi, a));
+    const Best e = {a, s_col[j], xi, s_d[j]};
+    if (max_better(e.v, e.i, p.mx.v, p.mx.i)) p.mx = e;
+    if (xi > 0.0f && min_better(e.v, e.i, p.mn.v, p.mn.i)) p.mn = e;
+  }
+  Part r = cluster_reduce(p, slots, wpart, 0, cluster);
+  int parity = 1;
   float denom = 1.0f;
   float err_prev = INFINITY;
   int it = 0;
   while (it < max_iters && err_prev >= toll2) {
-    const SelectPart s = block_select(pass_select(x, ax, live, C, denom), sel_scratch, &sel_out);
-    // Both winners are indices below C: every index takes part with its
-    // masked value (-inf or +inf off the set), and ties go to the lowest.
-    const float xax = s.xax;
-    const float maxv = __fsub_rn(s.mx.v, xax);
-    const float minv = __fsub_rn(xax, s.mn.v);
+    const float xax = __fdiv_rn(r.xax, denom);
+    const float maxv = __fsub_rn(r.mx.v, xax);
+    const float minv = __fsub_rn(xax, r.mn.v);
     const bool use_max = maxv >= minv;
-    const int idx = use_max ? s.mx.i : s.mn.i;
+    const Best w = use_max ? r.mx : r.mn;
+    const int idx = w.i;
     const float delta = use_max ? maxv : -minv;
-    const float den = __fsub_rn(__fsub_rn(A[(size_t)idx * C + idx], ax[idx]), delta);
+    const float den = __fsub_rn(__fsub_rn(w.d, w.v), delta);
     const float q = __fdiv_rn(-delta, den);
     const float clipped = q < 0.0f ? 0.0f : (q > 1.0f ? 1.0f : q);
     const float mu_pos = den < 0.0f ? clipped : 1.0f;
-    const float xidx = x[idx];
+    const float xidx = __fdiv_rn(w.x, denom);
     const float mu0 = __fdiv_rn(xidx, __fsub_rn(xidx, 1.0f));
     const bool raised = den < 0.0f && q > mu0;
     const float mu_neg = raised ? (q > 0.0f ? 0.0f : q) : mu0;
@@ -200,36 +276,54 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float mu = delta >= 0.0f ? mu_pos : mu_neg;
     const float one_minus_mu = __fsub_rn(1.0f, mu);
     const float* row = A + (size_t)idx * C;
-    __syncthreads();  // everyone has read x[idx] and ax[idx] before pass B writes them
 
-    UpdatePart u{0.0f, 0.0f};
-    for (int i = threadIdx.x; i < C; i += kThreads) {
-      const float xi = x[i];
-      const float a = ax[i];
-      const bool lv = live[i] != 0;
-      u.err = __fadd_rn(u.err, err_term(xi, a, xax, lv));
-      float xn = __fmul_rn(xi, one_minus_mu);
-      if (i == idx) xn = remove ? 0.0f : __fadd_rn(xn, mu);
-      xn = lv ? (xn > 0.0f ? xn : 0.0f) : 0.0f;
-      x[i] = xn;
-      u.sum = __fadd_rn(u.sum, xn);
-      ax[i] = __fadd_rn(a, __fmul_rn(mu, __fsub_rn(row[i], a)));
+    p = identity();
+    for (int base = tid; base < n; base += kChunk * T) {
+      float rv[kChunk];
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int j = base + u * T;
+        rv[u] = j < n ? __ldg(row + s_col[j]) : 0.0f;
+      }
+#pragma unroll
+      for (int u = 0; u < kChunk; ++u) {
+        const int j = base + u * T;
+        if (j < n) {
+          const int col = s_col[j];
+          const float xi = __fdiv_rn(s_x[j], denom);
+          const float a = s_ax[j];
+          p.err = __fadd_rn(p.err, err_term(xi, a, xax));
+          float xn = __fmul_rn(xi, one_minus_mu);
+          if (col == idx) xn = remove ? 0.0f : __fadd_rn(xn, mu);
+          xn = xn > 0.0f ? xn : 0.0f;
+          const float an = __fadd_rn(a, __fmul_rn(mu, __fsub_rn(rv[u], a)));
+          s_x[j] = xn;
+          s_ax[j] = an;
+          p.s = __fadd_rn(p.s, xn);
+          p.xax = __fadd_rn(p.xax, __fmul_rn(xn, an));
+          const Best e = {an, col, xn, s_d[j]};
+          if (max_better(e.v, e.i, p.mx.v, p.mx.i)) p.mx = e;
+          if (xn > 0.0f && min_better(e.v, e.i, p.mn.v, p.mn.i)) p.mn = e;
+        }
+      }
     }
-    const UpdatePart r = block_update(u, upd_scratch, &upd_out);
-    denom = r.sum > 1e-30f ? r.sum : 1e-30f;
+    r = cluster_reduce(p, slots, wpart, parity, cluster);
+    parity ^= 1;
+    denom = r.s > 1e-30f ? r.s : 1e-30f;
     err_prev = r.err;
     ++it;
   }
 
-  // The final state: normalize, then its Nash error.
-  const float xax = block_select(pass_select(x, ax, live, C, denom), sel_scratch, &sel_out).xax;
-  UpdatePart u{0.0f, 0.0f};
-  for (int i = threadIdx.x; i < C; i += kThreads) {
-    u.err = __fadd_rn(u.err, err_term(x[i], ax[i], xax, live[i] != 0));
-    if constexpr (kShared) x_io[i] = x[i];
+  // The final state: normalize, write x, then its Nash error.
+  const float xax = __fdiv_rn(r.xax, denom);
+  p = identity();
+  for (int j = tid; j < n; j += T) {
+    const float xi = __fdiv_rn(s_x[j], denom);
+    p.err = __fadd_rn(p.err, err_term(xi, s_ax[j], xax));
+    x_io[s_col[j]] = xi;
   }
-  const UpdatePart r = block_update(u, upd_scratch, &upd_out);
-  if (threadIdx.x == 0) {
+  r = cluster_reduce(p, slots, wpart, parity, cluster);
+  if (cluster.block_rank() == 0 && tid == 0) {
     *it_out = it;
     *err_out = sqrtf(r.err);
   }
@@ -238,28 +332,37 @@ __global__ void __launch_bounds__(kThreads, 1)
 }  // namespace
 
 // A: (C, C) float32 row-major; x: (C,) float32, the simplex projection of
-// x0, overwritten with the final x; ax: (C,) float32, A @ x, overwritten
-// (the global-memory variant keeps its state there); live: (C,) uint8;
-// it_out: int32; err_out: float32.  One block; no host synchronization.
-extern "C" int wass_iidyn(const void* A, void* x, void* ax, const void* live, void* it_out, void* err_out, int C,
-                          float toll2, int max_iters, void* stream) {
+// x0 (0 off the live set), overwritten with the final x; ax: (C,) float32,
+// A @ x; live: (C,) uint8; it_out: int32; err_out: float32.  One cluster
+// of kGroups CTAs of kThreads threads; no host synchronization.  Returns a
+// cudaError_t, or kNoCluster when cudaOccupancyMaxActiveClusters finds no
+// place for the cluster.
+extern "C" int wass_iidyn(const void* A, void* x, const void* ax, const void* live, void* it_out, void* err_out,
+                          int C, float toll2, int max_iters, void* stream) {
   if (C < 1 || max_iters < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)C * 9;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const size_t smem = kHeaderBytes + (size_t)((C + kGroups - 1) / kGroups) * kBytesPerColumn;
+  cudaError_t err = cudaFuncSetAttribute(iidyn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && kGroups > 8)
+    err = cudaFuncSetAttribute(iidyn_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kGroups;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kGroups, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, iidyn_kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
-  // The static shared memory (reduction scratch) takes < 1 KB of the block's share.
-  if (smem + 1024 <= (size_t)optin) {
-    err = cudaFuncSetAttribute(iidyn_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    iidyn_kernel<true><<<1, kThreads, smem, s>>>((const float*)A, (float*)x, (float*)ax, (const uint8_t*)live,
-                                                 (int*)it_out, (float*)err_out, C, toll2, max_iters);
-  } else {
-    iidyn_kernel<false><<<1, kThreads, 0, s>>>((const float*)A, (float*)x, (float*)ax, (const uint8_t*)live,
-                                               (int*)it_out, (float*)err_out, C, toll2, max_iters);
-  }
+  if (clusters < 1) return kNoCluster;
+  err = cudaLaunchKernelEx(&cfg, iidyn_kernel, (const float*)A, (float*)x, (const float*)ax, (const uint8_t*)live,
+                           (int*)it_out, (float*)err_out, C, toll2, max_iters);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -54,13 +54,18 @@ def write_sequence(seq_dir, img0: np.ndarray, img1: np.ndarray, rig: SyntheticRi
     """n_frames workdirs of the same pair with the rig's intrinsics and
     extrinsics (so the stereo stage needs no match/autocalibrate).  Images
     are written as 8-bit PNG by the port's codec."""
+    return write_pairs(seq_dir, [(img0, img1)] * n_frames, rig)
+
+
+def write_pairs(seq_dir, pairs, rig: SyntheticRig) -> list:
+    """One workdir a pair (img0, img1) of `pairs`, as write_sequence."""
     seq_dir = Path(seq_dir)
     if seq_dir.exists():
         shutil.rmtree(seq_dir)
     wds = []
-    for i in range(n_frames):
+    for i, pair in enumerate(pairs):
         wd = Workdir(seq_dir / f"{i:06d}_wd").create()
-        for cam, img in enumerate((img0, img1)):
+        for cam, img in enumerate(pair):
             wd.save_undistorted(cam, img)
         wd.save_intrinsics(0, rig.K0)
         wd.save_intrinsics(1, rig.K1)
