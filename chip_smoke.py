@@ -110,6 +110,23 @@ M. Match and autocalibrate on the card (phase M): MATCH_FRAMES workdirs of
    between stages, 3 repeats) and K7's rounds on the frame's own z-gap
    mask.  Measurement only: nothing here is counted as a launch of the
    main path.
+G. The grid stage on phase 5's ten frames (2048x1536, c2f, ~2.7M points
+   a frame): `wass-tpu-torch-gridsurface --action setup` (GRID_AREA m
+   about frame 0's median point, N = 256) and `--action grid` (DCT, 500
+   iterations, nreps 10) through the console's entry point, with the
+   seconds a frame, each stage's device ms (CUDA events, a synchronize
+   around each: binning, the median stack, the DCT fit) and host ms (the
+   mesh load, the slab write), the peak device memory and the cube's
+   bytes; then the grid again, untimed.  Gates: the two runs' Z
+   byte-identical; Z read back (the port's NetCDFReader) equal to the
+   pushed grids, with the shapes, count, time and workdir written;
+   cam0images[0] decoding to the undistorted frame; frame 0 on the card
+   and on the CPU with the same draws: the bins equal, the median stack
+   bit-equal, the DCT fit within tests/test_torch_grid.py's tolerance.
+   Printed, not gated: the RMS of frame 0's gridded Z against the scene's
+   wave field.  Then one frame each of GRID_MODES (N = 512, IDW, the
+   outlier votes, -mf 3, LinearND at 10%, the zero-mean rewrite), each
+   giving more than GRID_MIN_FINITE finite cells.
 6. A JSON line of per-kernel results (times, launches, and the bound: the
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
@@ -1374,6 +1391,241 @@ def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
     log(f"stage sum: {min(sums):.3f}-{max(sums):.3f} ms; K7 on the frame's z-gap mask: {k7_rounds} of "
         f"{LABEL_ROUNDS} rounds changed labels")
 
+GRID_AREA = 16.0  # phase G's --area_size (m) about frame 0's median point: every cell inside the footprint
+GRID_MIN_FINITE = 0.5  # the share of finite cells each of phase G's modes must give
+GRID_MODES = (  # phase G's other modes, one frame each: (label, setup options, grid options)
+    ("N = 512", ["-N", "512"], []),
+    ("IDW", [], ["--ia", "IDW"]),
+    ("--filter-outliers", [], ["--filter-outliers"]),
+    ("-mf 3", [], ["-mf", "3"]),
+    ("LinearND, 10% of the points", [], ["--ia", "LinearND", "--subsample", "10"]),
+    ("--force-zero-mean", [], ["--force-zero-mean"]),
+)
+
+
+@contextlib.contextmanager
+def grid_timers():
+    """Phase G: each grid stage function wrapped with a synchronize before
+    and after; times[label] gets (device ms from CUDA events, host ms) a
+    call.  The slabs that push_Z writes are kept in times["slabs"]."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.grid import gridding, netcdf
+
+    times: dict = {"slabs": []}
+    targets = [(gridding, "load_mesh", "mesh load (host read, upload, decode)"),
+               (gridding, "align_mesh", "binning: sea-plane transform"), (gridding, "bin_points", "binning: cells"),
+               (gridding, "_median_stack", "median stack (10 draws)"), (gridding, "dct_interpolate", "DCT fit"),
+               (netcdf.NetCDFWriter, "push_Z", "slab write (push_Z)")]
+    saved = []
+    for owner, attr, label in targets:
+        fn = getattr(owner, attr)
+
+        def timed(*args, _fn=fn, _label=label, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            out = _fn(*args, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            times.setdefault(_label, []).append((start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)))
+            if _fn.__name__ == "push_Z":
+                times["slabs"].append(np.array(args[1], np.float32))
+            return out
+
+        setattr(owner, attr, timed)
+        saved.append((owner, attr, fn))
+    try:
+        yield times
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def grid_cli(seq: Path, out: Path, *options) -> float:
+    """wass-tpu-torch-gridsurface on the card; its wall seconds."""
+    from wass_tpu_torch.cli.gridsurface import main as grid_main
+
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = grid_main([str(seq), str(out), *options])
+    if rc != 0:
+        raise AssertionError(f"gridsurface {' '.join(options)} exited {rc}")
+    return time.time() - t0
+
+
+def stack_inputs(wd, setup, device) -> tuple:
+    """The median stack's inputs for a frame on device: (px, py, z, good, shape)."""
+    from wass_tpu_torch.grid import gridding
+
+    ma = gridding.align_mesh(gridding.load_mesh(wd.path / "mesh_cam.xyzC", device), setup)
+    px, py, good = gridding.bin_points(ma, setup)
+    return px, py, ma[2].float(), good, setup.XX.shape
+
+
+def dct_coeffs(Irec, nf: int):
+    """The DCT coefficients behind a reconstruction (float64; the basis is
+    orthonormal)."""
+    from wass_tpu_torch.grid.interpolators import _dct_matrix
+
+    H, W = Irec.shape
+    return _dct_matrix(H)[:nf] @ Irec.astype("float64") @ _dct_matrix(W)[:nf].T
+
+
+def height_errors(scene, cam) -> tuple:
+    """(RMS, median |dz|) in meters of cam0-frame points (3, N), meters,
+    against the scene's wave field at the same world x, y."""
+    import numpy as np
+
+    rig = scene.rig
+    w = rig.R0.T @ (cam - rig.T0.reshape(3, 1))
+    dz = w[2] - scene.waves.eta(w[0], w[1])
+    return float(np.sqrt(np.mean(dz**2))), float(np.median(np.abs(dz)))
+
+
+def grid_errors(scene, setup, Z, cells=None) -> str:
+    """The gridded surface's height errors over its finite cells (of
+    `cells` when given): grid node -> sea-plane frame -> cam0 -> world."""
+    import numpy as np
+
+    ok = np.isfinite(Z) if cells is None else np.isfinite(Z) & cells
+    p = np.stack([setup.XX[ok], setup.YY[ok], -Z[ok]]) / setup.baseline
+    rms, med = height_errors(scene, setup.Rpl.T @ (p - setup.Tpl) * setup.baseline)
+    return f"RMS {rms:.5f} m, median |dz| {med:.5f} m"
+
+
+def run_grid_phase(root: Path, scene, card: str) -> None:
+    """Phase G: the grid stage on phase 5's frames (2048x1536, c2f)."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.grid import gridding
+    from wass_tpu_torch.grid.interpolators import dct_loss, dct_x0
+    from wass_tpu_torch.grid.netcdf import NetCDFReader
+    from wass_tpu_torch.grid.setup import GridSetup, align_on_sea_plane
+    from wass_tpu_torch.io import png
+    from wass_tpu_torch.io.workdir import frame_workdirs
+
+    t_phase = time.time()
+    seq, out = root / "smoke_loop", root / "smoke_grid"
+    shutil.rmtree(out, ignore_errors=True)
+    wds = frame_workdirs(seq)
+    mesh = wds[0].load_mesh_cam()
+    plane = np.nanmean(np.loadtxt(seq / "output" / "planes.txt", ndmin=2), axis=0)
+    ma = align_on_sea_plane(mesh, plane) * scene.rig.baseline
+    cx, cy = np.median(ma[:2], axis=1)
+    area = ["--baseline", str(scene.rig.baseline), "--area_center", f"{cx:.3f},{cy:.3f}", "--area_size",
+            str(GRID_AREA), "--fps", "4"]
+    t_setup = grid_cli(seq, out, "--action", "setup", *area)
+    setup = GridSetup.load_mat(out / "config.mat")
+    log(f"phase G: setup {t_setup:.2f} s ({len(wds)} frames of {mesh.shape[1]} points; area {GRID_AREA} m about "
+        f"({cx:.2f}, {cy:.2f}), N = {setup.XX.shape[0]})")
+
+    # The grid over every frame, timed by stage, then again untimed.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with grid_timers() as times:
+        t_grid = grid_cli(seq, out, "--action", "grid")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with NetCDFReader(out / "gridded.nc") as cube:
+        Z1 = cube.Z[...]
+    t_grid2 = grid_cli(seq, out, "--action", "grid")
+    cube_bytes = (out / "gridded.nc").stat().st_size
+    with NetCDFReader(out / "gridded.nc") as cube:
+        Zc = cube.Z[...]
+        n = len(wds)
+        if Zc.shape != (n, setup.XX.shape[1], setup.XX.shape[0]):
+            raise AssertionError(f"phase G: cube Z {Zc.shape} for {n} frames of {setup.XX.shape}")
+        if Z1.tobytes() != Zc.tobytes():
+            raise AssertionError("phase G: two grid runs gave different Z bytes")
+        if Z1.tobytes() != np.stack(times["slabs"]).transpose(0, 2, 1).tobytes():
+            raise AssertionError("phase G: Z does not read back as the pushed grids")
+        if not (np.array_equal(cube["count"][...], np.arange(n))
+                and np.array_equal(cube["time"][...], (np.arange(n) / 4.0).astype(np.float32))
+                and np.array_equal(cube["workdir"][...], np.arange(n))):
+            raise AssertionError("phase G: count, time or workdir do not read back")
+        image = cube["cam0images"][0]
+        if not np.array_equal(png.decode_gray(image.tobytes()), png.read_gray(wds[0].undistorted_path(0))):
+            raise AssertionError("phase G: cam0images[0] is not the undistorted frame")
+    log(f"phase G: grid {n} frames (DCT, 500 iterations, nreps 10) {t_grid:.2f} s with the stage syncs, "
+        f"{t_grid2:.2f} s without: {t_grid2 / n:.3f} s a frame; two runs byte-identical Z; the cube reads back "
+        f"({cube_bytes} bytes, {len(image)} bytes of PNG a frame); peak device memory {peak:.2f} GiB")
+    for label, t in times.items():
+        if label != "slabs":
+            dev_ms, host_ms = np.array(t).T
+            log(f"phase G stage {label}: device {dev_ms.mean():.3f} ms (min {dev_ms.min():.3f}, max "
+                f"{dev_ms.max():.3f}), host {host_ms.mean():.3f} ms, {len(t)} calls")
+    log(f"phase G: grid times on {card}")
+
+    # Frame 0 on the card and on the CPU, with the same draws.
+    t0 = time.time()
+    cfg = gridding.GridConfig()
+    dev_in, cpu_in = stack_inputs(wds[0], setup, "cuda"), stack_inputs(wds[0], setup, "cpu")
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(dev_in[:4], cpu_in[:4])):
+        raise AssertionError("phase G: the card's bins or z differ from the CPU's")
+    npts = dev_in[0].shape[0]
+    perms = gridding.median_draws(npts, cfg.nreps, npts, cfg.seed, "cuda")
+    zs_dev = gridding._median_stack(*dev_in, cfg.nreps, npts, perms)
+    zs_cpu = gridding._median_stack(*cpu_in, cfg.nreps, npts, perms.cpu())
+    # Bit-equal where finite, NaN at the same cells (CUDA's arithmetic
+    # returns its canonical NaN, so NaN bits differ from the CPU's).
+    zs_dev = zs_dev.cpu()
+    finite = torch.isfinite(zs_cpu)
+    if not (torch.equal(torch.isfinite(zs_dev), finite)
+            and torch.equal(zs_dev[finite].view(torch.int32), zs_cpu[finite].view(torch.int32))):
+        raise AssertionError("phase G: the card's median stack differs from the CPU's")
+    x0 = dct_x0(min(cfg.dct_nfreqs, *setup.XX.shape), cfg.seed, "cuda")
+    zd, _ = gridding.grid_frame(wds[0], setup, cfg, device="cuda", perms=perms, x0=x0)
+    zc, _ = gridding.grid_frame(wds[0], setup, cfg, device="cpu", perms=perms.cpu(), x0=x0.cpu())
+    zd, zc = zd.cpu().numpy(), zc.numpy()
+    # tests/test_torch_grid.py::test_dct_matches_jax's tolerance: the cells
+    # with data within 0.1% of Z's range, the holes (where the fit only
+    # extrapolates) within 1%, the final loss within 1e-4 relative.
+    obs = finite.numpy()
+    zrange = float(np.nanmax(zc) - np.nanmin(zc))
+    diff = np.abs(zd - zc)
+    err_obs, err_hole = float(diff[obs].max()), float(diff[~obs].max()) if (~obs).any() else 0.0
+    zs = np.nan_to_num(zs_cpu.numpy())
+    ld, lc = (dct_loss(torch.as_tensor(z), torch.as_tensor(zs), finite.float(),
+                       torch.as_tensor(dct_coeffs(z, x0.shape[0])), cfg.dct_alpha) for z in (zd, zc))
+    if not (np.isfinite(zd).all() and err_obs <= 1e-3 * zrange and err_hole <= 1e-2 * zrange
+            and abs(ld - lc) <= 1e-4 * abs(lc)):
+        raise AssertionError(f"phase G: DCT fit card vs CPU: {err_obs} m at the cells with data, {err_hole} m in "
+                             f"the holes (Z range {zrange} m; gates 0.1% and 1%), losses {ld} and {lc}")
+    log(f"phase G: frame 0 on the card and on the CPU with the same draws: median stack bit-equal "
+        f"({100 * float(obs.mean()):.1f}% of the cells hit); DCT surface within {err_obs:.3g} m at the cells with "
+        f"data, {err_hole:.3g} m in the holes (Z range {zrange:.3g} m; gates 0.1% and 1%), losses {ld:.9g} "
+        f"(card) and {lc:.9g} (CPU) ({time.time() - t0:.1f} s)")
+    inside = (np.abs(ma[0] - cx) <= GRID_AREA / 2) & (np.abs(ma[1] - cy) <= GRID_AREA / 2)
+    rms, med = height_errors(scene, mesh[:, inside] * scene.rig.baseline)
+    log(f"phase G: frame 0's heights against the wave field at the same world x, y (printed, not gated): the "
+        f"gridded Z over the mask (every cell) {grid_errors(scene, setup, zd)}; over the cells with data "
+        f"{grid_errors(scene, setup, zd, obs)}; over the holes {grid_errors(scene, setup, zd, ~obs)}; the median "
+        f"stack {grid_errors(scene, setup, zs_cpu.numpy())}; the mesh's {int(inside.sum())} points in the area "
+        f"RMS {rms:.5f} m, median |dz| {med:.5f} m")
+
+    # The other modes, one frame each.
+    one = root / "smoke_grid_one"
+    shutil.rmtree(one, ignore_errors=True)
+    one.mkdir()
+    (one / wds[0].path.name).symlink_to(wds[0].path.resolve())
+    for label, setup_opts, grid_opts in GRID_MODES:
+        mout = root / "smoke_grid_mode"
+        shutil.rmtree(mout, ignore_errors=True)
+        if setup_opts:
+            grid_cli(one, mout, "--action", "setup", *area, *setup_opts)
+        else:
+            grid_opts = ["--gridsetup", str(out / "config.mat"), *grid_opts]
+        t = grid_cli(one, mout, "--action", "grid", *grid_opts)
+        with NetCDFReader(mout / "gridded.nc") as cube:
+            Z = cube.Z[...]
+        if not np.isfinite(Z).mean() > GRID_MIN_FINITE:
+            raise AssertionError(f"phase G {label}: {np.isfinite(Z).mean():.3f} of the cells finite")
+        log(f"phase G mode {label}: one frame {t:.2f} s, Z {Z.shape}, {100 * np.isfinite(Z).mean():.1f}% finite")
+    log(f"phase G: {time.time() - t_phase:.1f} s wall")
+
 
 def main() -> int:
     if not (ROOT / "wass_tpu_torch").is_dir():
@@ -1446,6 +1698,8 @@ def main() -> int:
 
     # Phase 5: where the c2f frame's time goes.
     profile_c2f_frame(_build.BUILD_DIR, img0, img1, rig)
+    # Phase G: the grid stage on phase 5's frames.
+    run_grid_phase(_build.BUILD_DIR, scene, smi)
 
     kernels = [
         {

@@ -1,6 +1,8 @@
 """The port runs without jax and without any module of the JAX package
-(a dense frame, the stereo CLI, and the match stage through the CLI), and
-its stdlib PNG codec agrees with imageio and OpenCV."""
+(a dense frame, the stereo CLI, the grid console on its meshes, and the
+match stage through the CLI), and without h5py, imageio or matplotlib,
+which the GPU host lacks; its stdlib PNG codec agrees with imageio and
+OpenCV."""
 
 import ast
 import io
@@ -41,7 +43,7 @@ def shared(name):
 class _Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib") or (top == "wass_tpu" and not shared(name)):
+        if top in ("jax", "jaxlib", "h5py", "imageio", "matplotlib") or (top == "wass_tpu" and not shared(name)):
             raise ImportError(f"{name} is refused in this process")
         return None
 
@@ -53,7 +55,11 @@ import wass_tpu_torch
 import wass_tpu_torch.calib.autocalibrate
 import wass_tpu_torch.cli.pipeline
 import wass_tpu_torch.match.pipeline
+import wass_tpu_torch.grid.outliers
+from wass_tpu_torch.cli.gridsurface import main as grid_main
 from wass_tpu_torch.cli.main import main
+from wass_tpu_torch.grid.netcdf import NetCDFReader
+from wass_tpu_torch.grid.setup import align_on_sea_plane
 from wass_tpu_torch.testing import make_scene, read_frame, write_sequence
 from wass_tpu_torch.stereo.dense import DenseStereoConfig, dense_stereo_frame
 
@@ -69,6 +75,14 @@ with tempfile.TemporaryDirectory() as tmp:
     assert main(["stereo", str(seq), "--device", "cpu"]) == 0
     plane, mesh, _ = read_frame(seq / "000000_wd")
     assert mesh.shape[1] == 3 and len(mesh) > 0
+    ma = align_on_sea_plane(mesh.T, plane) * 2.5
+    cx, cy = np.median(ma[:2], axis=1)
+    grid = seq / "grid"
+    assert grid_main([str(seq), str(grid), "--action", "setup", "--baseline", "2.5", "--area_center",
+                      f"{cx},{cy}", "--area_size", "4", "-N", "16", "--device", "cpu"]) == 0
+    assert grid_main([str(seq), str(grid), "--action", "grid", "--device", "cpu"]) == 0
+    with NetCDFReader(grid / "gridded.nc") as cube:
+        assert cube.Z.shape == (1, 16, 16) and np.isfinite(cube.Z[...]).any()
 with tempfile.TemporaryDirectory() as tmp:
     seq = Path(tmp)
     sc = make_scene(seed=3, width=256, height=192, wave_amplitude=0.25)
@@ -78,16 +92,17 @@ with tempfile.TemporaryDirectory() as tmp:
     assert main(["match", str(seq), "--device", "cpu"]) == 0
     n_matches = int((seq / "000000_wd" / "matcher_stats.csv").read_text().splitlines()[1].split(";")[0])
     assert n_matches > 8
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wass_tpu")]
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wass_tpu", "h5py", "imageio", "matplotlib")]
 assert all(shared(m) for m in loaded), loaded
 print("OK", int(res.n_points), len(mesh), n_matches)
 """ % (SHARED,)
 
 
 def test_port_runs_without_jax():
-    """jax and every module of the JAX package are refused at import; a
-    frame, the stereo CLI and the match CLI still run, and the match and
-    calibration modules import."""
+    """jax, every module of the JAX package, h5py, imageio and matplotlib
+    are refused at import; a frame, the stereo CLI, the grid console
+    (setup and grid) and the match CLI still run, and the match,
+    calibration and grid modules import."""
     proc = subprocess.run([sys.executable, "-c", _NOJAX_RUN], cwd=ROOT, capture_output=True, text=True,
                           timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -2,13 +2,16 @@
 
 The JAX package `wass_tpu` stays the reference; this package mirrors its
 layout (`stereo/cost.py` <-> `wass_tpu/stereo/cost.py`, ...) and runs the
-prepare, match, autocalibrate and dense stereo stages (coarse-to-fine
-search and full-range fallback included) on an NVIDIA H100:
+prepare, match, autocalibrate, dense stereo (coarse-to-fine search and
+full-range fallback included) and gridding stages on an NVIDIA H100:
 
   cli/       argparse entry points (prepare, match, autocalibrate, stereo,
-             genconfig) and the sequence pipeline: prepare, match,
-             autocalibrate, and the production stereo loop (PNG prefetch,
-             dispatch ahead, writer threads)
+             genconfig; gridsurface) and the sequence pipeline: prepare,
+             match, autocalibrate, and the production stereo loop (PNG
+             prefetch, dispatch ahead, writer threads)
+  grid/      grid setup (config.mat), per-frame gridding on the device
+             (median stack, DCT/IDW/LinearND fill, outlier votes) and the
+             gridded.nc cube
   match/     features, candidates and payoff, the game-theoretic rounds
              (iidyn), LK refinement, relative-pose RANSAC, the frame stage
   calib/     two-view bundle adjustment, the Sampson polish, the pooled
@@ -21,7 +24,8 @@ search and full-range fallback included) on an NVIDIA H100:
              path) and the input-degradation estimate (AUTO smoothing)
   config.py  the self-registering option registry
   launches.py  thread-safe kernel launch counts, per frame
-  io/        stdlib PNG codec and its prefetcher, workdirs, .xyzC, matrices
+  io/        stdlib PNG codec and its prefetcher, workdirs, .xyzC, matrices,
+             a minimal HDF5 writer and reader (the cube without h5py)
   utils/     the [P|cur|tot] progress line, the stage timer
   testing/   synthetic wave-field scenes and smoke-run helpers
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,

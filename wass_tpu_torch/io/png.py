@@ -81,6 +81,17 @@ def _unfilter(data: bytes, H: int, W: int) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8)
 
 
+def gray_shape(buf: bytes) -> tuple:
+    """(H, W) of PNG bytes that decode_gray reads (8-bit grayscale, not
+    interlaced), from the IHDR chunk alone; raises ValueError otherwise."""
+    if buf[:8] != _SIGNATURE or buf[12:16] != b"IHDR":
+        raise ValueError("not a PNG file")
+    W, H, depth, ctype, _comp, _filt, interlace = struct.unpack(">IIBBBBB", buf[16:29])
+    if depth != 8 or ctype != 0 or interlace != 0:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {ctype}, interlace {interlace}")
+    return H, W
+
+
 def decode_gray(buf: bytes) -> np.ndarray:
     """(H, W) uint8 gray image from PNG bytes."""
     if buf[:8] != _SIGNATURE:
