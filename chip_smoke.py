@@ -127,15 +127,42 @@ G. The grid stage on phase 5's ten frames (2048x1536, c2f, ~2.7M points
    wave field.  Then one frame each of GRID_MODES (N = 512, IDW, the
    outlier votes, -mf 3, LinearND at 10%, the zero-mean rewrite), each
    giving more than GRID_MIN_FINITE finite cells.
+S. The post stage (phase S) on a cube of phase G's grid and meta (N = 256,
+   its config.mat, P0plane and Cam0toGrid): POST_FRAMES frames at POST_FPS
+   (200 s; users film 10-30 min at 10-20 Hz, the cut is the duration), Z
+   the scene's wave field (mm) at the grid nodes' world x, y, written by
+   the port's NetCDFWriter (786 MB of Z, over the 512 MB default budget,
+   so every streaming path runs).  First the visibility march against its
+   plain version, bit-equal: an 8-frame slab as visibilitymap lays the
+   cube out, with x along the columns, and with a camera 0.5 m above the
+   plane (grazing rays that march); frame 0 with a NaN hole (maxz NaN,
+   then its nanmax); a whole 341-frame slab of the command, timed.  Then
+   `wass-tpu-torch-post` through its entry point: info, spectrum (nperseg
+   512, rangespan 5), spectrum3d (10 segments), filter (lowpass 1 Hz),
+   spatial_lowpass, zeromean, clip, setfps, visibilitymap over every frame
+   toward cam 0, renamevar; and on phase G's ten-frame cube (its PNG
+   cam0images) radiance, bgimage and radiance_threshold with and without
+   --use-vats.  Each command prints its seconds, the device ms of its
+   device stages (CUDA events around the FFTs, the bilinear sample, the
+   visibility batch and the march), the host ms of its dataset reads and
+   writes, the peak device memory and the bytes the cube grew;
+   visibilitymap also its launches, ms a slab and the share occluded.
+   Gates: every output read back with the JAX command's names, shapes and
+   dtypes, Z_filtered unchanged by visibilitymap (sha256); spectrum's Hm0
+   within 10% of the field's 1.0 m; the card's spectrum within 1e-5 of
+   max S of the port's CPU run on the same patch; after zeromean |time
+   mean| < 1e-3 mm at every finite cell.
 6. A JSON line of per-kernel results (times, launches, and the bound: the
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
    67 T/s, and for K1/K2 their popcounts at 16 a clock per SM at the
    maximum SM clock nvidia-smi reports; iidyn's is its updates' rows of A
-   at the live columns, 4 n_live bytes each; no single PyTorch call
+   at the live columns, 4 n_live bytes each; the march's 17 bytes a ray,
+   Z, d and the flag; no single PyTorch call
    computes any of these
    functions, so library_ms is null), then the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}},
+   after a line with the whole script's seconds.
 
 Exits non-zero without a result when there is no CUDA device or when the
 port's package is not next to this script.
@@ -215,6 +242,8 @@ KERNELS = {
     "sgm_walk": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:602"),
     # Not a Pallas kernel: the match rounds' lax.while_loop, one kernel a round.
     "iidyn": ("wass_tpu_torch/csrc/iidyn.cu", "wass_tpu/match/iidyn.py:25"),
+    # Not a Pallas kernel: the visibility ray march's lax.while_loop, one kernel a slab.
+    "visibility_march": ("wass_tpu_torch/csrc/visibility.cu", "wass_tpu/post/geometry.py:94"),
 }
 # The default path's SGM keys, which no H2 frame may launch.
 DEFAULT_SGM = ("sgm_wta_fused", "sgm_wta_fused_windowed", "sgm_aggregate", "sgm_aggregate_windowed")
@@ -1627,7 +1656,345 @@ def run_grid_phase(root: Path, scene, card: str) -> None:
     log(f"phase G: {time.time() - t_phase:.1f} s wall")
 
 
+POST_FRAMES = 3000  # phase S's cube: 200 s at 15 Hz (users film 10-30 min at 10-20 Hz; the cut is the duration)
+POST_FPS = 15.0
+POST_CHECK_FRAMES = 8  # the slab of the march's first kernel-vs-plain gate
+HM0 = 1.0  # the wave field's significant height: 4 x std(eta), WaveField.random scales std(eta) to the amplitude 0.25
+HM0_GATE = 0.10  # phase S's relative gate on spectrum's Hm0
+MARCH_BYTES_PER_RAY = 4 + 12 + 1  # Z read, d read, the flag written
+
+
+def post_cube(path: Path, setup, scene, n_frames: int, fps: float, dev) -> None:
+    """Phase S's cube: phase G's grid and meta, Z the scene's wave field
+    (mm) at the grid nodes' world x, y (the node on the sea plane -> cam0 ->
+    world) and t = i / fps, evaluated on the device in float64."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.grid.netcdf import NetCDFWriter
+
+    H, W = setup.XX.shape
+    p = np.stack([setup.XX.ravel(), setup.YY.ravel(), np.zeros(setup.XX.size)]) / setup.baseline
+    cam = setup.Rpl.T @ (p - setup.Tpl) * setup.baseline
+    world = scene.rig.R0.T @ (cam - scene.rig.T0.reshape(3, 1))
+    wx, wy = (torch.as_tensor(world[i], dtype=torch.float64, device=dev) for i in (0, 1))
+    waves = scene.waves
+    w = NetCDFWriter(path, M=H, N=W, count=n_frames)
+    try:
+        w.scale = setup.baseline
+        w.set_grids(setup.XX * 1000.0, setup.YY * 1000.0)
+        w.set_kxky(setup.KX_ab, setup.KY_ab)
+        w.set_intrinsics(setup.K0, setup.K1, np.zeros(5), np.zeros(5), setup.P0plane, setup.P1plane,
+                         setup.P0cam[:3], setup.P1cam[:3], setup.Cam0toGrid, setup.Cam1toGrid)
+        w.add_meta_attribute("generator", "wass_tpu")
+        w.add_meta_attribute("baseline", setup.baseline)
+        w.add_meta_attribute("fps", fps)
+        w.set_mask(np.ones((H, W), np.float32))
+        for t0 in range(0, n_frames, 100):
+            t = torch.arange(t0, min(t0 + 100, n_frames), dtype=torch.float64, device=dev)[:, None] / fps
+            eta = torch.zeros((t.shape[0], wx.shape[0]), dtype=torch.float64, device=dev)
+            for a, kx, ky, ph in zip(waves.amps, waves.kx, waves.ky, waves.phases):
+                eta += a * torch.cos(kx * wx + ky * wy + ph - np.sqrt(9.81 * np.hypot(kx, ky)) * t)
+            for i, z in enumerate((eta * 1000.0).reshape(-1, H, W).cpu().numpy()):
+                w.push_Z(z, time=(t0 + i) / fps, workdir=t0 + i)
+    finally:
+        w.close()
+
+
+@contextlib.contextmanager
+def post_timers(targets):
+    """Phase S: each (owner, attr, label) of targets wrapped with CUDA
+    events (its device ms: events around a call of device work on device
+    tensors), and the port's dataset reads and writes with the host clock;
+    times[label] gets a list of ms."""
+    import torch
+
+    from wass_tpu_torch.io import hdf5
+
+    times: dict = {}
+    saved = []
+
+    def device_timed(fn, label):
+        def timed(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            times.setdefault(label, []).append(start.elapsed_time(end))
+            return out
+        return timed
+
+    def host_timed(fn, label):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            times.setdefault(label, []).append(1e3 * (time.perf_counter() - t0))
+            return out
+        return timed
+
+    wrapped = [(owner, attr, device_timed(getattr(owner, attr), label)) for owner, attr, label in targets]
+    wrapped += [(hdf5.H5Dataset, "__getitem__", host_timed(hdf5.H5Dataset.__getitem__, "host reads")),
+                (hdf5.H5Dataset, "__setitem__", host_timed(hdf5.H5Dataset.__setitem__, "host writes"))]
+    for owner, attr, fn in wrapped:
+        saved.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, fn)
+    try:
+        yield times
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def post_cli(args, targets=(), dev="cuda") -> tuple:
+    """One wass-tpu-torch-post command; (its stdout, seconds, times by
+    label, peak device MiB, bytes the cube grew)."""
+    import torch
+
+    from wass_tpu_torch.cli.post import main as post_main
+
+    nc = Path(args[1])
+    size = nc.stat().st_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with post_timers(targets) as times, contextlib.redirect_stdout(out):
+        t0 = time.time()
+        rc = post_main([*args, "--device", str(dev)])
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    if rc != 0:
+        raise AssertionError(f"post {' '.join(args)} exited {rc}: {out.getvalue()}")
+    return out.getvalue(), secs, times, torch.cuda.max_memory_allocated() / 2**20, nc.stat().st_size - size
+
+
+def log_post(name: str, secs: float, times: dict, peak: float, grown: int, extra: str = "") -> None:
+    import numpy as np
+
+    parts = [f"{k} {np.sum(v):.1f} ms in {len(v)} calls" for k, v in times.items()]
+    log(f"phase S {name}: {secs:.2f} s; {'; '.join(parts) or 'no device stage, no dataset read or write'}; peak "
+        f"device memory {peak:.1f} MiB; the cube grew {grown} bytes{extra}")
+
+
+def check_march(results: dict, Z_mm, grids: dict, cam_mm, dev, card: str) -> None:
+    """Phase S, gate 1: the visibility march against its plain version on
+    the card, bit-equal: an 8-frame slab of the cube (as the command lays
+    it out, and with x along the columns), frame 0 with a NaN hole (its
+    maxz NaN, and again with the nanmax so that its rays march), and a
+    whole slab of the visibilitymap command (timed, kernel and plain)."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.post import geometry as pg
+    from wass_tpu_torch.post import visibility_kernels as vk
+
+    XX, YY = grids["XX"], grids["YY"]
+    dx = abs(XX[0, 1] - XX[0, 0]) or abs(XX[1, 0] - XX[0, 0])
+    inv = 1.0 / dx
+
+    def inputs(z_mm, cam_m=cam_mm):
+        Z = torch.as_tensor(np.asarray(z_mm, np.float64) / 1000.0 * inv, dtype=torch.float32, device=dev)
+        cam = torch.as_tensor(np.asarray(cam_m, np.float64) * inv, dtype=torch.float32, device=dev)
+        rays = pg.view_rays(Z, cam, torch.as_tensor(XX * inv, dtype=torch.float32, device=dev),
+                            torch.as_tensor(YY * inv, dtype=torch.float32, device=dev))
+        return Z, pg.ray_steps(rays), Z.amax(dim=(1, 2)), 2 * max(Z.shape[1:])
+
+    def same(what, Z, d, maxz, steps):
+        occ = vk.march(Z, d, maxz, steps)
+        _record(results, "visibility_march", occ, vk.march_plain(Z, d, maxz, steps), what)
+        return occ
+
+    Z, d, maxz, steps = inputs(Z_mm[:POST_CHECK_FRAMES])
+    occ = same(f"{POST_CHECK_FRAMES}-frame slab {tuple(Z.shape)}", Z, d, maxz, steps)
+    share = 100 * occ.float().mean().item()
+    # The same frames with x along the columns (the cube stores (count, X,
+    # Y), so the command's rays step x along Y, as the JAX command's do):
+    # rays that march over the waves.
+    XX, YY = XX.T, YY.T
+    Zt = np.ascontiguousarray(Z_mm[:POST_CHECK_FRAMES].transpose(0, 2, 1))
+    Z, d, maxz, steps = inputs(Zt)
+    occ = same(f"{POST_CHECK_FRAMES}-frame slab, x along the columns", Z, d, maxz, steps)
+    # And a camera 0.5 m above the grid's plane: grazing rays that the waves
+    # occlude, marching up to the grid's edge.
+    low = np.array([cam_mm[0], cam_mm[1], 0.5])
+    Z, d, maxz, steps = inputs(Zt, low)
+    graze = same(f"{POST_CHECK_FRAMES}-frame slab, x along the columns, the camera 0.5 m up", Z, d, maxz, steps)
+    ms = cuda_ms(lambda: vk.march(Z, d, maxz, steps), reps=5)
+    log(f"phase S march: {share:.2f}% of the slab's cells occluded by the march as the command lays the cube out, "
+        f"{100 * occ.float().mean().item():.2f}% with x along the columns, {100 * graze.float().mean().item():.2f}% "
+        f"with the camera 0.5 m up ({ms:.3f} ms for its {Z.numel()} rays)")
+    XX, YY = XX.T, YY.T
+    hole = np.array(Z_mm[:1], np.float32)
+    H, W = hole.shape[1:]
+    hole[0, H // 3:H // 3 + 9, W // 2:W // 2 + 13] = np.nan
+    Z, d, maxz, steps = inputs(hole)
+    occ = same("frame 0 with a NaN hole (maxz NaN)", Z, d, maxz, steps)
+    if occ.any():
+        raise AssertionError("phase S march: a frame whose maxz is NaN occluded a cell")
+    nanmax = torch.where(torch.isnan(Z), torch.full_like(Z, -1e30), Z).amax(dim=(1, 2))
+    occ = same("frame 0 with a NaN hole (its nanmax)", Z, d, nanmax, steps)
+    if occ[torch.isnan(Z)].any():
+        raise AssertionError("phase S march: a ray from a NaN cell occluded its cell")
+    # A whole slab of the command (the budget's 8 bytes a cell), timed.
+    from wass_tpu_torch.post.ooc import iter_time_slabs
+
+    ts = next(iter(iter_time_slabs(Z_mm.shape, 8)))
+    Z, d, maxz, steps = inputs(Z_mm[ts])
+    same(f"a visibilitymap slab {tuple(Z.shape)}", Z, d, maxz, steps)
+    r = results["visibility_march"]
+    r["ms"] = cuda_ms(lambda: vk.march(Z, d, maxz, steps), reps=5)
+    r["plain_ms"] = cuda_ms(lambda: vk.march_plain(Z, d, maxz, steps))
+    set_bound(results, "visibility_march", MARCH_BYTES_PER_RAY * Z.numel(), 0)
+    log(f"phase S march on a {tuple(Z.shape)} slab ({Z.numel()} rays, {steps} steps at most): kernel {r['ms']:.3f} ms, "
+        f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({MARCH_BYTES_PER_RAY} bytes a ray at 3.35 TB/s), "
+        f"on {card}")
+
+
+def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_frames: int = POST_FRAMES,
+                   fps: float = POST_FPS) -> dict:
+    """Phase S: the post console on a cube of phase G's grid (N = 256) and
+    the scene's wave field over n_frames frames, then the radiance family on
+    phase G's ten-frame cube.  Returns the visibilitymap run's launches."""
+    import numpy as np
+    import torch
+
+    import wass_tpu_torch
+    from wass_tpu_torch.grid.setup import GridSetup
+    from wass_tpu_torch.io import hdf5
+    from wass_tpu_torch.post import geometry, spectra
+    from wass_tpu_torch.post import radiance as prad
+    from wass_tpu_torch.post.ooc import streaming_time_mean
+
+    t_phase = time.time()
+    out = root / "smoke_post"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    setup = GridSetup.load_mat(root / "smoke_grid" / "config.mat")
+    nc = out / "post.nc"
+    t0 = time.time()
+    post_cube(nc, setup, scene, n_frames, fps, dev)
+    with hdf5.H5File(nc) as f:
+        Z_mm = f["Z"][...]
+        stored = {"XX": f["X_grid"][...] / 1000.0, "YY": f["Y_grid"][...] / 1000.0}
+        C = f["meta"]["Cam0toGrid"][...] @ np.array([0.0, 0, 0, 1])
+    log(f"phase S: cube of {n_frames} frames x {Z_mm.shape[1]} x {Z_mm.shape[2]} at {fps} Hz written in "
+        f"{time.time() - t0:.1f} s ({nc.stat().st_size} bytes; Z {Z_mm.nbytes} bytes against a budget of "
+        f"{int(os.environ.get('WASS_POST_MEMORY_MB', '512'))} MiB)")
+
+    # Gate 1: the march's kernel against its plain version (no main-path counts).
+    check_march(results, Z_mm, stored, C[:3] / C[3], dev, card)
+    del Z_mm
+
+    fft = torch.fft
+    s = str(nc)
+    res, secs, times, peak, grown = post_cli(["info", s], dev=dev)
+    log_post("info", secs, times, peak, grown, f" ({len(res.splitlines())} lines)")
+    res, secs, times, peak, grown = post_cli(["spectrum", s, "--nperseg", "512", "--rangespan", "5"],
+                                             [(fft, "rfft", "device rfft")], dev)
+    fr, S = np.loadtxt(nc.with_suffix(".spectrum.csv"), delimiter=";").T
+    st = spectra.spectrum_stats(fr, S)
+    log_post("spectrum", secs, times, peak, grown, f": Hm0 {st.hm0:.4f} m (the field's {HM0} m), Tm01 {st.tm01:.3f} s, "
+             f"Tp {st.tp:.3f} s")
+    # Gate 3: Hm0; gate 4: the card's spectrum against the port's CPU run.
+    if abs(st.hm0 - HM0) > HM0_GATE * HM0:
+        raise AssertionError(f"phase S: spectrum Hm0 {st.hm0} m, not within {HM0_GATE:.0%} of {HM0} m")
+    with hdf5.H5File(nc) as f:
+        fc, Sc, _ = spectra.compute_spectrum(f["Z"], dt=1.0 / fps, nperseg=512, rangespan=5, scale=1e-3, device="cpu")
+        fd, Sd, _ = spectra.compute_spectrum(f["Z"], dt=1.0 / fps, nperseg=512, rangespan=5, scale=1e-3, device=dev)
+    err = float(np.abs(Sd - Sc).max() / Sc.max())
+    if not (np.array_equal(fd, fc) and np.array_equal(fr, fc) and err <= 1e-5 and np.abs(S - Sd).max() <= 1e-5 * Sc.max()):
+        raise AssertionError(f"phase S: the card's spectrum differs from the CPU's by {err} of max S (gate 1e-5)")
+    log(f"phase S spectrum: card against CPU within {err:.3g} of max S (gate 1e-5, tests/test_torch_post.py)")
+    res, secs, times, peak, grown = post_cli(["spectrum3d", s, "--segments", "10"],
+                                             [(fft, "fftn", "device fftn"), (fft, "fftshift", "device fftshift")], dev)
+    with np.load(nc.with_suffix(".spectrum3d.npz")) as z:
+        shape3d = z["S"].shape
+        if not np.isfinite(z["S"]).all():
+            raise AssertionError("phase S: spectrum3d S is not finite")
+    log_post("spectrum3d", secs, times, peak, grown, f": S {shape3d}")
+    res, secs, times, peak, grown = post_cli(["filter", s], dev=dev)
+    log_post("filter (lowpass 1 Hz, host scipy)", secs, times, peak, grown)
+    res, secs, times, peak, grown = post_cli(["spatial_lowpass", s], [(fft, "fft2", "device fft2"),
+                                                                       (fft, "ifft2", "device ifft2")], dev)
+    log_post("spatial_lowpass", secs, times, peak, grown)
+    res, secs, times, peak, grown = post_cli(["zeromean", s], dev=dev)
+    log_post("zeromean", secs, times, peak, grown)
+    with hdf5.H5File(nc) as f:
+        resid = float(np.nanmax(np.abs(streaming_time_mean(f["Z"]))))
+    if not resid < 1e-3:  # gate 5
+        raise AssertionError(f"phase S: after zeromean the time mean reaches {resid} mm (gate 1e-3)")
+    log(f"phase S zeromean: |time mean| at most {resid:.3g} mm afterwards (gate 1e-3)")
+    res, secs, times, peak, grown = post_cli(["clip", s, "--zmin", "-600", "--zmax", "600"], dev=dev)
+    log_post("clip", secs, times, peak, grown)
+    new_fps = 2 * fps
+    res, secs, times, peak, grown = post_cli(["setfps", s, str(new_fps)], dev=dev)
+    log_post("setfps", secs, times, peak, grown)
+
+    def sha(name):
+        with hdf5.H5File(nc) as f:
+            h = hashlib.sha256()
+            for ts in range(0, f[name].shape[0], 500):
+                h.update(f[name][ts:ts + 500].tobytes())
+            return h.hexdigest()
+
+    before = sha("Z_filtered")
+    wass_tpu_torch.reset_launch_counts()
+    res, secs, times, peak, grown = post_cli(
+        ["visibilitymap", s], [(geometry, "visibility_device_batch", "device visibility (rays, incidence, march)"),
+                               (geometry, "march", "device march kernel")], dev)
+    launches = wass_tpu_torch.launch_counts()
+    slab_ms = np.array(times["device march kernel"])
+    log_post("visibilitymap", secs, times, peak, grown,
+             f": {launches['visibility_march']} launches of the march, {slab_ms.mean():.3f} ms a slab (min "
+             f"{slab_ms.min():.3f}, max {slab_ms.max():.3f}); {res.strip()}")
+    if sha("Z_filtered") != before:
+        raise AssertionError("phase S: visibilitymap changed Z_filtered")
+    res, secs, times, peak, grown = post_cli(["renamevar", s, "Z_slp", "Z_lp"], dev=dev)
+    log_post("renamevar", secs, times, peak, grown)
+
+    # Gate 2: every output read back with the JAX command's names, shapes and dtypes.
+    T, H, W = n_frames, setup.XX.shape[1], setup.XX.shape[0]
+    want = {"Z": "float32", "Z_filtered": "float32", "Z_lp": "float32", "occlusion_cam0": "uint8",
+            "incident_angles_cam0": "float32"}
+    with hdf5.H5File(nc) as f:
+        for name, dt in want.items():
+            if f[name].shape != (T, H, W) or str(f[name].dtype) != dt:
+                raise AssertionError(f"phase S: {name} {f[name].shape} {f[name].dtype}")
+        if "Z_slp" in f or f["Z_filtered"].attrs["frequency_filter_cutoff"] != 1.0 or f["meta"].attrs["fps"] != new_fps:
+            raise AssertionError("phase S: renamevar, the filter's cutoff or setfps did not read back")
+        if not np.array_equal(f["time"][...], (np.arange(T) / new_fps).astype(np.float32)):
+            raise AssertionError("phase S: setfps's time does not read back")
+        occ_share = float(np.mean([f["occlusion_cam0"][t0:t0 + 500].mean() for t0 in range(0, T, 500)]))
+        if np.abs(f["Z"][::97]).max() > 600:
+            raise AssertionError("phase S: Z not clipped to [-600, 600]")
+    log(f"phase S: every output reads back ({', '.join(want)}; Z_slp renamed Z_lp; fps {new_fps}); "
+        f"{100 * occ_share:.2f}% of the cells occluded; Z_filtered unchanged by visibilitymap (sha256 {before[:16]})")
+
+    # The radiance family on phase G's ten-frame cube (its PNG cam0images).
+    gnc = str(root / "smoke_grid" / "gridded.nc")
+    res, secs, times, peak, grown = post_cli(["radiance", gnc], [(prad, "bilinear_sample", "device bilinear sample")],
+                                             dev)
+    log_post("radiance (phase G's cube)", secs, times, peak, grown)
+    for args in (["bgimage", gnc], ["radiance_threshold", gnc], ["radiance_threshold", gnc, "--use-vats"]):
+        res, secs, times, peak, grown = post_cli(args, dev=dev)
+        log_post(" ".join(args[:1] + args[2:]), secs, times, peak, grown)
+    with hdf5.H5File(gnc) as f:
+        n = f["Z"].shape[0]
+        for name, dt in (("radiance_cam0", "float32"), ("radiance_bgimage_cam0", "float32"),
+                         ("radiance_thresholded_cam0", "uint8")):
+            if f[name].shape != f["Z"].shape or str(f[name].dtype) != dt:
+                raise AssertionError(f"phase S: {name} {f[name].shape} {f[name].dtype}")
+        rad = f["radiance_cam0"][...]
+        if not (np.isfinite(rad).all() and 0 <= rad.min() and rad.max() <= 1 and rad.mean() > 0):
+            raise AssertionError("phase S: radiance outside [0, 1] or empty")
+    log(f"phase S radiance: {n} frames, mean {rad.mean():.4f}, {100 * np.mean(rad > 0):.1f}% of the cells seen")
+    log(f"phase S: post times on {card}")
+    log(f"phase S: {time.time() - t_phase:.1f} s wall")
+    return launches
+
+
 def main() -> int:
+    t_start = time.time()
     if not (ROOT / "wass_tpu_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository (wass_tpu_torch/ not found)", file=sys.stderr)
         return 2
@@ -1692,14 +2059,16 @@ def main() -> int:
     add_counts(launches, run_prepare(_build.BUILD_DIR, rig, scene))
     # Phase M: match and autocalibrate on the card, then stereo with the recovered extrinsics.
     add_counts(launches, run_match_phase(_build.BUILD_DIR, scene, results, dev, smi))
-    unused = [k for k in KERNELS if launches[k] < 1]
-    if unused:
-        raise AssertionError(f"kernels no main-path run launched: {unused}")
 
     # Phase 5: where the c2f frame's time goes.
     profile_c2f_frame(_build.BUILD_DIR, img0, img1, rig)
     # Phase G: the grid stage on phase 5's frames.
     run_grid_phase(_build.BUILD_DIR, scene, smi)
+    # Phase S: the post stage on a cube of phase G's grid.
+    add_counts(launches, run_post_phase(_build.BUILD_DIR, scene, results, smi))
+    unused = [k for k in KERNELS if launches[k] < 1]
+    if unused:
+        raise AssertionError(f"kernels no main-path run launched: {unused}")
 
     kernels = [
         {
@@ -1717,6 +2086,7 @@ def main() -> int:
         }
         for name, (src, replaces) in KERNELS.items()
     ]
+    log(f"chip_smoke.py: {time.time() - t_start:.1f} s wall")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -11,6 +11,8 @@ import torch
 import wass_tpu_torch
 from wass_tpu_torch.match import iidyn as im
 from wass_tpu_torch.ops import components_kernels as ck
+from wass_tpu_torch.post import geometry as pg
+from wass_tpu_torch.post import visibility_kernels as vk
 from wass_tpu_torch.stereo import sgm_kernels as sk
 from wass_tpu_torch.stereo import sgm as plain_sgm
 from wass_tpu_torch.stereo.cost import census_cost_volume, census_cost_volume_windowed, census_transform
@@ -438,3 +440,50 @@ def test_iidyn_wrapper_counts_and_checks(dev):
         im.iidyn(A, x0.cpu())  # mixed devices
     with pytest.raises(ValueError):
         im.iidyn(A, x0, torch.ones(64, dtype=torch.uint8, device=dev))
+
+
+def _march_case(dev, B, H, W, seed, hole):
+    """A slab of wave-like frames in cell units with the rays of a camera
+    above one corner (visibility_device_batch's directions); with `hole`
+    frame 0 has a NaN patch (its maxz is NaN)."""
+    g = torch.Generator().manual_seed(seed)
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32), torch.arange(W, dtype=torch.float32), indexing="ij")
+    Z = torch.stack([3 * torch.sin(0.3 * xx + 0.2 * yy + b) + torch.rand((H, W), generator=g) for b in range(B)])
+    if hole:
+        Z[0, H // 3:H // 3 + 3, W // 2:W // 2 + 4] = float("nan")
+    Z, xx, yy = Z.to(dev), xx.to(dev), yy.to(dev)
+    cam = torch.tensor([-0.3 * W, 1.4 * H, 12.0], device=dev)
+    return Z, pg.ray_steps(pg.view_rays(Z, cam, xx, yy)), Z.amax(dim=(1, 2)), 2 * max(H, W)
+
+
+@pytest.mark.parametrize("B,H,W,hole", [(8, 64, 64, False), (8, 64, 64, True), (3, 37, 101, True), (2, 129, 7, False),
+                                        (1, 256, 256, True)])
+def test_visibility_march_kernel(dev, B, H, W, hole):
+    Z, d, maxz, steps = _march_case(dev, B, H, W, B * H + W, hole)
+    occ = vk.march(Z, d, maxz, steps)
+    assert torch.equal(occ, vk.march_plain(Z, d, maxz, steps))
+    if hole:
+        assert not occ[0].any()  # a NaN maxz stops every ray of frame 0 at its first step
+    # The nanmax of each frame instead: the rays of frame 0 march too, and a
+    # ray from a NaN cell still stops at once.
+    finite = torch.where(torch.isnan(Z), torch.full_like(Z, -1e30), Z).amax(dim=(1, 2))
+    occ = vk.march(Z, d, finite, steps)
+    assert torch.equal(occ, vk.march_plain(Z, d, finite, steps))
+    assert 0 < int(occ[0].sum()) < occ[0].numel()
+    if hole:
+        assert not occ[torch.isnan(Z)].any()
+
+
+def test_visibility_march_wrapper_counts_and_checks(dev):
+    Z, d, maxz, steps = _march_case(dev, 2, 16, 24, 0, False)
+    wass_tpu_torch.reset_launch_counts()
+    vk.march(Z, d, maxz, steps)
+    vk.march_plain(Z, d, maxz, steps)
+    counts = wass_tpu_torch.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "visibility_march": 1}
+    with pytest.raises(ValueError):
+        vk.march(Z.double(), d.double(), maxz.double(), steps)
+    with pytest.raises(ValueError):
+        vk.march(Z, d[:-1], maxz, steps)
+    with pytest.raises(ValueError):
+        vk.march(Z, d.cpu(), maxz, steps)  # mixed devices

@@ -1,8 +1,9 @@
 """The port runs without jax and without any module of the JAX package
-(a dense frame, the stereo CLI, the grid console on its meshes, and the
-match stage through the CLI), and without h5py, imageio or matplotlib,
-which the GPU host lacks; its stdlib PNG codec agrees with imageio and
-OpenCV."""
+(a dense frame, the stereo CLI, the grid console on its meshes, the post
+console on that cube, and the match stage through the CLI), and without
+h5py, imageio, matplotlib or click, which the GPU host lacks (click: the
+port's consoles are argparse); its stdlib PNG codec agrees with imageio
+and OpenCV."""
 
 import ast
 import io
@@ -43,7 +44,7 @@ def shared(name):
 class _Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "h5py", "imageio", "matplotlib") or (top == "wass_tpu" and not shared(name)):
+        if top in ("jax", "jaxlib", "h5py", "imageio", "matplotlib", "click") or (top == "wass_tpu" and not shared(name)):
             raise ImportError(f"{name} is refused in this process")
         return None
 
@@ -58,7 +59,9 @@ import wass_tpu_torch.match.pipeline
 import wass_tpu_torch.grid.outliers
 from wass_tpu_torch.cli.gridsurface import main as grid_main
 from wass_tpu_torch.cli.main import main
-from wass_tpu_torch.grid.netcdf import NetCDFReader
+from wass_tpu_torch.cli.post import main as post_main
+from wass_tpu_torch.grid.netcdf import NetCDFReader, NetCDFWriter
+from wass_tpu_torch.grid.setup import GridSetup
 from wass_tpu_torch.grid.setup import align_on_sea_plane
 from wass_tpu_torch.testing import make_scene, read_frame, write_sequence
 from wass_tpu_torch.stereo.dense import DenseStereoConfig, dense_stereo_frame
@@ -83,6 +86,23 @@ with tempfile.TemporaryDirectory() as tmp:
     assert grid_main([str(seq), str(grid), "--action", "grid", "--device", "cpu"]) == 0
     with NetCDFReader(grid / "gridded.nc") as cube:
         assert cube.Z.shape == (1, 16, 16) and np.isfinite(cube.Z[...]).any()
+        z0 = np.nan_to_num(cube.Z[0])
+    # The post console on a 32-frame cube of that grid (the order-8 filter
+    # needs more than 27 frames): the frame scaled a little more each frame.
+    st = GridSetup.load_mat(grid / "config.mat")
+    nc = grid / "long.nc"
+    w = NetCDFWriter(nc, M=16, N=16, count=32)
+    w.set_grids(st.XX * 1000.0, st.YY * 1000.0)
+    w.set_intrinsics(st.K0, st.K1, np.zeros(5), np.zeros(5), st.P0plane, st.P1plane, st.P0cam[:3], st.P1cam[:3],
+                     st.Cam0toGrid, st.Cam1toGrid)
+    w.add_meta_attribute("fps", 4.0)
+    for i in range(32):
+        w.push_Z(z0.T * (1 + 0.1 * i), time=i / 4.0, workdir=i)
+    w.close()
+    for cmd in (["info"], ["spectrum", "--nperseg", "8", "--rangespan", "2"], ["visibilitymap"], ["filter"]):
+        assert post_main([cmd[0], str(nc), *cmd[1:], "--device", "cpu"]) == 0
+    with NetCDFReader(nc) as cube:
+        assert cube["Z_filtered"].shape == cube["occlusion_cam0"].shape == (32, 16, 16)
 with tempfile.TemporaryDirectory() as tmp:
     seq = Path(tmp)
     sc = make_scene(seed=3, width=256, height=192, wave_amplitude=0.25)
@@ -92,17 +112,19 @@ with tempfile.TemporaryDirectory() as tmp:
     assert main(["match", str(seq), "--device", "cpu"]) == 0
     n_matches = int((seq / "000000_wd" / "matcher_stats.csv").read_text().splitlines()[1].split(";")[0])
     assert n_matches > 8
-loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "wass_tpu", "h5py", "imageio", "matplotlib")]
+loaded = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "wass_tpu", "h5py", "imageio", "matplotlib", "click")]
 assert all(shared(m) for m in loaded), loaded
 print("OK", int(res.n_points), len(mesh), n_matches)
 """ % (SHARED,)
 
 
 def test_port_runs_without_jax():
-    """jax, every module of the JAX package, h5py, imageio and matplotlib
-    are refused at import; a frame, the stereo CLI, the grid console
-    (setup and grid) and the match CLI still run, and the match,
-    calibration and grid modules import."""
+    """jax, every module of the JAX package, h5py, imageio, matplotlib and
+    click are refused at import; a frame, the stereo CLI, the grid console
+    (setup and grid), the post console (info, spectrum, visibilitymap,
+    filter) and the match CLI still run, and the match, calibration and
+    grid modules import."""
     proc = subprocess.run([sys.executable, "-c", _NOJAX_RUN], cwd=ROOT, capture_output=True, text=True,
                           timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT)})
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -120,7 +142,7 @@ def test_no_jax_import_statements():
                 names = [f"{node.module}.{a.name}" for a in node.names]
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib"), f"{path}: imports {name}"
+                assert top not in ("jax", "jaxlib", "h5py", "imageio", "matplotlib", "click"), f"{path}: imports {name}"
                 assert top != "wass_tpu" or _shared(name), f"{path}: imports {name}"
 
 

@@ -3,15 +3,18 @@
 The JAX package `wass_tpu` stays the reference; this package mirrors its
 layout (`stereo/cost.py` <-> `wass_tpu/stereo/cost.py`, ...) and runs the
 prepare, match, autocalibrate, dense stereo (coarse-to-fine search and
-full-range fallback included) and gridding stages on an NVIDIA H100:
+full-range fallback included), gridding and post stages on an NVIDIA H100:
 
   cli/       argparse entry points (prepare, match, autocalibrate, stereo,
-             genconfig; gridsurface) and the sequence pipeline: prepare,
+             genconfig; gridsurface; post) and the sequence pipeline: prepare,
              match, autocalibrate, and the production stereo loop (PNG
              prefetch, dispatch ahead, writer threads)
   grid/      grid setup (config.mat), per-frame gridding on the device
              (median stack, DCT/IDW/LinearND fill, outlier votes) and the
              gridded.nc cube
+  post/      the post stage over gridded cubes: spectra, filters, the
+             visibility ray march, radiance, polarimetric averages, and
+             the out-of-core streaming under a memory budget
   match/     features, candidates and payoff, the game-theoretic rounds
              (iidyn), LK refinement, relative-pose RANSAC, the frame stage
   calib/     two-view bundle adjustment, the Sampson polish, the pooled
@@ -25,12 +28,12 @@ full-range fallback included) and gridding stages on an NVIDIA H100:
   config.py  the self-registering option registry
   launches.py  thread-safe kernel launch counts, per frame
   io/        stdlib PNG codec and its prefetcher, workdirs, .xyzC, matrices,
-             a minimal HDF5 writer and reader (the cube without h5py)
+             a minimal HDF5 writer, reader and editor (the cube without h5py)
   utils/     the [P|cur|tot] progress line, the stage timer
   testing/   synthetic wave-field scenes and smoke-run helpers
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
              K5/K6 SGM sums, the H2 pair and folding walks, K7 labels,
-             the iidyn loop)
+             the iidyn loop, the visibility ray march)
 
 Kernel wrappers launch the CUDA kernel for CUDA tensors and run the plain
 PyTorch version for CPU tensors only.  This package never imports jax.
@@ -49,15 +52,17 @@ def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
     from wass_tpu_torch.match import iidyn
     from wass_tpu_torch.ops import components_kernels
+    from wass_tpu_torch.post import visibility_kernels
     from wass_tpu_torch.stereo import sgm_kernels
 
-    return {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES, **iidyn.LAUNCHES}
+    return {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES, **iidyn.LAUNCHES, **visibility_kernels.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from wass_tpu_torch.match import iidyn
     from wass_tpu_torch.ops import components_kernels
+    from wass_tpu_torch.post import visibility_kernels
     from wass_tpu_torch.stereo import sgm_kernels
 
-    for counts in (sgm_kernels.LAUNCHES, components_kernels.LAUNCHES, iidyn.LAUNCHES):
+    for counts in (sgm_kernels.LAUNCHES, components_kernels.LAUNCHES, iidyn.LAUNCHES, visibility_kernels.LAUNCHES):
         counts.reset()

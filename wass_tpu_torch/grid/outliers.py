@@ -8,10 +8,13 @@ plane from 3 rounds of iteratively-reweighted least squares (fit -> mask
 points beyond the inlier threshold -> refit), computed for all cells at
 once from per-cell moment sums, and a point is voted out when it exceeds
 the threshold against its own cell's plane.  The segment sums are
-index_add_, the per-cell 3x3 normal equations one batched solve.  On the
-card index_add_ adds with atomics in no fixed order, so the votes (and a
-grid made with them) may differ in the last bits from run to run; the
-default grid path does not use them.
+index_add_, the per-cell 3x3 normal equations one batched solve written
+out as the partially pivoted LU that jnp.linalg.solve runs (`solve3`), so
+that a cell whose system is singular to float32 gets non-finite
+coefficients and keeps its points, as in the JAX package.  On the card
+index_add_ adds with atomics in no fixed order, so the votes (and a grid
+made with them) may differ in the last bits from run to run; the default
+grid path does not use them.
 """
 
 from __future__ import annotations
@@ -19,6 +22,38 @@ from __future__ import annotations
 import torch
 
 N_CELLS = 15  # reference scan grid (wass_utils.py:134)
+
+
+def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3x3 solve A x = b, (n, 3, 3) and (n, 3) -> (n, 3), by LU with
+    partial pivoting in LAPACK getrf's order: the first row of largest
+    |pivot|, the column below it scaled by the pivot's reciprocal, a zero
+    pivot left unscaled; then the unit lower and the upper triangular
+    solves.  A pivot that vanishes in float32 gives inf or NaN, where
+    torch.linalg.solve (and its tiny pivot) stays finite."""
+    A = A.clone()
+    x = b.clone()
+    rows = torch.arange(A.shape[0], device=A.device)
+    for k in range(3):
+        p = k + torch.argmax(A[:, k:, k].abs(), dim=1)  # the first of equal maxima, as isamax
+        for t in (A, x):
+            rk, rp = t[rows, k].clone(), t[rows, p].clone()
+            t[rows, k], t[rows, p] = rp, rk
+        piv = A[:, k, k]
+        recip = torch.where(piv != 0, 1.0 / piv, torch.zeros_like(piv))
+        for i in range(k + 1, 3):
+            lik = A[:, i, k] * recip
+            A[:, i, k] = lik
+            for j in range(k + 1, 3):
+                A[:, i, j] = A[:, i, j] - lik * A[:, k, j]
+    for i in range(1, 3):  # L y = P b, L unit lower
+        for j in range(i):
+            x[:, i] = x[:, i] - A[:, i, j] * x[:, j]
+    for i in (2, 1, 0):  # U x = y, the later unknowns first (trsm's column order)
+        for j in range(2, i, -1):
+            x[:, i] = x[:, i] - A[:, i, j] * x[:, j]
+        x[:, i] = x[:, i] / A[:, i, i]
+    return x
 
 
 def _vote_device(pts: torch.Tensor, threshold: float, n_cells: int = N_CELLS, irls_rounds: int = 3) -> torch.Tensor:
@@ -53,7 +88,7 @@ def _vote_device(pts: torch.Tensor, threshold: float, n_cells: int = N_CELLS, ir
             -2,
         )
         b = torch.stack([sxz, syz, sz], -1)
-        abc = torch.linalg.solve(A + eye, b[..., None])[..., 0]  # (n_seg, 3)
+        abc = solve3(A + eye, b)  # (n_seg, 3)
         a_p, b_p, c_p = abc[cell, 0], abc[cell, 1], abc[cell, 2]
         denom = torch.sqrt(a_p**2 + b_p**2 + 1.0)
         dist = torch.abs(a_p * x + b_p * y + c_p - z) / denom
