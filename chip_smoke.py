@@ -126,17 +126,28 @@ G. The grid stage on phase 5's ten frames (2048x1536, c2f, ~2.7M points
    Printed, not gated: the RMS of frame 0's gridded Z against the scene's
    wave field.  Then one frame each of GRID_MODES (N = 512, IDW, the
    outlier votes, -mf 3, LinearND at 10%, the zero-mean rewrite), each
-   giving more than GRID_MIN_FINITE finite cells.
+   giving more than GRID_MIN_FINITE finite cells; the outlier votes' frame
+   twice, gated on the same Z bytes.  Then the votes on frame 0's points:
+   twice on the card (gated equal, timed) and once on the CPU (the share
+   of votes that differ printed).
 S. The post stage (phase S) on a cube of phase G's grid and meta (N = 256,
    its config.mat, P0plane and Cam0toGrid): POST_FRAMES frames at POST_FPS
    (200 s; users film 10-30 min at 10-20 Hz, the cut is the duration), Z
    the scene's wave field (mm) at the grid nodes' world x, y, written by
    the port's NetCDFWriter (786 MB of Z, over the 512 MB default budget,
-   so every streaming path runs).  First the visibility march against its
-   plain version, bit-equal: an 8-frame slab as visibilitymap lays the
-   cube out, with x along the columns, and with a camera 0.5 m above the
-   plane (grazing rays that march); frame 0 with a NaN hole (maxz NaN,
-   then its nanmax); a whole 341-frame slab of the command, timed.  Then
+   so every streaming path runs).  First the fused visibility kernel and
+   the march-only kernel against their plain versions, bit-equal (occ,
+   and inc's bits with NaN at the same cells): an 8-frame slab as
+   visibilitymap lays the cube out, with x along the columns, with a
+   camera 0.5 m above the plane (grazing rays that march) and with one
+   over the grid's middle; two frames with a NaN hole in frame 0 (its max
+   NaN; the march-only kernel also with the nanmax).  Then, timed, whole
+   slabs: the command's 341 frames, the same frames with x along the
+   columns and the camera 0.5 m up, and an N = 512 slab of the same area
+   (85 frames) both ways: the fused kernel's ms and its plain version's,
+   the bound and share, the steps the rays took (the plain march counts
+   them) and the steps a ns, and the march-only kernel's ms on the same
+   rays.  Then
    `wass-tpu-torch-post` through its entry point: info, spectrum (nperseg
    512, rangespan 5), spectrum3d (10 segments), filter (lowpass 1 Hz),
    spatial_lowpass, zeromean, clip, setfps, visibilitymap over every frame
@@ -144,21 +155,28 @@ S. The post stage (phase S) on a cube of phase G's grid and meta (N = 256,
    cam0images) radiance, bgimage and radiance_threshold with and without
    --use-vats.  Each command prints its seconds, the device ms of its
    device stages (CUDA events around the FFTs, the bilinear sample, the
-   visibility batch and the march), the host ms of its dataset reads and
-   writes, the peak device memory and the bytes the cube grew;
-   visibilitymap also its launches, ms a slab and the share occluded.
+   visibility batch), the host ms of its dataset reads and writes, the
+   peak device memory and the bytes the cube grew; visibilitymap also its
+   launches, ms a slab and the share occluded, and again with the plain
+   version on the card.  Then compute_occlusion_mask (the march-only
+   kernel's main path) on OCCLUSION_FRAMES frames along a low sun.
    Gates: every output read back with the JAX command's names, shapes and
    dtypes, Z_filtered unchanged by visibilitymap (sha256); spectrum's Hm0
    within 10% of the field's 1.0 m; the card's spectrum within 1e-5 of
    max S of the port's CPU run on the same patch; after zeromean |time
-   mean| < 1e-3 mm at every finite cell.
+   mean| < 1e-3 mm at every finite cell; visibilitymap's occlusion_cam0
+   and incident_angles_cam0 byte-equal between the fused kernel's run and
+   the plain version's; the occlusion masks equal to the CPU's.
 6. A JSON line of per-kernel results (times, launches, and the bound: the
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
    67 T/s, and for K1/K2 their popcounts at 16 a clock per SM at the
    maximum SM clock nvidia-smi reports; iidyn's is its updates' rows of A
-   at the live columns, 4 n_live bytes each; the march's 17 bytes a ray,
-   Z, d and the flag; no single PyTorch call
+   at the live columns, 4 n_live bytes each; the fused visibility
+   kernel's 9 bytes a cell (Z in, occ and inc out) and XX, YY, its ~60
+   float operations a cell and 13 a march step; the march-only kernel's
+   17 bytes a ray (Z, d and the flag) and 13 operations a step; no single
+   PyTorch call
    computes any of these
    functions, so library_ms is null), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}},
@@ -242,8 +260,11 @@ KERNELS = {
     "sgm_walk": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:602"),
     # Not a Pallas kernel: the match rounds' lax.while_loop, one kernel a round.
     "iidyn": ("wass_tpu_torch/csrc/iidyn.cu", "wass_tpu/match/iidyn.py:25"),
-    # Not a Pallas kernel: the visibility ray march's lax.while_loop, one kernel a slab.
-    "visibility_march": ("wass_tpu_torch/csrc/visibility.cu", "wass_tpu/post/geometry.py:94"),
+    # Not Pallas kernels: the visibility batch's whole jitted program (its
+    # lax.while_loop and the elementwise passes around it), one fused kernel
+    # a slab; and the march alone of the occlusion masks.
+    "visibility_batch": ("wass_tpu_torch/csrc/visibility.cu", "wass_tpu/post/geometry.py:94"),
+    "visibility_march": ("wass_tpu_torch/csrc/visibility.cu", "wass_tpu/post/geometry.py:33"),
 }
 # The default path's SGM keys, which no H2 frame may launch.
 DEFAULT_SGM = ("sgm_wta_fused", "sgm_wta_fused_windowed", "sgm_aggregate", "sgm_aggregate_windowed")
@@ -1653,7 +1674,34 @@ def run_grid_phase(root: Path, scene, card: str) -> None:
         if not np.isfinite(Z).mean() > GRID_MIN_FINITE:
             raise AssertionError(f"phase G {label}: {np.isfinite(Z).mean():.3f} of the cells finite")
         log(f"phase G mode {label}: one frame {t:.2f} s, Z {Z.shape}, {100 * np.isfinite(Z).mean():.1f}% finite")
+        if label == "--filter-outliers":  # the votes on the card: the same bytes on a second run
+            grid_cli(one, mout, "--action", "grid", *grid_opts)
+            with NetCDFReader(mout / "gridded.nc") as cube:
+                if cube.Z[...].tobytes() != Z.tobytes():
+                    raise AssertionError(f"phase G mode {label}: a second run gave other Z bytes")
+            log(f"phase G mode {label}: a second run gives the same Z bytes")
+    check_votes(wds[0], setup, card)
     log(f"phase G: {time.time() - t_phase:.1f} s wall")
+
+
+def check_votes(wd, setup, card: str) -> None:
+    """Phase G: the outlier votes (--filter-outliers) on frame 0's aligned
+    points, twice on the card (timed) and once on the CPU."""
+    import torch
+
+    from wass_tpu_torch.grid import gridding, outliers
+
+    thr = gridding.GridConfig().outlier_threshold
+    pts = gridding.align_mesh(gridding.load_mesh(wd.path / "mesh_cam.xyzC", "cuda"), setup).T.float().contiguous()
+    keep = [outliers._vote_device(pts, thr) for _ in range(2)]
+    ms = cuda_ms(lambda: outliers._vote_device(pts, thr), reps=3)
+    cpu = outliers._vote_device(pts.cpu(), thr)
+    differ = (keep[0].cpu() != cpu).double().mean().item()
+    if not torch.equal(keep[0], keep[1]):
+        raise AssertionError("phase G votes: two runs on the card differ")
+    log(f"phase G votes: frame 0's {pts.shape[0]} points, {100 * keep[0].double().mean().item():.4f}% kept; "
+        f"{ms:.3f} ms a vote on the card; two card runs equal; {100 * differ:.4f}% of the votes differ between the "
+        f"card and the CPU; on {card}")
 
 
 POST_FRAMES = 3000  # phase S's cube: 200 s at 15 Hz (users film 10-30 min at 10-20 Hz; the cut is the duration)
@@ -1662,6 +1710,32 @@ POST_CHECK_FRAMES = 8  # the slab of the march's first kernel-vs-plain gate
 HM0 = 1.0  # the wave field's significant height: 4 x std(eta), WaveField.random scales std(eta) to the amplitude 0.25
 HM0_GATE = 0.10  # phase S's relative gate on spectrum's Hm0
 MARCH_BYTES_PER_RAY = 4 + 12 + 1  # Z read, d read, the flag written
+MARCH_OPS_PER_STEP = 13  # 3 adds, 2 roundings, 5 compares, the address, the compare with Z
+VIS_BYTES_PER_CELL = 4 + 1 + 4  # Z read, occ and inc written
+VIS_OPS_PER_CELL = 60  # the slopes, normal, ray, cosine, acosf (~15) and step of a cell, in float32 operations
+POST_N512 = 512  # the finer grid of phase S's N = 512 slab
+OCCLUSION_FRAMES = 4  # frames of phase S's compute_occlusion_mask run
+SUN_ELEVATION_DEG = 1.0  # its rays' elevation: a low sun, whose rays the waves occlude
+
+
+def wave_mm(setup, scene, XXm, YYm, t):
+    """The scene's wave field in mm (float64, on t's device) at grid nodes
+    of the setup's sea plane, XXm and YYm in meters (any one shape), and
+    times t (s, a float64 tensor): (len(t), *XXm.shape).  The node on the
+    sea plane -> cam0 -> world x, y."""
+    import numpy as np
+    import torch
+
+    p = np.stack([XXm.ravel(), YYm.ravel(), np.zeros(XXm.size)]) / setup.baseline
+    cam = setup.Rpl.T @ (p - setup.Tpl) * setup.baseline
+    world = scene.rig.R0.T @ (cam - scene.rig.T0.reshape(3, 1))
+    wx, wy = (torch.as_tensor(world[i], dtype=torch.float64, device=t.device) for i in (0, 1))
+    t = t[:, None]
+    eta = torch.zeros((t.shape[0], wx.shape[0]), dtype=torch.float64, device=t.device)
+    waves = scene.waves
+    for a, kx, ky, ph in zip(waves.amps, waves.kx, waves.ky, waves.phases):
+        eta += a * torch.cos(kx * wx + ky * wy + ph - np.sqrt(9.81 * np.hypot(kx, ky)) * t)
+    return (eta * 1000.0).reshape(-1, *XXm.shape)
 
 
 def post_cube(path: Path, setup, scene, n_frames: int, fps: float, dev) -> None:
@@ -1674,11 +1748,6 @@ def post_cube(path: Path, setup, scene, n_frames: int, fps: float, dev) -> None:
     from wass_tpu_torch.grid.netcdf import NetCDFWriter
 
     H, W = setup.XX.shape
-    p = np.stack([setup.XX.ravel(), setup.YY.ravel(), np.zeros(setup.XX.size)]) / setup.baseline
-    cam = setup.Rpl.T @ (p - setup.Tpl) * setup.baseline
-    world = scene.rig.R0.T @ (cam - scene.rig.T0.reshape(3, 1))
-    wx, wy = (torch.as_tensor(world[i], dtype=torch.float64, device=dev) for i in (0, 1))
-    waves = scene.waves
     w = NetCDFWriter(path, M=H, N=W, count=n_frames)
     try:
         w.scale = setup.baseline
@@ -1691,11 +1760,8 @@ def post_cube(path: Path, setup, scene, n_frames: int, fps: float, dev) -> None:
         w.add_meta_attribute("fps", fps)
         w.set_mask(np.ones((H, W), np.float32))
         for t0 in range(0, n_frames, 100):
-            t = torch.arange(t0, min(t0 + 100, n_frames), dtype=torch.float64, device=dev)[:, None] / fps
-            eta = torch.zeros((t.shape[0], wx.shape[0]), dtype=torch.float64, device=dev)
-            for a, kx, ky, ph in zip(waves.amps, waves.kx, waves.ky, waves.phases):
-                eta += a * torch.cos(kx * wx + ky * wy + ph - np.sqrt(9.81 * np.hypot(kx, ky)) * t)
-            for i, z in enumerate((eta * 1000.0).reshape(-1, H, W).cpu().numpy()):
+            t = torch.arange(t0, min(t0 + 100, n_frames), dtype=torch.float64, device=dev) / fps
+            for i, z in enumerate(wave_mm(setup, scene, setup.XX, setup.YY, t).cpu().numpy()):
                 w.push_Z(z, time=(t0 + i) / fps, workdir=t0 + i)
     finally:
         w.close()
@@ -1776,78 +1842,138 @@ def log_post(name: str, secs: float, times: dict, peak: float, grown: int, extra
         f"device memory {peak:.1f} MiB; the cube grew {grown} bytes{extra}")
 
 
-def check_march(results: dict, Z_mm, grids: dict, cam_mm, dev, card: str) -> None:
-    """Phase S, gate 1: the visibility march against its plain version on
-    the card, bit-equal: an 8-frame slab of the cube (as the command lays
-    it out, and with x along the columns), frame 0 with a NaN hole (its
-    maxz NaN, and again with the nanmax so that its rays march), and a
-    whole slab of the visibilitymap command (timed, kernel and plain)."""
+def slab_tensors(z_mm, XXm, YYm, cam_m, dev) -> tuple:
+    """A slab as visibilitymap hands it to the device: Z (mm) -> meters in
+    float64 -> cell units in float32, the camera and the grids (meters) in
+    cell units; (Z, cam, XX, YY, max_steps)."""
     import numpy as np
     import torch
 
-    from wass_tpu_torch.post import geometry as pg
+    inv = 1.0 / (abs(XXm[0, 1] - XXm[0, 0]) or abs(XXm[1, 0] - XXm[0, 0]))
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(np.asarray(a, np.float64) * inv), dtype=torch.float32, device=dev)
+
+    Z = put(np.asarray(z_mm, np.float64) / 1000.0)
+    return Z, put(cam_m), put(XXm), put(YYm), 2 * max(Z.shape[1:])
+
+
+def finer_grid(G, n: int):
+    """The regular grid G (meters, either layout) resampled to n x n nodes
+    over the same area."""
+    import numpy as np
+
+    s = (G.shape[0] - 1) / (n - 1)
+    i, j = np.arange(n)[:, None] * s, np.arange(n)[None, :] * s
+    return G[0, 0] + i * (G[1, 0] - G[0, 0]) + j * (G[0, 1] - G[0, 0])
+
+
+def check_visibility(results: dict, Z_mm, grids: dict, cam_m, setup, scene, dev, card: str) -> None:
+    """Phase S, gate 1: the fused visibility kernel and the march-only
+    kernel against their plain versions on the card, bit-equal (occ equal,
+    inc's bits equal, NaN at the same cells): an 8-frame slab of the cube
+    (as the command lays it out, and with x along the columns), the camera
+    0.5 m up (grazing rays that march to the grid's edge), the camera over
+    the grid's middle, frame 0 with a NaN hole (its max NaN; the march-only
+    kernel also with the nanmax, so that its rays march).  Then whole slabs,
+    timed: the command's 341-frame slab, the same frames with x along the
+    columns and the camera 0.5 m up, and an N = 512 slab both ways.  Each
+    timed slab gives the fused kernel's time and its plain version's, its
+    bound and share, the steps the rays took (counted by the plain march)
+    and the steps a ns; the command's slab also the march-only kernel's."""
+    import numpy as np
+    import torch
+
     from wass_tpu_torch.post import visibility_kernels as vk
+    from wass_tpu_torch.post.ooc import iter_time_slabs
 
     XX, YY = grids["XX"], grids["YY"]
-    dx = abs(XX[0, 1] - XX[0, 0]) or abs(XX[1, 0] - XX[0, 0])
-    inv = 1.0 / dx
+    low = np.array([cam_m[0], cam_m[1], 0.5])  # a camera 0.5 m above the grid's plane
+    mid = np.array([XX.mean(), YY.mean(), 5.0])  # a camera 5 m above the grid's middle
 
-    def inputs(z_mm, cam_m=cam_mm):
-        Z = torch.as_tensor(np.asarray(z_mm, np.float64) / 1000.0 * inv, dtype=torch.float32, device=dev)
-        cam = torch.as_tensor(np.asarray(cam_m, np.float64) * inv, dtype=torch.float32, device=dev)
-        rays = pg.view_rays(Z, cam, torch.as_tensor(XX * inv, dtype=torch.float32, device=dev),
-                            torch.as_tensor(YY * inv, dtype=torch.float32, device=dev))
-        return Z, pg.ray_steps(rays), Z.amax(dim=(1, 2)), 2 * max(Z.shape[1:])
+    def same_batch(what, Z, cam, XXt, YYt, steps):
+        occ, inc = vk.visibility_batch(Z, cam, XXt, YYt, steps)
+        occ_p, inc_p = vk.visibility_batch_plain(Z, cam, XXt, YYt, steps)
+        torch.cuda.synchronize()
+        nan, nan_p = torch.isnan(inc), torch.isnan(inc_p)
+        if not (torch.equal(occ, occ_p) and torch.equal(nan, nan_p)
+                and torch.equal(inc[~nan].view(torch.int32), inc_p[~nan].view(torch.int32))):
+            raise AssertionError(f"visibility_batch {what}: kernel differs from the plain version (occ "
+                                 f"{int((occ != occ_p).sum())} cells, inc {int((inc != inc_p).sum())} cells)")
+        payload = int((inc[nan].view(torch.int32) != inc_p[nan].view(torch.int32)).sum())
+        log(f"kernel visibility_batch {what} {tuple(Z.shape)}: bit-equal ({int(nan.sum())} NaN incidences, "
+            f"{payload} of them with other NaN bits; {100 * occ.float().mean().item():.2f}% occluded)")
+        return occ, inc
 
-    def same(what, Z, d, maxz, steps):
+    def same_march(what, Z, d, maxz, steps):
         occ = vk.march(Z, d, maxz, steps)
         _record(results, "visibility_march", occ, vk.march_plain(Z, d, maxz, steps), what)
         return occ
 
-    Z, d, maxz, steps = inputs(Z_mm[:POST_CHECK_FRAMES])
-    occ = same(f"{POST_CHECK_FRAMES}-frame slab {tuple(Z.shape)}", Z, d, maxz, steps)
-    share = 100 * occ.float().mean().item()
-    # The same frames with x along the columns (the cube stores (count, X,
-    # Y), so the command's rays step x along Y, as the JAX command's do):
-    # rays that march over the waves.
-    XX, YY = XX.T, YY.T
-    Zt = np.ascontiguousarray(Z_mm[:POST_CHECK_FRAMES].transpose(0, 2, 1))
-    Z, d, maxz, steps = inputs(Zt)
-    occ = same(f"{POST_CHECK_FRAMES}-frame slab, x along the columns", Z, d, maxz, steps)
-    # And a camera 0.5 m above the grid's plane: grazing rays that the waves
-    # occlude, marching up to the grid's edge.
-    low = np.array([cam_mm[0], cam_mm[1], 0.5])
-    Z, d, maxz, steps = inputs(Zt, low)
-    graze = same(f"{POST_CHECK_FRAMES}-frame slab, x along the columns, the camera 0.5 m up", Z, d, maxz, steps)
-    ms = cuda_ms(lambda: vk.march(Z, d, maxz, steps), reps=5)
-    log(f"phase S march: {share:.2f}% of the slab's cells occluded by the march as the command lays the cube out, "
-        f"{100 * occ.float().mean().item():.2f}% with x along the columns, {100 * graze.float().mean().item():.2f}% "
-        f"with the camera 0.5 m up ({ms:.3f} ms for its {Z.numel()} rays)")
-    XX, YY = XX.T, YY.T
-    hole = np.array(Z_mm[:1], np.float32)
+    def case(what, z_mm, XXm=XX, YYm=YY, cam=cam_m):
+        Z, camt, XXt, YYt, steps = slab_tensors(z_mm, XXm, YYm, cam, dev)
+        occ, inc = same_batch(what, Z, camt, XXt, YYt, steps)
+        d = vk.ray_steps(vk.view_rays(Z, camt, XXt, YYt))
+        same_march(what, Z, d, Z.amax(dim=(1, 2)), steps)
+        return Z, d, steps, occ, inc
+
+    zs = Z_mm[:POST_CHECK_FRAMES]
+    zt = np.ascontiguousarray(zs.transpose(0, 2, 1))  # x along the columns
+    case(f"{POST_CHECK_FRAMES}-frame slab", zs)
+    case(f"{POST_CHECK_FRAMES}-frame slab, x along the columns", zt, XX.T, YY.T)
+    case(f"{POST_CHECK_FRAMES}-frame slab, x along the columns, the camera 0.5 m up", zt, XX.T, YY.T, low)
+    case(f"{POST_CHECK_FRAMES}-frame slab, x along the columns, the camera over the grid's middle", zt, XX.T, YY.T,
+         mid)
+    hole = np.array(zt[:2], np.float32)
     H, W = hole.shape[1:]
     hole[0, H // 3:H // 3 + 9, W // 2:W // 2 + 13] = np.nan
-    Z, d, maxz, steps = inputs(hole)
-    occ = same("frame 0 with a NaN hole (maxz NaN)", Z, d, maxz, steps)
-    if occ.any():
-        raise AssertionError("phase S march: a frame whose maxz is NaN occluded a cell")
+    Z, d, steps, occ, inc = case("2 frames, frame 0 with a NaN hole (its max NaN), the camera 0.5 m up", hole,
+                                 XX.T, YY.T, low)
+    if not torch.equal(occ[0], inc[0] >= 88):
+        raise AssertionError("phase S: a frame whose max is NaN occluded a cell that is not grazing")
     nanmax = torch.where(torch.isnan(Z), torch.full_like(Z, -1e30), Z).amax(dim=(1, 2))
-    occ = same("frame 0 with a NaN hole (its nanmax)", Z, d, nanmax, steps)
-    if occ[torch.isnan(Z)].any():
-        raise AssertionError("phase S march: a ray from a NaN cell occluded its cell")
-    # A whole slab of the command (the budget's 8 bytes a cell), timed.
-    from wass_tpu_torch.post.ooc import iter_time_slabs
+    occ = same_march("2 frames, frame 0 with a NaN hole (its nanmax)", Z, d, nanmax, steps)
+    if occ[torch.isnan(Z)].any() or not occ[0].any():
+        raise AssertionError("phase S march: a ray from a NaN cell occluded its cell, or no ray of frame 0 did")
 
+    def timed_slab(what, z_mm, XXm, YYm, cam, march_row=False) -> None:
+        Z, camt, XXt, YYt, steps = slab_tensors(z_mm, XXm, YYm, cam, dev)
+        same_batch(what, Z, camt, XXt, YYt, steps)
+        d, maxz = vk.ray_steps(vk.view_rays(Z, camt, XXt, YYt)), Z.amax(dim=(1, 2))
+        occ, n_steps = vk.march_plain(Z, d, maxz, steps, count_steps=True)
+        _record(results, "visibility_march", vk.march(Z, d, maxz, steps), occ, what)
+        ms = cuda_ms(lambda: vk.visibility_batch(Z, camt, XXt, YYt, steps), reps=5)
+        plain_ms = cuda_ms(lambda: vk.visibility_batch_plain(Z, camt, XXt, YYt, steps))
+        cells = Z.numel()
+        nbytes = VIS_BYTES_PER_CELL * cells + 8 * Z.shape[1] * Z.shape[2] + 12
+        b_ms, b_by = bound(nbytes, VIS_OPS_PER_CELL * cells + MARCH_OPS_PER_STEP * n_steps)
+        log(f"phase S visibility_batch, {what} {tuple(Z.shape)}: fused kernel {ms:.4f} ms, plain {plain_ms:.1f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}; {VIS_BYTES_PER_CELL} bytes a cell and XX, YY at 3.35 TB/s), "
+            f"{100 * b_ms / ms:.1f}% of it; the rays took {n_steps} steps ({n_steps / cells:.2f} a ray, {steps} at "
+            f"most), {n_steps / (ms * 1e6):.2f} steps a ns; {100 * occ.float().mean().item():.2f}% occluded by the "
+            f"march; on {card}")
+        m_ms = cuda_ms(lambda: vk.march(Z, d, maxz, steps), reps=5)
+        m_bound = bound(MARCH_BYTES_PER_RAY * cells, MARCH_OPS_PER_STEP * n_steps)
+        log(f"phase S march-only kernel on the same slab: {m_ms:.4f} ms, bound {m_bound[0]:.4f} ms "
+            f"({MARCH_BYTES_PER_RAY} bytes a ray), {n_steps / (m_ms * 1e6):.2f} steps a ns; on {card}")
+        if march_row:
+            results["visibility_batch"].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+            results["visibility_march"].update(ms=m_ms, plain_ms=cuda_ms(lambda: vk.march_plain(Z, d, maxz, steps)),
+                                               bound_ms=m_bound[0], bound_by=m_bound[1])
+
+    # Whole slabs (the command's: the budget's 8 bytes a cell), timed.
     ts = next(iter(iter_time_slabs(Z_mm.shape, 8)))
-    Z, d, maxz, steps = inputs(Z_mm[ts])
-    same(f"a visibilitymap slab {tuple(Z.shape)}", Z, d, maxz, steps)
-    r = results["visibility_march"]
-    r["ms"] = cuda_ms(lambda: vk.march(Z, d, maxz, steps), reps=5)
-    r["plain_ms"] = cuda_ms(lambda: vk.march_plain(Z, d, maxz, steps))
-    set_bound(results, "visibility_march", MARCH_BYTES_PER_RAY * Z.numel(), 0)
-    log(f"phase S march on a {tuple(Z.shape)} slab ({Z.numel()} rays, {steps} steps at most): kernel {r['ms']:.3f} ms, "
-        f"plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms ({MARCH_BYTES_PER_RAY} bytes a ray at 3.35 TB/s), "
-        f"on {card}")
+    timed_slab("the command's slab", Z_mm[ts], XX, YY, cam_m, march_row=True)
+    timed_slab("the full slab with x along the columns, the camera 0.5 m up",
+               np.ascontiguousarray(Z_mm[ts].transpose(0, 2, 1)), XX.T, YY.T, low)
+    # An N = 512 slab over the same area: the command's slab of that size.
+    X5, Y5 = finer_grid(XX, POST_N512), finer_grid(YY, POST_N512)
+    t5 = next(iter(iter_time_slabs((Z_mm.shape[0], POST_N512, POST_N512), 8)))
+    t = torch.arange(t5.start, t5.stop, dtype=torch.float64, device=dev) / POST_FPS
+    z5 = wave_mm(setup, scene, X5, Y5, t).float().cpu().numpy()
+    timed_slab(f"an N = {POST_N512} slab", z5, X5, Y5, cam_m)
+    timed_slab(f"an N = {POST_N512} slab with x along the columns, the camera 0.5 m up",
+               np.ascontiguousarray(z5.transpose(0, 2, 1)), X5.T, Y5.T, low)
 
 
 def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_frames: int = POST_FRAMES,
@@ -1863,6 +1989,7 @@ def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_fr
     from wass_tpu_torch.io import hdf5
     from wass_tpu_torch.post import geometry, spectra
     from wass_tpu_torch.post import radiance as prad
+    from wass_tpu_torch.post import visibility_kernels as vk
     from wass_tpu_torch.post.ooc import streaming_time_mean
 
     t_phase = time.time()
@@ -1881,8 +2008,8 @@ def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_fr
         f"{time.time() - t0:.1f} s ({nc.stat().st_size} bytes; Z {Z_mm.nbytes} bytes against a budget of "
         f"{int(os.environ.get('WASS_POST_MEMORY_MB', '512'))} MiB)")
 
-    # Gate 1: the march's kernel against its plain version (no main-path counts).
-    check_march(results, Z_mm, stored, C[:3] / C[3], dev, card)
+    # Gate 1: the visibility kernels against their plain versions (no main-path counts).
+    check_visibility(results, Z_mm, stored, C[:3] / C[3], setup, scene, dev, card)
     del Z_mm
 
     fft = torch.fft
@@ -1939,16 +2066,55 @@ def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_fr
 
     before = sha("Z_filtered")
     wass_tpu_torch.reset_launch_counts()
-    res, secs, times, peak, grown = post_cli(
-        ["visibilitymap", s], [(geometry, "visibility_device_batch", "device visibility (rays, incidence, march)"),
-                               (geometry, "march", "device march kernel")], dev)
+    label = "device visibility batch (the fused kernel)"
+    res, secs, times, peak, grown = post_cli(["visibilitymap", s], [(geometry, "visibility_device_batch", label)], dev)
     launches = wass_tpu_torch.launch_counts()
-    slab_ms = np.array(times["device march kernel"])
+    batch_ms = np.array(times[label])
     log_post("visibilitymap", secs, times, peak, grown,
-             f": {launches['visibility_march']} launches of the march, {slab_ms.mean():.3f} ms a slab (min "
-             f"{slab_ms.min():.3f}, max {slab_ms.max():.3f}); {res.strip()}")
+             f": {launches['visibility_batch']} launches of the fused kernel ({launches['visibility_march']} of the "
+             f"march-only one), {batch_ms.mean():.3f} ms a slab (min {batch_ms.min():.3f}, max {batch_ms.max():.3f}); "
+             f"{res.strip()}")
     if sha("Z_filtered") != before:
         raise AssertionError("phase S: visibilitymap changed Z_filtered")
+    # The same command with the plain version on the card: the same bytes.
+    outputs = ("occlusion_cam0", "incident_angles_cam0")
+    fused = [sha(name) for name in outputs]
+    saved = geometry.visibility_device_batch
+    geometry.visibility_device_batch = vk.visibility_batch_plain
+    try:
+        label = "device visibility batch (the plain version)"
+        res, secs, times, peak, grown = post_cli(["visibilitymap", s], [(geometry, "visibility_device_batch", label)],
+                                                 dev)
+    finally:
+        geometry.visibility_device_batch = saved
+    log_post("visibilitymap with the plain version", secs, times, peak, grown,
+             f": {np.mean(times[label]):.3f} ms a slab")
+    if [sha(name) for name in outputs] != fused:
+        raise AssertionError("phase S: visibilitymap's outputs differ between the fused kernel and the plain version")
+    log(f"phase S visibilitymap: {' and '.join(outputs)} byte-equal over the cube, the fused kernel's and the plain "
+        f"version's (sha256 {fused[0][:16]}, {fused[1][:16]})")
+
+    # The march-only entry's user: occlusion masks along a low sun's rays
+    # (compute_occlusion_mask, cell units) on a few frames, card and CPU.
+    dxm = abs(stored["XX"][0, 1] - stored["XX"][0, 0]) or abs(stored["XX"][1, 0] - stored["XX"][0, 0])
+    with hdf5.H5File(nc) as f:
+        zz = f["Z_filtered"][:OCCLUSION_FRAMES] / 1000.0 / dxm
+    el = np.radians(SUN_ELEVATION_DEG)
+    ray_d = np.broadcast_to(np.array([np.cos(el), 0.3 * np.cos(el), np.sin(el)]), zz.shape[1:] + (3,))
+    wass_tpu_torch.reset_launch_counts()
+    t0 = time.time()
+    masks = [geometry.compute_occlusion_mask(z, ray_d, device=dev) for z in zz]
+    secs = time.time() - t0
+    launches["visibility_march"] = wass_tpu_torch.launch_counts()["visibility_march"]
+    for z, m in zip(zz, masks):
+        if not np.array_equal(m, geometry.compute_occlusion_mask(z, ray_d, device="cpu")):
+            raise AssertionError("phase S: compute_occlusion_mask differs between the card and the CPU")
+    share = float(np.mean(masks))
+    if not 0 < share < 1:
+        raise AssertionError(f"phase S: compute_occlusion_mask occluded {share} of the cells")
+    log(f"phase S compute_occlusion_mask: {OCCLUSION_FRAMES} frames along a sun {SUN_ELEVATION_DEG} degrees up, "
+        f"{secs:.3f} s, {launches['visibility_march']} launches of the march-only kernel, {100 * share:.2f}% "
+        f"occluded, equal to the CPU's")
     res, secs, times, peak, grown = post_cli(["renamevar", s, "Z_slp", "Z_lp"], dev=dev)
     log_post("renamevar", secs, times, peak, grown)
 

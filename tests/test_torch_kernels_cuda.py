@@ -5,6 +5,7 @@ Run them on the GPU machine, which has no jax for the shared conftest, with
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py -q
 (chip_smoke.py checks the same kernels at the full 3 MP shapes)."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -487,3 +488,98 @@ def test_visibility_march_wrapper_counts_and_checks(dev):
         vk.march(Z, d[:-1], maxz, steps)
     with pytest.raises(ValueError):
         vk.march(Z, d.cpu(), maxz, steps)  # mixed devices
+
+
+# The fused visibility kernel's cases: _march_case's shapes, the command's
+# (count, X, Y) layout (every incidence NaN), a grazing camera (long
+# marches) and a camera inside the grid's footprint (rays in every
+# direction, some near vertical).  (B, H, W, hole, layout, cam)
+VISIBILITY_CASES = [(8, 64, 64, False, "xy", None), (8, 64, 64, True, "xy", None), (3, 37, 101, True, "xy", None),
+                    (2, 129, 7, False, "xy", None), (1, 256, 256, True, "xy", None), (3, 48, 80, True, "cube", None),
+                    (3, 64, 96, False, "xy", (-200.0, 30.0, 4.0)), (3, 64, 96, True, "xy", (40.0, 30.0, 6.0))]
+
+
+def _visibility_case(dev, B, H, W, hole, layout, cam):
+    g = torch.Generator().manual_seed(B * H + W)
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32), torch.arange(W, dtype=torch.float32), indexing="ij")
+    Z = torch.stack([3 * torch.sin(0.3 * xx + 0.2 * yy + b) + torch.rand((H, W), generator=g) for b in range(B)])
+    if hole:
+        Z[0, H // 3:H // 3 + 3, W // 2:W // 2 + 4] = float("nan")
+    if layout == "cube":
+        xx, yy = yy, xx
+    cam = torch.tensor(cam or (-0.3 * W, 1.4 * H, 12.0))
+    return [t.contiguous().to(dev) for t in (Z, cam, xx, yy)], 2 * max(H, W)
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, NaN at the same cells."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+
+
+@pytest.mark.parametrize("case", VISIBILITY_CASES)
+def test_visibility_batch_kernel(dev, case):
+    (Z, cam, XX, YY), steps = _visibility_case(dev, *case)
+    occ, inc = vk.visibility_batch(Z, cam, XX, YY, steps)
+    occ_p, inc_p = vk.visibility_batch_plain(Z, cam, XX, YY, steps)
+    assert occ.dtype == torch.bool and torch.equal(occ, occ_p)
+    assert _same_bits(inc, inc_p)
+    if case[4] == "cube":
+        assert torch.isnan(inc).all()
+    if case[3]:
+        assert torch.equal(occ[0], inc[0] >= 88)  # frame 0's max is NaN: only grazing cells
+
+
+@pytest.mark.parametrize("case", VISIBILITY_CASES)
+def test_visibility_march_kernel_refills(dev, case):
+    """The march-only kernel (the same refilling loop) on the fused
+    kernel's cases, with each frame's max and its nanmax."""
+    (Z, cam, XX, YY), steps = _visibility_case(dev, *case)
+    d = pg.ray_steps(pg.view_rays(Z, cam, XX, YY))
+    for maxz in (Z.amax(dim=(1, 2)), torch.where(torch.isnan(Z), torch.full_like(Z, -1e30), Z).amax(dim=(1, 2))):
+        assert torch.equal(vk.march(Z, d, maxz, steps), vk.march_plain(Z, d, maxz, steps))
+
+
+def test_visibility_batch_wrapper_counts_and_checks(dev):
+    (Z, cam, XX, YY), steps = _visibility_case(dev, 2, 16, 24, False, "xy", None)
+    wass_tpu_torch.reset_launch_counts()
+    vk.visibility_batch(Z, cam, XX, YY, steps)
+    vk.visibility_batch_plain(Z, cam, XX, YY, steps)
+    counts = wass_tpu_torch.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "visibility_batch": 1}
+    for args in [(Z.double(), cam, XX, YY), (Z, cam[:2], XX, YY), (Z, cam, XX[:-1], YY),
+                 (Z.transpose(1, 2).contiguous().transpose(1, 2), cam, XX, YY), (Z, cam.cpu(), XX, YY)]:
+        with pytest.raises(ValueError):
+            vk.visibility_batch(*args, steps)
+
+
+def test_outlier_votes_are_reproducible_on_the_card(dev):
+    """The card's votes sum each cell's moments in a fixed order: two runs
+    give the same votes and the same sums; the CPU's index_add_ order gives
+    votes that differ at most at a few points near the threshold."""
+    from wass_tpu_torch.grid import outliers
+
+    rng = np.random.default_rng(3)
+    n = 400000
+    x, y = rng.uniform(-8, 8, n), rng.uniform(-8, 8, n)
+    z = 0.05 * x - 0.03 * y + 0.05 * rng.standard_normal(n)
+    z[rng.choice(n, 2000, replace=False)] += rng.uniform(-3, 3, 2000)
+    pts = torch.as_tensor(np.stack([x, y, z], 1), dtype=torch.float32)
+    keep = [outliers._vote_device(pts.to(dev), 0.2) for _ in range(3)]
+    assert torch.equal(keep[0], keep[1]) and torch.equal(keep[0], keep[2])
+    cell = torch.as_tensor(rng.integers(0, 225, n), device=dev)
+    v = pts.to(dev)
+    assert torch.equal(outliers.segment_sums(v, outliers.segment_plan(cell, 225)),
+                       outliers.segment_sums(v, outliers.segment_plan(cell, 225)))
+    assert (keep[0].cpu() != outliers._vote_device(pts, 0.2)).double().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("max_steps", [0, 1, 3, 5, 7])
+def test_visibility_kernels_cut_marches(dev, max_steps):
+    """max_steps cuts the rays between the steps a lane takes together."""
+    (Z, cam, XX, YY), _ = _visibility_case(dev, 3, 64, 96, True, "xy", (-200.0, 30.0, 4.0))
+    occ, inc = vk.visibility_batch(Z, cam, XX, YY, max_steps)
+    occ_p, inc_p = vk.visibility_batch_plain(Z, cam, XX, YY, max_steps)
+    assert torch.equal(occ, occ_p) and _same_bits(inc, inc_p)
+    d, maxz = pg.ray_steps(pg.view_rays(Z, cam, XX, YY)), Z.amax(dim=(1, 2))
+    assert torch.equal(vk.march(Z, d, maxz, max_steps), vk.march_plain(Z, d, maxz, max_steps))

@@ -13,7 +13,7 @@ full-range fallback included), gridding and post stages on an NVIDIA H100:
              (median stack, DCT/IDW/LinearND fill, outlier votes) and the
              gridded.nc cube
   post/      the post stage over gridded cubes: spectra, filters, the
-             visibility ray march, radiance, polarimetric averages, and
+             visibility batch and ray march, radiance, polarimetric averages, and
              the out-of-core streaming under a memory budget
   match/     features, candidates and payoff, the game-theoretic rounds
              (iidyn), LK refinement, relative-pose RANSAC, the frame stage
@@ -33,7 +33,7 @@ full-range fallback included), gridding and post stages on an NVIDIA H100:
   testing/   synthetic wave-field scenes and smoke-run helpers
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
              K5/K6 SGM sums, the H2 pair and folding walks, K7 labels,
-             the iidyn loop, the visibility ray march)
+             the iidyn loop, the fused visibility batch and the ray march)
 
 Kernel wrappers launch the CUDA kernel for CUDA tensors and run the plain
 PyTorch version for CPU tensors only.  This package never imports jax.

@@ -50,7 +50,8 @@ _SIGNATURES = {
     "wass_sgm_lane_width": [_INT],
     "wass_label_propagate": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _PTR],
     "wass_iidyn": [_PTR] * 6 + [_INT, _c.c_float, _INT, _PTR],
-    "wass_visibility_march": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    "wass_visibility_batch": [_PTR] * 8 + [_INT] * 4 + [_PTR],
+    "wass_visibility_march": [_PTR] * 5 + [_INT] * 4 + [_PTR],
 }
 
 

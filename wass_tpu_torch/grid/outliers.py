@@ -7,14 +7,26 @@ are binned into a 15x15 grid of cells, each cell gets a robust local
 plane from 3 rounds of iteratively-reweighted least squares (fit -> mask
 points beyond the inlier threshold -> refit), computed for all cells at
 once from per-cell moment sums, and a point is voted out when it exceeds
-the threshold against its own cell's plane.  The segment sums are
-index_add_, the per-cell 3x3 normal equations one batched solve written
-out as the partially pivoted LU that jnp.linalg.solve runs (`solve3`), so
-that a cell whose system is singular to float32 gets non-finite
-coefficients and keeps its points, as in the JAX package.  On the card
-index_add_ adds with atomics in no fixed order, so the votes (and a grid
-made with them) may differ in the last bits from run to run; the default
-grid path does not use them.
+the threshold against its own cell's plane.  The per-cell 3x3 normal
+equations are one batched solve written out as the partially pivoted LU
+that jnp.linalg.solve runs (`solve3`), so that a cell whose system is
+singular to float32 gets non-finite coefficients and keeps its points, as
+in the JAX package.
+
+The segment sums (each cell's moments) are taken in an order fixed by
+the data alone, so the votes are the same on every run:
+* on the CPU, index_add_, which adds the points in index order (the order
+  that holds the votes bit-equal to XLA's);
+* on the card, where index_add_ adds with atomics in no fixed order, the
+  points are sorted by cell once (a stable sort, shared by the three IRLS
+  rounds and the final count) and summed level by level: each cell's run
+  of points is cut into rows of SUM_CHUNK (the last one padded with
+  zeros), a fixed-shape torch.sum adds each row, and the rows of a cell
+  are cut and summed again until one is left (`segment_plan`,
+  `segment_sums`).  The shapes, and so the order of every addition,
+  follow from the cells' point counts.  The card's sums differ from the
+  CPU's in their last bits, so a few votes near the threshold may differ
+  between the two.
 """
 
 from __future__ import annotations
@@ -22,6 +34,7 @@ from __future__ import annotations
 import torch
 
 N_CELLS = 15  # reference scan grid (wass_utils.py:134)
+SUM_CHUNK = 256  # the rows of the card's fixed-order segment sums
 
 
 def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -56,8 +69,47 @@ def solve3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _vote_device(pts: torch.Tensor, threshold: float, n_cells: int = N_CELLS, irls_rounds: int = 3) -> torch.Tensor:
-    """pts: (N, 3) float32 aligned points -> (N,) bool keep mask."""
+def segment_plan(cell: torch.Tensor, n_seg: int):
+    """The fixed order of `segment_sums` for points in cells `cell` (N,)
+    int64: (the stable sort of the points by cell, the levels, the cells
+    that hold points).  A level is (slots, rows): its elements' places in a
+    (rows, SUM_CHUNK) table whose rows each hold part of one cell's run, in
+    order.  One host read a level."""
+    order = torch.argsort(cell, stable=True)
+    counts = torch.bincount(cell, minlength=n_seg)
+    seg = cell[order]
+    ids = torch.arange(n_seg, device=cell.device)
+    levels = []
+    while seg.numel() and int(counts.max()) > 1:
+        rows = (counts + SUM_CHUNK - 1) // SUM_CHUNK
+        start, row0 = torch.cumsum(counts, 0) - counts, torch.cumsum(rows, 0) - rows
+        slots = row0[seg] * SUM_CHUNK + torch.arange(seg.numel(), device=cell.device) - start[seg]
+        n_rows = int(rows.sum())
+        levels.append((slots, n_rows))
+        seg = torch.repeat_interleave(ids, rows, output_size=n_rows)
+        counts = rows
+    return order, levels, counts > 0
+
+
+def segment_sums(v: torch.Tensor, plan) -> torch.Tensor:
+    """Each cell's sums of the columns of v (N, k), in the plan's order ->
+    (n_seg, k); 0 for a cell without points."""
+    order, levels, held = plan
+    x = v[order]
+    for slots, n_rows in levels:
+        table = torch.zeros((n_rows * SUM_CHUNK, v.shape[1]), dtype=v.dtype, device=v.device)
+        table[slots] = x
+        x = table.view(n_rows, SUM_CHUNK, v.shape[1]).sum(1)
+    out = torch.zeros((held.shape[0], v.shape[1]), dtype=v.dtype, device=v.device)
+    out[held] = x
+    return out
+
+
+def _vote_device(pts: torch.Tensor, threshold: float, n_cells: int = N_CELLS, irls_rounds: int = 3,
+                 fixed_order=None) -> torch.Tensor:
+    """pts: (N, 3) float32 aligned points -> (N,) bool keep mask.  The
+    segment sums go through `segment_sums` when fixed_order (by default on
+    the card), through index_add_ otherwise."""
     x, y, z = pts[:, 0], pts[:, 1], pts[:, 2]
     xmin, xmax = x.min(), x.max()
     ymin, ymax = y.min(), y.max()
@@ -65,9 +117,16 @@ def _vote_device(pts: torch.Tensor, threshold: float, n_cells: int = N_CELLS, ir
     cy = torch.clamp(((y - ymin) / torch.clamp_min(ymax - ymin, 1e-9) * n_cells).to(torch.int32), 0, n_cells - 1)
     cell = (cy * n_cells + cx).long()
     n_seg = n_cells * n_cells
+    if fixed_order is None:
+        fixed_order = pts.is_cuda
+    if fixed_order:
+        plan = segment_plan(cell, n_seg)
 
-    def seg(v):
-        return torch.zeros(n_seg, dtype=v.dtype, device=v.device).index_add_(0, cell, v)
+        def seg(*vs):
+            return segment_sums(torch.stack(vs, 1), plan).unbind(1)
+    else:
+        def seg(*vs):
+            return [torch.zeros(n_seg, dtype=v.dtype, device=v.device).index_add_(0, cell, v) for v in vs]
 
     w = torch.ones_like(z)
     eye = torch.eye(3, dtype=z.dtype, device=z.device) * 1e-6
@@ -75,10 +134,8 @@ def _vote_device(pts: torch.Tensor, threshold: float, n_cells: int = N_CELLS, ir
     for _ in range(irls_rounds):
         # Weighted plane z = a x + b y + c per cell: normal equations from
         # the per-cell moment sums (a 3x3 solve per cell).
-        sw = seg(w)
-        sx, sy, sz = seg(w * x), seg(w * y), seg(w * z)
-        sxx, sxy, syy = seg(w * x * x), seg(w * x * y), seg(w * y * y)
-        sxz, syz = seg(w * x * z), seg(w * y * z)
+        sw, sx, sy, sz, sxx, sxy, syy, sxz, syz = seg(w, w * x, w * y, w * z, w * x * x, w * x * y, w * y * y,
+                                                      w * x * z, w * y * z)
         A = torch.stack(
             [
                 torch.stack([sxx, sxy, sx], -1),
@@ -95,7 +152,8 @@ def _vote_device(pts: torch.Tensor, threshold: float, n_cells: int = N_CELLS, ir
         w = (dist < threshold).to(z.dtype)
 
     # Degenerate cells (fewer than 4 surviving points) keep everything.
-    enough = seg(w) >= 4
+    (sw,) = seg(w)
+    enough = sw >= 4
     return (dist < threshold) | ~enough[cell]
 
 
