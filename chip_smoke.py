@@ -5,7 +5,9 @@
 
 Phases, each printed on its own line; any failure exits non-zero:
 
-1. The card: `nvidia-smi` name and power limit, torch's device name.
+1. The card: `nvidia-smi` name and power limit, torch's device name; and
+   OpenCV's version and codec lines (phase I's first check: the PNG, JPEG
+   and TIFF codecs must be there).
 2. Build the CUDA kernels from wass_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc per source, all started together; ptxas's register and spill
    report lands in wass_tpu_torch/_build/ptxas.log.
@@ -38,7 +40,8 @@ Phases, each printed on its own line; any failure exits non-zero:
    below 0.02 baseline units, and must have launched K1, K2, K3, K4 and
    K7.  Every frame (here and in 4b, 4c) prints the sha256 of its
    mesh_cam.xyzC and plane.txt, so that runs of two commits on one card
-   compare byte for byte.
+   compare byte for byte.  Every frame also carries the six debug renders
+   (phase I checks them).
 4b. The other branches, one frame each through SequencePipeline with a
    config override: a forced full-range fallback (c2f_min_coverage 1.01),
    byte-identical to a c2f_window = 0 frame (K1 + K3 + K7), whose launch
@@ -59,9 +62,7 @@ P. Prepare on the card: the scene's surface traced through a known lens
    distortion, ext_R, ext_T), then `prepare`, `genconfig --stage stereo`
    and `stereo` through the CLI's entry point; every frame must take the
    windowed branch and meet the 0.02 gate.  Prints prepare's frames/s, the
-   device ms of undistort_image and clahe per image (CUDA events), the host
-   ms of the PNG encode and decode (filter-0 and Paeth rows, and Paeth
-   decodes one after another against the 4-thread prefetcher), then one
+   device ms of undistort_image and clahe per image (CUDA events), then one
    frame prepared with CLAHE (tiles of CLAHE_TILE_PX, from
    prepare_config.txt) through SequencePipeline.prepare and reconstructed,
    its elevation error printed, not gated.
@@ -108,7 +109,8 @@ M. Match and autocalibrate on the card (phase M): MATCH_FRAMES workdirs of
    syncs of one dispatched frame (torch.cuda.set_sync_debug_mode); the
    frame's device stages one after another (CUDA events, a synchronize
    between stages, 3 repeats) and K7's rounds on the frame's own z-gap
-   mask.  Measurement only: nothing here is counted as a launch of the
+   mask.  The loop runs with its debug renders on (the default) and off,
+   and prints the writers' render ms a frame.  Measurement only: nothing here is counted as a launch of the
    main path.
 G. The grid stage on phase 5's ten frames (2048x1536, c2f, ~2.7M points
    a frame): `wass-tpu-torch-gridsurface --action setup` (GRID_AREA m
@@ -120,7 +122,7 @@ G. The grid stage on phase 5's ten frames (2048x1536, c2f, ~2.7M points
    bytes; then the grid again, untimed.  Gates: the two runs' Z
    byte-identical; Z read back (the port's NetCDFReader) equal to the
    pushed grids, with the shapes, count, time and workdir written;
-   cam0images[0] decoding to the undistorted frame; frame 0 on the card
+   cam0images[0] the undistorted frame as a quality-90 JPEG; frame 0 on the card
    and on the CPU with the same draws: the bins equal, the median stack
    bit-equal, the DCT fit within tests/test_torch_grid.py's tolerance.
    Printed, not gated: the RMS of frame 0's gridded Z against the scene's
@@ -151,9 +153,10 @@ S. The post stage (phase S) on a cube of phase G's grid and meta (N = 256,
    `wass-tpu-torch-post` through its entry point: info, spectrum (nperseg
    512, rangespan 5), spectrum3d (10 segments), filter (lowpass 1 Hz),
    spatial_lowpass, zeromean, clip, setfps, visibilitymap over every frame
-   toward cam 0, renamevar; and on phase G's ten-frame cube (its PNG
+   toward cam 0, renamevar; and on phase G's ten-frame cube (its JPEG
    cam0images) radiance, bgimage and radiance_threshold with and without
-   --use-vats.  Each command prints its seconds, the device ms of its
+   --use-vats, then radiance from the workdirs' PNG frames (--wassdir),
+   its difference from the JPEG run printed.  Each command prints its seconds, the device ms of its
    device stages (CUDA events around the FFTs, the bilinear sample, the
    visibility batch), the host ms of its dataset reads and writes, the
    peak device memory and the bytes the cube grew; visibilitymap also its
@@ -167,6 +170,23 @@ S. The post stage (phase S) on a cube of phase G's grid and meta (N = 256,
    mean| < 1e-3 mm at every finite cell; visibilitymap's occlusion_cam0
    and incident_angles_cam0 byte-equal between the fused kernel's run and
    the plain version's; the occlusion masks equal to the CPU's.
+I. Image IO and the renders.  Phase 4's frames must carry the six stereo
+   renders and phase M's matched frames the two match renders, each
+   decoding to its shape; frame 0's render images from the card (kept while
+   the loop ran) must be bit-equal to the same functions on the CPU over
+   the same fetched tensors.  After phase S: the scene's 2048x1536 frame as
+   PNG with each of the five row filters and as cv2.imencode writes it,
+   each decoded bit-equal by the numpy codec and by OpenCV (ms an image
+   for each), the port's filter-0 encode, and 8 filter-0 and 8 Paeth
+   decodes one after another against the 4-thread prefetcher; phase P's
+   raw pairs again as colour PNG (R = G = B), 16-bit PNG (x 257),
+   quality-95 JPEG and float32 TIFF through `prepare` and `stereo` (the
+   lossless forms must give phase P's undistorted PNGs, mesh_cam.xyzC and
+   plane.txt byte for byte; the JPEG frames' elevation error is printed
+   beside the 0.02 gate); phase 5's frames through the demosaic prepare
+   with save_stokes (frame 0's TIFFs read back bit-equal to the card's
+   Stokes images), then `polarimetric_setup` over phase G's cube, the
+   finite share of its averages printed (no physics gate).
 6. A JSON line of per-kernel results (times, launches, and the bound: the
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
@@ -835,68 +855,242 @@ def run_h2_frames(root: Path, img0, img1, rig, scene) -> dict:
     return totals
 
 
-def paeth_png(img8) -> bytes:
-    """PNG bytes of an (H, W) uint8 image with the Paeth filter on every row
-    (what libpng writers often choose), which the port's decoder
-    reconstructs one anti-diagonal at a time."""
-    import struct
-    import zlib
-
-    import numpy as np
-
-    from wass_tpu_torch.io import png
-
-    x = img8.astype(np.int32)
-    a = np.pad(x, ((0, 0), (1, 0)))[:, :-1]
-    b = np.pad(x, ((1, 0), (0, 0)))[:-1]
-    c = np.pad(x, ((1, 0), (1, 0)))[:-1, :-1]
-    raw = np.empty((x.shape[0], x.shape[1] + 1), np.uint8)
-    raw[:, 0] = 4
-    raw[:, 1:] = (x - png._paeth(a, b, c)) & 0xFF
-    ihdr = struct.pack(">IIBBBBB", x.shape[1], x.shape[0], 8, 0, 0, 0, 0)
-    return (png._SIGNATURE + png._chunk(b"IHDR", ihdr) + png._chunk(b"IDAT", zlib.compress(raw.tobytes()))
-            + png._chunk(b"IEND", b""))
+def host_ms(fn, reps: int = 3) -> tuple:
+    """(host ms a call, the last result) of fn over reps calls."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return (time.perf_counter() - t0) / reps * 1e3, out
 
 
-def host_png_times(img8, root: Path) -> None:
-    """Phase P: host ms of the port's PNG encode and decode at full size
-    (filter-0 rows, the port's writer; Paeth rows), and Paeth decodes one
-    after another against the prefetcher's 4 threads."""
+def check_decode(img8, root: Path, card: str) -> None:
+    """Phase I decode: the 2048x1536 frame as PNG with each of the five row
+    filters and as cv2.imencode writes it (libpng's adaptive filters), each
+    decoded bit-equal by the port's numpy codec and by the OpenCV path, with
+    the ms an image of each; the port's filter-0 encode; then 8 decodes of
+    a filter-0 and of a Paeth PNG one after another and on the 4-thread
+    prefetcher."""
+    import cv2
     import numpy as np
 
     from wass_tpu_torch.io import png
     from wass_tpu_torch.io.prefetch import Prefetcher
+    from wass_tpu_torch.testing import png_with_filters
 
-    def host_ms(fn, reps=3):
+    enc_ms, _ = host_ms(lambda: png.encode_gray(img8))
+    log(f"phase I encode: the port's filter-0 PNG writer {enc_ms:.1f} ms an image ({img8.shape[1]}x{img8.shape[0]})")
+    forms = {f"filter {k}": png_with_filters(img8, k) for k in range(5)}
+    forms["cv2.imencode (libpng's adaptive filters)"] = cv2.imencode(".png", img8)[1].tobytes()
+    for name, data in forms.items():
+        plain_ms, a = host_ms(lambda: png.decode_gray_plain(data), 1)
+        cv_ms, b = host_ms(lambda: png.decode_gray(data))
+        if not (np.array_equal(a, img8) and np.array_equal(b, img8)):
+            raise AssertionError(f"phase I decode {name}: a decoder changed the image")
+        log(f"phase I decode {name} ({len(data)} bytes): numpy codec {plain_ms:.1f} ms, OpenCV {cv_ms:.1f} ms an "
+            "image, both bit-equal")
+    for name, k in (("filter-0", 0), ("Paeth", 4)):
+        paths = []
+        for i in range(8):
+            path = root / f"decode_{k}_{i}.png"
+            path.write_bytes(forms[f"filter {k}"])
+            paths.append(path)
         t0 = time.perf_counter()
-        for _ in range(reps):
-            out = fn()
-        return (time.perf_counter() - t0) / reps * 1e3, out
+        for path in paths:
+            png.read_gray(path)
+        serial = (time.perf_counter() - t0) / len(paths)
+        with Prefetcher(4) as pf:
+            t0 = time.perf_counter()
+            for t in [pf.submit(path) for path in paths]:
+                pf.take(t)
+            pooled = (time.perf_counter() - t0) / len(paths)
+        log(f"phase I decode: 8 {name} PNGs one after another {serial * 1e3:.1f} ms an image, on the 4-thread "
+            f"prefetcher {pooled * 1e3:.1f} ms an image ({serial / pooled:.2f}x); on {card}")
 
-    enc_ms, data = host_ms(lambda: png.encode_gray(img8))
-    dec_ms, back = host_ms(lambda: png.decode_gray(data))
-    paeth = paeth_png(img8)
-    pdec_ms, pback = host_ms(lambda: png.decode_gray(paeth), 2)
-    if not (np.array_equal(back, img8) and np.array_equal(pback, img8)):
-        raise AssertionError("PNG round trip changed the image")
-    log(f"host PNG {img8.shape[1]}x{img8.shape[0]}: encode {enc_ms:.1f} ms ({len(data)} bytes), decode filter-0 "
-        f"{dec_ms:.1f} ms, decode Paeth {pdec_ms:.1f} ms ({len(paeth)} bytes)")
-    paths = []
-    for k in range(8):
-        path = root / f"paeth_{k}.png"
-        path.write_bytes(paeth)
-        paths.append(path)
+
+RAW_FORMS = ("colour_png", "png16", "jpeg95", "tiff32")  # phase I's raw frame forms (testing.RAW_FORMATS)
+# Phase I's render files: stereo renders a frame (phase 4), match renders a
+# matched frame (phase M), each with its image shape for an (H, W) frame.
+STEREO_RENDERS = {"stereo_input.jpg": lambda h, w: (2 * h, w, 3), "disparity_final_scaled.jpg": lambda h, w: (h, w),
+                  "stereo.jpg": lambda h, w: (h, 2 * w, 3), "disparity_coverage.jpg": lambda h, w: (h, w, 3),
+                  "graph_components.jpg": lambda h, w: (h, w), "triangulation_failmap.jpg": lambda h, w: (h, w, 3)}
+MATCH_RENDERS = {"matches.jpg": lambda h, w: (h, 2 * w, 3), "matches_epifilter.jpg": lambda h, w: (h, 2 * w, 3)}
+
+
+@contextlib.contextmanager
+def frame0_renders():
+    """Phase I: keeps frame 0's render images from the card and the tensors
+    they were made from, fetched, while the stereo loop runs (the loop logs
+    and swallows a render error, so the check comes after the run)."""
+    from wass_tpu_torch.cli.pipeline import SequencePipeline
+
+    original = SequencePipeline._write_renders
+    kept: dict = {}
+
+    def keep(wd, geom, res, extras):
+        if wd.path.name == "000000_wd":
+            from wass_tpu_torch.utils import render
+
+            images = render.stereo_renders(res.disparity, res.valid, res.fail_reasons, extras["imgs"],
+                                           extras["rect"], geom.roi)
+            kept["card"] = {name: img.cpu() for name, img in images.items()}
+            kept["inputs"] = (res.disparity.cpu(), res.valid.cpu(), res.fail_reasons.cpu(),
+                              [t.cpu() for t in extras["imgs"]], [t.cpu() for t in extras["rect"]], geom.roi)
+        return original(wd, geom, res, extras)
+
+    SequencePipeline._write_renders = staticmethod(keep)
+    try:
+        yield kept
+    finally:
+        SequencePipeline._write_renders = staticmethod(original)
+
+
+def check_render_files(wds, renders: dict, what: str) -> None:
+    """Phase I: each render file of each workdir exists and decodes to its
+    shape."""
+    import cv2
+    import numpy as np
+
+    for wd in wds:
+        h, w = cv2.imread(str(wd / "undistorted" / "00000000.png"), cv2.IMREAD_UNCHANGED).shape
+        for name, shape in renders.items():
+            path = wd / name
+            img = cv2.imdecode(np.fromfile(path, np.uint8), cv2.IMREAD_UNCHANGED) if path.exists() else None
+            if img is None or img.shape != shape(h, w):
+                raise AssertionError(f"phase I {what}: {wd.name}/{name} missing or of shape "
+                                     f"{None if img is None else img.shape}, expected {shape(h, w)}")
+    log(f"phase I {what}: {len(renders)} renders in each of {len(wds)} workdirs, each decoding to its shape")
+
+
+def check_frame0_renders(kept: dict, wd: Path, card: str) -> None:
+    """Phase I: frame 0's render images on the card bit-equal to the same
+    functions on the CPU over the same fetched tensors; the files the loop
+    wrote against the card's images encoded again (printed); then where a
+    writer's render time goes: the images built on the card (CUDA events),
+    fetched, and each JPEG encode on the host."""
+    import torch
+
+    from wass_tpu_torch.io.image import encode_jpeg
+    from wass_tpu_torch.utils import render
+
+    if "card" not in kept:
+        raise AssertionError("phase I: frame 0's renders were not made")
     t0 = time.perf_counter()
-    for path in paths:
-        png.read_gray(path)
-    serial = time.perf_counter() - t0
-    with Prefetcher(4) as pf:
-        t0 = time.perf_counter()
-        for t in [pf.submit(path) for path in paths]:
-            pf.take(t)
-        pooled = time.perf_counter() - t0
-    log(f"host PNG: 8 Paeth decodes one after another {serial * 1e3:.1f} ms, on the 4-thread prefetcher "
-        f"{pooled * 1e3:.1f} ms ({serial / pooled:.2f}x)")
+    cpu = render.stereo_renders(*kept["inputs"])
+    cpu_s = time.perf_counter() - t0
+    differ = [name for name, img in kept["card"].items() if not torch.equal(img, cpu[name])]
+    if differ or sorted(cpu) != sorted(STEREO_RENDERS):
+        raise AssertionError(f"phase I: frame 0's renders differ between the card and the CPU: {differ}")
+    same_file = [name for name, img in kept["card"].items()
+                 if (wd / name).read_bytes() == encode_jpeg(img.numpy())]
+    log(f"phase I renders: frame 0's {len(cpu)} images bit-equal card / CPU ({cpu_s:.2f} s on the CPU; "
+        f"{', '.join(f'{n} {tuple(i.shape)}' for n, i in kept['card'].items())}); {len(same_file)} of the loop's "
+        "files equal to the card's images encoded again")
+    disparity, valid, fails, imgs, rect, roi = kept["inputs"]
+    dev = torch.device("cuda")
+    inputs = (disparity.to(dev), valid.to(dev), fails.to(dev), [t.to(dev) for t in imgs], [t.to(dev) for t in rect],
+              roi)
+    build_ms = cuda_ms(lambda: render.stereo_renders(*inputs), reps=3)
+    images = render.stereo_renders(*inputs)
+    torch.cuda.synchronize()
+    fetch_ms, fetched = host_ms(lambda: {name: img.cpu().numpy() for name, img in images.items()})
+    encode = {name: host_ms(lambda: encode_jpeg(img), 1)[0] for name, img in fetched.items()}
+    log(f"phase I render time of frame 0: built on the card {build_ms:.1f} ms (CUDA events), fetched {fetch_ms:.1f} "
+        f"ms, JPEG encodes {sum(encode.values()):.1f} ms on the host ({', '.join(f'{n} {v:.1f}' for n, v in encode.items())}); "
+        f"on {card}")
+
+
+def check_raw_forms(root: Path, rig, scene) -> dict:
+    """Phase I prepare: phase P's raw pairs again as colour PNG (R = G = B),
+    16-bit PNG (x 257), quality-95 JPEG and float32 TIFF through `prepare`
+    and `stereo` on the card.  The lossless forms must give phase P's
+    undistorted PNGs, mesh_cam.xyzC and plane.txt byte for byte; the JPEG
+    frames' elevation error is printed beside the 0.02 gate.  Returns the
+    stereo runs' launches."""
+    import numpy as np
+
+    import wass_tpu_torch
+    from wass_tpu_torch.cli.main import main as cli_main
+    from wass_tpu_torch.testing import load_or_render_raw, read_frame, trimmed_elevation_error, write_raw_sequence
+
+    raw = load_or_render_raw(rig, SCENE_SEED, *PREP_DIST, root)
+    ref = root / "smoke_prepared"
+    files = ("undistorted/00000000.png", "undistorted/00000001.png", "mesh_cam.xyzC", "plane.txt")
+    launches: dict = {}
+    for fmt in RAW_FORMS:
+        cam0, cam1, calib = write_raw_sequence(root / f"smoke_raw_{fmt}", *raw, rig, PREP_FRAMES, *PREP_DIST, fmt=fmt)
+        out = root / f"smoke_prepared_{fmt}"
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.time()
+        if cli_main(["prepare", str(cam0), str(cam1), str(calib), str(out)]) != 0:
+            raise AssertionError(f"phase I: prepare failed on the {fmt} frames")
+        t_prep = time.time() - t0
+        shutil.copy(ref / "stereo_config.txt", out / "stereo_config.txt")
+        wass_tpu_torch.reset_launch_counts()
+        if cli_main(["stereo", str(out)]) != 0:
+            raise AssertionError(f"phase I: stereo failed on the {fmt} frames")
+        add_counts(launches, wass_tpu_torch.launch_counts())
+        wds = sorted(out.glob("*_wd"))
+        if len(wds) != PREP_FRAMES:
+            raise AssertionError(f"phase I {fmt}: {len(wds)} workdirs")
+        if fmt != "jpeg95":
+            differ = [f"{wd.name}/{f}" for wd in wds for f in files
+                      if (wd / f).read_bytes() != (ref / wd.name / f).read_bytes()]
+            if differ:
+                raise AssertionError(f"phase I {fmt}: files differ from phase P's: {differ}")
+            log(f"phase I prepare {fmt}: {PREP_FRAMES} frames prepared in {t_prep:.2f} s; undistorted PNGs, "
+                "mesh_cam.xyzC and plane.txt byte-equal to phase P's")
+            continue
+        for i, wd in enumerate(wds):
+            plane, mesh, _ = read_frame(wd)
+            err = trimmed_elevation_error(scene, mesh, plane)
+            log(f"phase I prepare {fmt} frame {i}: {len(mesh)} points, trimmed-mean elevation error {err:.5f} "
+                f"({'under' if err < ELEVATION_GATE else 'over'} the {ELEVATION_GATE} gate; printed, not gated), "
+                f"{c2f_line(wd) or 'no c2f'}; prepared in {t_prep:.2f} s")
+    return launches
+
+
+def check_stokes(root: Path, rig, dev) -> None:
+    """Phase I Stokes: phase 5's frames through the demosaic prepare with
+    save_stokes; frame 0's TIFFs read back bit-equal to the card's Stokes
+    images; then `polarimetric_setup` over phase G's cube and the finite
+    share of its averages (printed: no physics gate, the frames are not
+    polarimetric)."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
+    from wass_tpu_torch.cli.post import main as post_main
+    from wass_tpu_torch.io.image import read_float_tiff
+    from wass_tpu_torch.io.workdir import frame_workdirs
+    from wass_tpu_torch.prepare.polar import polarimetric_process
+    from wass_tpu_torch.prepare.prepare import PrepareConfig
+
+    wds = frame_workdirs(root / "smoke_loop")
+    out = root / "smoke_stokes"
+    shutil.rmtree(out, ignore_errors=True)
+    pipe = SequencePipeline(out, SequenceConfig(prepare=PrepareConfig(demosaic=True, save_stokes=True)))
+    t0 = time.time()
+    pipe.prepare(((wd.load_undistorted(0), wd.load_undistorted(1)) for wd in wds), rig.K0, np.zeros(5), rig.K1,
+                 np.zeros(5), rig.R, rig.T)
+    t_prep = time.time() - t0
+    x = torch.as_tensor(wds[0].load_undistorted(0), device=dev)
+    res = polarimetric_process(x, torch.as_tensor(np.asarray(rig.K0, np.float32), device=dev),
+                               torch.zeros(5, device=dev))
+    for name in ("S0", "S1", "S2"):
+        back = read_float_tiff(out / "000000_wd" / "undistorted" / f"00000000_{name}.tiff")
+        if back.tobytes() != getattr(res, name).cpu().numpy().tobytes():
+            raise AssertionError(f"phase I: {name}.tiff does not read back as the card's {name}")
+    log(f"phase I Stokes: {len(wds)} frames through the demosaic prepare with save_stokes in {t_prep:.2f} s "
+        f"(6 float32 TIFFs a frame, {(out / '000000_wd' / 'undistorted' / '00000000_S0.tiff').stat().st_size} bytes "
+        "each); frame 0's S0, S1, S2 read back bit-equal")
+    t0 = time.time()
+    if post_main(["polarimetric_setup", str(root / "smoke_grid" / "gridded.nc"), "--wassdir", str(out),
+                  "--outputdir", str(out / "pdata")]) != 0:
+        raise AssertionError("phase I: polarimetric_setup failed")
+    with np.load(out / "pdata" / "pdata_avg.npz") as z:
+        shares = {k: float(np.isfinite(z[k]).mean()) for k in z.files}
+    log(f"phase I polarimetric_setup over phase G's cube and the {len(wds)} frames: {time.time() - t0:.2f} s; "
+        f"finite share {', '.join(f'{k} {v:.4f}' for k, v in shares.items())} (no physics gate)")
 
 
 def run_prepare(root: Path, rig, scene) -> dict:
@@ -951,7 +1145,6 @@ def run_prepare(root: Path, rig, scene) -> dict:
     log(f"device per image {Wd}x{H}: undistort_image {cuda_ms(lambda: undistort_image(x, K, dist), 5):.3f} ms, "
         f"clahe ({H // CLAHE_TILE_PX}x{Wd // CLAHE_TILE_PX} tiles) "
         f"{cuda_ms(lambda: clahe(x, 2.0, tiles_x=Wd // CLAHE_TILE_PX, tiles_y=H // CLAHE_TILE_PX), 5):.3f} ms")
-    host_png_times(raw0, root)
 
     # One frame with CLAHE, through SequencePipeline.prepare and the
     # options of prepare_config.txt.
@@ -1373,23 +1566,27 @@ def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
 
     seq = root / "smoke_loop"
     write_sequence(seq, img0, img1, rig, LOOP_FRAMES)
-    for depth, writers in LOOP_SETTINGS:
+    for (depth, writers), renders in [(s, r) for s in LOOP_SETTINGS for r in (True, False)]:
         pipe = load_pipeline(seq)
-        pipe.cfg.dispatch_depth, pipe.cfg.writer_threads = depth, writers
+        pipe.cfg.dispatch_depth, pipe.cfg.writer_threads, pipe.cfg.debug_renders = depth, writers, renders
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        rates, decode, dispatch = [], [], []
+        rates, decode, dispatch, render_s = [], [], [], []
         for _ in range(3):
             t0 = time.time()
             pipe.stereo(progress_stream=io.StringIO())  # returns after the last frame's files are written
             rates.append(LOOP_FRAMES / (time.time() - t0))
             decode += pipe.loop_stats["decode_s"]
             dispatch += pipe.loop_stats["dispatch_s"]
-        log(f"sequence loop (dispatch_depth {depth}, writer_threads {writers}): {LOOP_FRAMES} frames a pass, "
-            f"frames/s {' '.join(f'{r:.4f}' for r in rates)} (PNG decode to .xyzC written; the first pass "
-            f"includes the warm-up); PNG decode on the prefetch threads {1e3 * np.mean(decode):.1f} ms an image "
-            f"(max {1e3 * max(decode):.1f}); dispatch on the main thread {1e3 * np.mean(dispatch):.1f} ms a frame "
-            f"(max {1e3 * max(dispatch):.1f}); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            render_s += pipe.loop_stats["render_s"]
+        rendering = (f"the six debug renders on the writer threads {1e3 * np.mean(render_s):.1f} ms a frame (max "
+                     f"{1e3 * max(render_s):.1f})" if renders else "debug renders off")
+        log(f"sequence loop (dispatch_depth {depth}, writer_threads {writers}, debug renders {'on' if renders else 'off'}"
+            f"): {LOOP_FRAMES} frames a pass, frames/s {' '.join(f'{r:.4f}' for r in rates)} (PNG decode to .xyzC "
+            f"written; the first pass includes the warm-up); PNG decode on the prefetch threads "
+            f"{1e3 * np.mean(decode):.1f} ms an image (max {1e3 * max(decode):.1f}); dispatch on the main thread "
+            f"{1e3 * np.mean(dispatch):.1f} ms a frame (max {1e3 * max(dispatch):.1f}); {rendering}; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     cfg = pipe.cfg.stereo  # the AUTO smoothing resolved by the loop
     dispatch_syncs(img0, img1, rig, cfg)
@@ -1556,6 +1753,7 @@ def run_grid_phase(root: Path, scene, card: str) -> None:
     from wass_tpu_torch.grid.netcdf import NetCDFReader
     from wass_tpu_torch.grid.setup import GridSetup, align_on_sea_plane
     from wass_tpu_torch.io import png
+    from wass_tpu_torch.io.image import CAM_IMAGE_QUALITY, decode_gray, encode_jpeg
     from wass_tpu_torch.io.workdir import frame_workdirs
 
     t_phase = time.time()
@@ -1597,11 +1795,14 @@ def run_grid_phase(root: Path, scene, card: str) -> None:
                 and np.array_equal(cube["workdir"][...], np.arange(n))):
             raise AssertionError("phase G: count, time or workdir do not read back")
         image = cube["cam0images"][0]
-        if not np.array_equal(png.decode_gray(image.tobytes()), png.read_gray(wds[0].undistorted_path(0))):
-            raise AssertionError("phase G: cam0images[0] is not the undistorted frame")
+        frame = png.read_gray(wds[0].undistorted_path(0))
+        if image.tobytes() != encode_jpeg(frame, CAM_IMAGE_QUALITY):
+            raise AssertionError("phase G: cam0images[0] is not the undistorted frame at JPEG quality 90")
+        jpeg_err = int(np.abs(decode_gray(image.tobytes()).astype(np.int16) - frame).max())
     log(f"phase G: grid {n} frames (DCT, 500 iterations, nreps 10) {t_grid:.2f} s with the stage syncs, "
         f"{t_grid2:.2f} s without: {t_grid2 / n:.3f} s a frame; two runs byte-identical Z; the cube reads back "
-        f"({cube_bytes} bytes, {len(image)} bytes of PNG a frame); peak device memory {peak:.2f} GiB")
+        f"({cube_bytes} bytes, {len(image)} bytes of JPEG a frame, decoding within {jpeg_err} grey levels of the "
+        f"frame); peak device memory {peak:.2f} GiB")
     for label, t in times.items():
         if label != "slabs":
             dev_ms, host_ms = np.array(t).T
@@ -2136,7 +2337,7 @@ def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_fr
     log(f"phase S: every output reads back ({', '.join(want)}; Z_slp renamed Z_lp; fps {new_fps}); "
         f"{100 * occ_share:.2f}% of the cells occluded; Z_filtered unchanged by visibilitymap (sha256 {before[:16]})")
 
-    # The radiance family on phase G's ten-frame cube (its PNG cam0images).
+    # The radiance family on phase G's ten-frame cube (its JPEG cam0images).
     gnc = str(root / "smoke_grid" / "gridded.nc")
     res, secs, times, peak, grown = post_cli(["radiance", gnc], [(prad, "bilinear_sample", "device bilinear sample")],
                                              dev)
@@ -2154,6 +2355,13 @@ def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_fr
         if not (np.isfinite(rad).all() and 0 <= rad.min() and rad.max() <= 1 and rad.mean() > 0):
             raise AssertionError("phase S: radiance outside [0, 1] or empty")
     log(f"phase S radiance: {n} frames, mean {rad.mean():.4f}, {100 * np.mean(rad > 0):.1f}% of the cells seen")
+    # The same radiance from the workdirs' PNG frames: the JPEG cam0images' loss.
+    res, secs, times, peak, grown = post_cli(["radiance", gnc, "--wassdir", str(root / "smoke_loop")], dev=dev)
+    with hdf5.H5File(gnc) as f:
+        diff = np.abs(f["radiance_cam0"][...].astype(np.float64) - rad)
+    log(f"phase S radiance from the JPEG cam0images against the --wassdir PNG frames ({secs:.2f} s): max |diff| "
+        f"{diff.max():.6f}, mean {diff.mean():.7f}, {100 * np.mean(diff > 1 / 255):.3f}% of the cells over one grey "
+        "level")
     log(f"phase S: post times on {card}")
     log(f"phase S: {time.time() - t_phase:.1f} s wall")
     return launches
@@ -2168,6 +2376,7 @@ def main() -> int:
     # Whole-volume plain versions beside the kernels' outputs: let the
     # allocator grow segments rather than fragment (up to 20 GB otherwise).
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -2182,6 +2391,9 @@ def main() -> int:
     log(smi)
     kind = torch.cuda.get_device_name(0)
     log(f"torch device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
+    from wass_tpu_torch.io.image import codec_report
+
+    log("phase I codecs: " + "; ".join(codec_report()))
 
     # Phase 2: build.
     from wass_tpu_torch import _build
@@ -2218,13 +2430,19 @@ def main() -> int:
     # Phase 4: the main path; 4b: the other branches; 4c: the H2 frames.
     seq = _build.BUILD_DIR / "smoke_seq"
     write_sequence(seq, img0, img1, rig, N_FRAMES)
-    launches = run_main_path(seq, scene)
+    with frame0_renders() as kept:
+        launches = run_main_path(seq, scene)
+    check_render_files(sorted(seq.glob("*_wd")), STEREO_RENDERS, "stereo renders of phase 4")
+    check_frame0_renders(kept, seq / "000000_wd", smi)
+    del kept
     for phase in (run_branches, run_h2_frames):
         add_counts(launches, phase(_build.BUILD_DIR, img0, img1, rig, scene))
     # Phase P: prepare on the card, then stereo on the prepared frames.
     add_counts(launches, run_prepare(_build.BUILD_DIR, rig, scene))
     # Phase M: match and autocalibrate on the card, then stereo with the recovered extrinsics.
     add_counts(launches, run_match_phase(_build.BUILD_DIR, scene, results, dev, smi))
+    check_render_files(sorted((_build.BUILD_DIR / "smoke_match").glob("*_wd")), MATCH_RENDERS,
+                       "match renders of phase M")
 
     # Phase 5: where the c2f frame's time goes.
     profile_c2f_frame(_build.BUILD_DIR, img0, img1, rig)
@@ -2232,6 +2450,12 @@ def main() -> int:
     run_grid_phase(_build.BUILD_DIR, scene, smi)
     # Phase S: the post stage on a cube of phase G's grid.
     add_counts(launches, run_post_phase(_build.BUILD_DIR, scene, results, smi))
+    # Phase I: image IO (the renders and codecs were checked above).
+    t0 = time.time()
+    check_decode(np.clip(img0, 0, 255).astype(np.uint8), _build.BUILD_DIR, smi)
+    add_counts(launches, check_raw_forms(_build.BUILD_DIR, rig, scene))
+    check_stokes(_build.BUILD_DIR, rig, dev)
+    log(f"phase I: {time.time() - t0:.1f} s wall")
     unused = [k for k in KERNELS if launches[k] < 1]
     if unused:
         raise AssertionError(f"kernels no main-path run launched: {unused}")

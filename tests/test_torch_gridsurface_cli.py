@@ -6,9 +6,10 @@ package's subsamples and initial DCT coefficients.
 Tolerances (Z in mm): DCT 0.1% of Z's range (the Rprop fit, as in
 tests/test_torch_grid.py), IDW 1e-3 mm (1e-6 m), LinearND 1e-4 mm (host
 scipy on points that agree to 1e-14 m, then a float32 cast); the rest is
-exact.  cam0images hold PNG in the port and JPEG in the JAX package: the
-decoded sizes must match, and the port's must decode to the undistorted
-frame."""
+exact.  cam0images hold quality-90 JPEG in both packages (OpenCV's
+encoder in the port, libjpeg's native one in the JAX package): the
+decoded frames must be equal, tolerance 0 (the bytes differ by encoder
+build)."""
 
 import io
 
@@ -21,7 +22,7 @@ from click.testing import CliRunner
 from wass_tpu.cli.gridsurface import cli as jax_cli
 
 from wass_tpu_torch.cli.gridsurface import main
-from wass_tpu_torch.io import png
+from wass_tpu_torch.io import image, png
 
 from torch_grid_data import AREA, BASELINE, use_jax_draws, write_grid_sequence
 
@@ -74,17 +75,31 @@ GRID_CASES = {
     "zeromean": ["--force-zero-mean"],
     "noimages": ["--no-images", "--ia", "IDW"],
     "mask": ["--ia", "IDW"],
+    "mask_tiff": ["--ia", "IDW"],
+    "mask_jpeg": ["--ia", "IDW"],
 }
+
+
+def _mask_file(tmp_path, case):
+    """The grid mask of a --mask case: an 8-bit grey PNG, an RGB TIFF whose
+    first channel is the mask (the other channels differ), a grey JPEG."""
+    mask = np.full((N, N), 255, np.uint8)
+    mask[4:11, 6:25] = 0
+    path = tmp_path / {"mask": "mask.png", "mask_tiff": "mask.tiff", "mask_jpeg": "mask.jpg"}[case]
+    if case == "mask":
+        png.write_gray(path, mask)
+    elif case == "mask_tiff":
+        iio.imwrite(path, np.stack([mask, 255 - mask, np.full_like(mask, 9)], axis=-1))
+    else:
+        iio.imwrite(path, mask, quality=95)
+    return path
 
 
 @pytest.mark.parametrize("case", list(GRID_CASES))
 def test_grid_matches_jax(seq, tmp_path, monkeypatch, case):
     args = ["--action", "grid", *GRID_CASES[case]]
-    if case == "mask":
-        mask = np.full((N, N), 255, np.uint8)
-        mask[4:11, 6:25] = 0
-        png.write_gray(tmp_path / "mask.png", mask)
-        args += ["--mask", str(tmp_path / "mask.png")]
+    if case.startswith("mask"):
+        args += ["--mask", str(_mask_file(tmp_path, case))]
     jd, pd = _both(seq, tmp_path, args, monkeypatch)
     with h5py.File(jd / "gridded.nc", "r") as fj, h5py.File(pd / "gridded.nc", "r") as fp:
         assert sorted(fj) == sorted(fp)
@@ -96,8 +111,10 @@ def test_grid_matches_jax(seq, tmp_path, monkeypatch, case):
         np.testing.assert_allclose(Zp, Zj, rtol=0, atol=tol, equal_nan=True)
         for name in ("count", "time", "workdir", "X", "Y", "X_grid", "Y_grid", "Kx", "Ky", "maskZ", "scale"):
             assert np.array_equal(fj[name][()], fp[name][()]), name
-        if case == "mask":
+        if case in ("mask", "mask_tiff"):
             assert (fp["maskZ"][...] == 0).sum() == 7 * 19
+        elif case == "mask_jpeg":
+            assert (fp["maskZ"][...] == 0).sum() > 0
         assert sorted(fj["meta"]) == sorted(fp["meta"])
         for name in fj["meta"]:
             assert np.array_equal(fj["meta"][name][()], fp["meta"][name][()]), name
@@ -115,8 +132,10 @@ def test_grid_matches_jax(seq, tmp_path, monkeypatch, case):
                 assert a.size == b.size == 0
                 continue
             frame = png.read_gray(seq / f"{t:06d}_wd" / "undistorted" / "00000000.png")
-            assert np.array_equal(png.decode_gray(b.tobytes()), frame)
-            assert iio.imread(io.BytesIO(a.tobytes())).shape == frame.shape
+            got, want = image.decode_gray(b.tobytes()), iio.imread(io.BytesIO(a.tobytes()))
+            assert b.tobytes()[:2] == b"\xff\xd8" and got.shape == want.shape == frame.shape
+            np.testing.assert_array_equal(got, want)
+            assert np.abs(got.astype(int) - frame).max() <= 32  # lossy, but the frame
     gj, gp = iio.imread(jd / "grid_img.png"), png.read_gray(pd / "grid_img.png")
     assert gj.shape == gp.shape and np.abs(gj.astype(int) - gp).max() <= 1
 
@@ -147,3 +166,6 @@ def test_console_refusals(seq, tmp_path, capsys):
     png.write_gray(tmp_path / "m.png", np.zeros((N, N + 1), np.uint8))
     assert main([str(seq), str(out), "--action", "grid", "--mask", str(tmp_path / "m.png"), "--device", "cpu"]) == 1
     assert "--mask shape" in capsys.readouterr().err
+    (tmp_path / "m.tiff").write_bytes(b"II*\0 not a tiff")
+    assert main([str(seq), str(out), "--action", "grid", "--mask", str(tmp_path / "m.tiff"), "--device", "cpu"]) == 1
+    assert "--mask: cannot decode" in capsys.readouterr().err

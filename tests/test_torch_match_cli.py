@@ -18,7 +18,7 @@ from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 W, H, N_FRAMES = 384, 288, 6
 MATCH_FILES = ("ext_R.xml", "ext_T.xml", "matches.txt", "matches_epionly.txt", "matches_unfiltered.txt",
-               "matcher_stats.csv", "wass_match_log.txt")
+               "matcher_stats.csv", "wass_match_log.txt", "matches.jpg", "matches_epifilter.jpg")
 MATCHER_OPTIONS = {"NUM_FEATURES_PER_IMAGE": 1200, "MATCHER_MAX_ROUNDS": 8, "FEATURE_HESSIAN_THRESHOLD": 3e-5,
                    "FEATURE_MIN_DISTANCE": 8}
 STEREO_OPTIONS = {"MAX_DISPARITY": 64, "PLANE_RANSAC_THRESHOLD": 0.1, "PLANE_MAX_DISTANCE": 0.3}

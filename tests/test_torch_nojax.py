@@ -1,9 +1,10 @@
 """The port runs without jax and without any module of the JAX package
-(a dense frame, the stereo CLI, the grid console on its meshes, the post
-console on that cube, and the match stage through the CLI), and without
-h5py, imageio, matplotlib or click, which the GPU host lacks (click: the
-port's consoles are argparse); its stdlib PNG codec agrees with imageio
-and OpenCV."""
+(a dense frame, prepare on colour frames, the stereo CLI with its debug
+renders, measure, the grid console on its meshes, the post console on
+that cube, and the match stage through the CLI), and without h5py,
+imageio, matplotlib or click, which the GPU host lacks (click: the
+port's consoles are argparse); its PNG codec agrees with imageio and
+OpenCV."""
 
 import ast
 import io
@@ -63,7 +64,7 @@ from wass_tpu_torch.cli.post import main as post_main
 from wass_tpu_torch.grid.netcdf import NetCDFReader, NetCDFWriter
 from wass_tpu_torch.grid.setup import GridSetup
 from wass_tpu_torch.grid.setup import align_on_sea_plane
-from wass_tpu_torch.testing import make_scene, read_frame, write_sequence
+from wass_tpu_torch.testing import make_scene, read_frame, write_raw_sequence, write_sequence
 from wass_tpu_torch.stereo.dense import DenseStereoConfig, dense_stereo_frame
 
 sc = make_scene(seed=3, width=64, height=48, wave_amplitude=0.2)
@@ -73,11 +74,15 @@ res, geom = dense_stereo_frame(sc.img0, sc.img1, rig.K0, rig.K1, rig.R, rig.T,
 assert res.points.shape == (48, 64, 3) and int(res.n_points) > 0
 with tempfile.TemporaryDirectory() as tmp:
     seq = Path(tmp)
-    write_sequence(seq, sc.img0, sc.img1, rig, 1)
+    cam0, cam1, calib = write_raw_sequence(seq / "raw", sc.img0, sc.img1, rig, 1, fmt="colour_png")
+    assert main(["prepare", str(cam0), str(cam1), str(calib), str(seq), "--device", "cpu"]) == 0
     (seq / "stereo_config.txt").write_text("MAX_DISPARITY=16\nPLANE_RANSAC_ROUNDS=50\n")
     assert main(["stereo", str(seq), "--device", "cpu"]) == 0
     plane, mesh, _ = read_frame(seq / "000000_wd")
     assert mesh.shape[1] == 3 and len(mesh) > 0
+    renders = sorted(p.name for p in (seq / "000000_wd").glob("*.jpg"))
+    assert len(renders) == 6 and "stereo.jpg" in renders, renders
+    assert main(["measure", str(seq / "000000_wd"), "20", "20", "40", "30", "--baseline", "2.5"]) == 0
     ma = align_on_sea_plane(mesh.T, plane) * 2.5
     cx, cy = np.median(ma[:2], axis=1)
     grid = seq / "grid"

@@ -1,6 +1,7 @@
 """Port parity of the sequence stereo stage: `wass-tpu-torch stereo` (CPU,
 plain versions) vs the JAX package's SequencePipeline.stereo over a 2-frame
 256x192 sequence built as in .claude/skills/verify/SKILL.md.
+The debug renders are on in both (the same file names in each workdir).
 
 Both packages draw the same RANSAC pixel picks (the port's draw is replaced
 by the JAX one), and the JAX float stages run op by op (see
@@ -56,8 +57,7 @@ def test_sequence_stereo_matches_jax(sequence, monkeypatch):
     shutil.copytree(sequence / "base", seq_j)
     shutil.copytree(sequence / "base", seq_t)
 
-    pipe = _load_pipeline(seq_j)
-    pipe.cfg.debug_renders = False
+    pipe = _load_pipeline(seq_j)  # debug renders on, as in the port
     pipe.cfg.wire_delta = False
     monkeypatch.setattr(jax, "devices", lambda *a: jax.local_devices()[:1])  # the one-device loop
     monkeypatch.setattr(jd, "_jit_triangulate", jd._jit_triangulate.__wrapped__)
@@ -77,6 +77,8 @@ def test_sequence_stereo_matches_jax(sequence, monkeypatch):
         assert mt.shape[0] == 3 and np.isfinite(mt).all()
         assert abs(mt.shape[1] - mj.shape[1]) <= 0.001 * mj.shape[1]
         assert (seq_t / name / "plane.txt").exists() and (seq_t / name / "P1cam.txt").exists()
+        renders = sorted(p.name for p in (seq_t / name).glob("*.jpg"))
+        assert len(renders) == 6 and renders == sorted(p.name for p in (seq_j / name).glob("*.jpg"))
         log = (seq_t / name / "wass_stereo_log.txt").read_text()
         assert ("kernel launches: census_cost=0 census_cost_windowed=0 label_propagate=0 sgm_aggregate=0 "
                 "sgm_aggregate_windowed=0 sgm_pair_img=0 sgm_tri_dir_partial_h2=0 "

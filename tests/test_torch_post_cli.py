@@ -223,16 +223,56 @@ def test_radiance_family_matches_jax(cube, tmp_path, args, prepare):
     compare_cubes(jp, pp)
 
 
+def _stokes_wassdir(cube, root, n_frames: int = 3):
+    """n_frames copies of the cube's frame workdir, each with float32 Stokes
+    TIFFs for cam 0 (a smooth random field), as prepare's save_stokes
+    writes them."""
+    import imageio.v3 as iio
+
+    rng = np.random.default_rng(7)
+    src = next((cube.parent / "seq").glob("*_wd"))
+    for i in range(n_frames):
+        wd = shutil.copytree(src, root / f"{i:06d}_wd")
+        H, W = cv2.imread(str(wd / "undistorted" / "00000000.png"), cv2.IMREAD_UNCHANGED).shape
+        for s in ("S0", "S1", "S2"):
+            field = cv2.resize(rng.random((H // 8, W // 8)).astype(np.float32), (W, H), interpolation=cv2.INTER_CUBIC)
+            iio.imwrite(wd / "undistorted" / f"00000000_{s}.tiff", field)
+    return root
+
+
 def test_stated_refusals(cube, tmp_path):
-    """polarimetric_setup refuses (no Stokes TIFFs); radiance refuses a
-    JPEG cam0images frame (the JAX package's cubes)."""
-    rc, _, err = run_port(["polarimetric_setup", str(cube), "--wassdir", str(tmp_path), "--outputdir",
-                           str(tmp_path / "p")])
-    assert rc == 1 and "Stokes TIFFs" in err
-    ok, jpg = cv2.imencode(".jpg", np.zeros((8, 8), np.uint8))
-    c = tmp_path / "jpeg.nc"
-    shutil.copy(cube, c)
-    with h5py.File(c, "r+") as f:
-        f["cam0images"][0] = np.frombuffer(jpg.tobytes(), np.uint8)
-    rc, _, err = run_port(["radiance", str(c)])
-    assert rc == 1 and "JPEG" in err
+    """The two commands this console once refused now match the JAX
+    console: polarimetric_setup over the frames' Stokes TIFFs (every array
+    of pdata_avg.npz within 1e-6, as the accumulator's parity test, NaN at
+    the same cells: on the cube's (count, X, Y) layout the normals and
+    incidences are NaN in both packages, ROADMAP.md §3), and
+    radiance over a cube whose cam0images hold the JAX package's JPEG
+    frames (libjpeg at quality 90; radiance within 1e-6)."""
+    from wass_tpu import native
+
+    wassdir = _stokes_wassdir(cube, tmp_path / "wass")
+    outs = {"jax": tmp_path / "pj", "port": tmp_path / "pp"}
+    args = ["--wassdir", str(wassdir), "--numframes", "0"]
+    with time_limit(JAX_SECONDS):
+        r = CliRunner().invoke(jax_cli, ["polarimetric-setup", str(cube), *args, "--outputdir", str(outs["jax"])])
+    assert r.exit_code == 0, r.output
+    rc, out, err = run_port(["polarimetric-setup", str(cube), *args, "--outputdir", str(outs["port"])])
+    assert rc == 0, err
+    assert out.replace(str(outs["port"]), "O") == r.output.replace(str(outs["jax"]), "O")
+    assert out.startswith("polarimetric averages over 3 frames")
+    with np.load(outs["jax"] / "pdata_avg.npz") as zj, np.load(outs["port"] / "pdata_avg.npz") as zp:
+        assert sorted(zj.files) == sorted(zp.files) == ["Cam2Grid", "Navg_grid", "Savg", "Zavg", "incidence_avg"]
+        for k in zj.files:
+            assert zj[k].shape == zp[k].shape and zj[k].dtype == zp[k].dtype, k
+            np.testing.assert_allclose(zp[k], zj[k], rtol=0, atol=1e-6, err_msg=k)  # NaN where NaN
+
+    jpeg_cube = tmp_path / "jpeg.nc"
+    shutil.copy(cube, jpeg_cube)
+    frame = cv2.imread(str(wassdir / "000000_wd" / "undistorted" / "00000000.png"), cv2.IMREAD_UNCHANGED)
+    jpg = np.frombuffer(native.jpeg_encode_gray(frame), np.uint8)
+    with h5py.File(jpeg_cube, "r+") as f:
+        for i in range(f["cam0images"].shape[0]):
+            f["cam0images"][i] = jpg
+    jp, pp, out_j, out_p = run_both(jpeg_cube, tmp_path, ["radiance"])
+    assert out_p.endswith(f"wrote radiance_cam0 ({N_FRAMES} frames)\n")
+    compare_cubes(jp, pp, {"radiance_cam0": 1e-6})

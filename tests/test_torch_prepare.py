@@ -158,15 +158,29 @@ def test_prepare_frame_matches_jax(rng, tmp_path, case):
 
 
 def test_save_stokes_refused(rng, tmp_path):
-    """The port has no TIFF writer: the polarimetric path with save_stokes
-    is refused, not silently skipped."""
+    """save_stokes, once refused, now writes the Stokes images as the JAX
+    prepare_frame does: float32 TIFFs undistorted/0000000{cam}_S{0,1,2}.tiff,
+    read back by imageio, within the polarimetric path's tolerance (1e-5,
+    test_polarimetric_process_matches_jax); none without save_stokes."""
+    import imageio.v3 as iio
+
     img0, img1, K0, K1, R, T = _frame(rng, 32, 48)
-    cfg = tprepare.PrepareConfig(demosaic=True, save_stokes=True)
-    with pytest.raises(ValueError, match="save_stokes"):
-        tprepare.prepare_frame(tmp_path / "wd", img0, img1, K0, np.zeros(5), K1, np.zeros(5), cfg, device="cpu")
+    d0 = np.array(DISTS["5 terms"])
+    for hdr in (False, True):
+        jw = jprepare.prepare_frame(tmp_path / f"jax{hdr}", img0, img1, K0, d0, K1, np.zeros(5),
+                                    jprepare.PrepareConfig(demosaic=True, hdr=hdr, save_stokes=True))
+        tw = tprepare.prepare_frame(tmp_path / f"port{hdr}", img0, img1, K0, d0, K1, np.zeros(5),
+                                    tprepare.PrepareConfig(demosaic=True, hdr=hdr, save_stokes=True), device="cpu")
+        names = sorted(p.name for p in (jw.path / "undistorted").glob("*.tiff"))
+        assert names == sorted(p.name for p in (tw.path / "undistorted").glob("*.tiff")) and len(names) == 6
+        for name in names:
+            want, got = iio.imread(jw.path / "undistorted" / name), iio.imread(tw.path / "undistorted" / name)
+            assert got.dtype == want.dtype == np.float32 and got.shape == want.shape == (32, 48)
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5, err_msg=name)
+        assert TWorkdir(tw.path).load_undistorted(0).shape == (32, 48)
     wd = tprepare.prepare_frame(tmp_path / "wd", img0, img1, K0, np.zeros(5), K1, np.zeros(5),
                                 tprepare.PrepareConfig(demosaic=True, hdr=True), device="cpu")
-    assert TWorkdir(wd.path).load_undistorted(0).shape == (32, 48)
+    assert not list((wd.path / "undistorted").glob("*.tiff"))
 
 
 def test_render_raw_through_lens(tmp_path):

@@ -84,7 +84,57 @@ def test_prepare_cli_matches_jax(raw, tmp_path, case, capsys):
                 assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (diff.max(), (diff > 0).mean())
 
 
+def _convert(frame: np.ndarray, fmt: str, path_stem):
+    """A raw gray frame written in another format; returns the path."""
+    import cv2
+    import imageio.v3 as iio
+
+    rgb = np.stack([frame, 255 - frame, np.roll(frame, 9, axis=1)], axis=-1)  # unequal channels
+    if fmt == "colour.png":
+        cv2.imwrite(f"{path_stem}.png", rgb[..., ::-1])
+    elif fmt == "colour.jpg":
+        iio.imwrite(f"{path_stem}.jpg", rgb, quality=95)
+    elif fmt == "gray16.png":
+        cv2.imwrite(f"{path_stem}.png", frame.astype(np.uint16) * 257)
+    elif fmt == "float32.tiff":
+        iio.imwrite(f"{path_stem}.tiff", frame.astype(np.float32) + 0.25)
+    elif fmt == "uint16.tiff":
+        iio.imwrite(f"{path_stem}.tiff", frame.astype(np.uint16) * 257)
+    return next(path_stem.parent.glob(f"{path_stem.name}.*"))
+
+
+@pytest.mark.parametrize("fmt", ["colour.png", "colour.jpg", "gray16.png", "float32.tiff", "uint16.tiff"])
+def test_prepare_cli_matches_jax_other_formats(raw, tmp_path, fmt):
+    """Raw frames that are not 8-bit grayscale PNG (refused by the port
+    before): colour PNG (libpng's grey weights), colour JPEG (the channel
+    mean), 16-bit PNG (the high byte), float32 and 16-bit TIFF.  Without a
+    lens the workdirs' images must equal the JAX command's exactly; a
+    16-bit TIFF saturates at 255 in both packages (prepare clips)."""
+    from wass_tpu_torch.io.png import read_gray
+
+    cam0, cam1, calib = raw["identity"]
+    dirs = []
+    for cam in (cam0, cam1):
+        d = tmp_path / f"{fmt}_{cam.name}"
+        d.mkdir()
+        for src in sorted(cam.glob("*.png")):
+            _convert(read_gray(src), fmt, d / src.stem)
+        dirs.append(d)
+    jout, tout = _prepare_both((*dirs, calib), tmp_path)
+    for i in range(N_FRAMES):
+        wj, wt = jout / f"{i:06d}_wd", tout / f"{i:06d}_wd"
+        for cam in (0, 1):
+            pj, pt = JWorkdir(wj).load_undistorted(cam), TWorkdir(wt).load_undistorted(cam)
+            np.testing.assert_array_equal(pt, pj)
+            if fmt == "uint16.tiff":
+                assert (pt == 255).mean() > 0.9
+        for name in XML:
+            assert (wt / name).read_bytes() == (wj / name).read_bytes(), name
+
+
 def test_prepare_rejects_other_formats_and_counts(raw, tmp_path):
+    """A frame that does not decode is refused, naming the file; so are
+    camera folders of different frame counts."""
     cam0, cam1, calib = raw["identity"]
     bad0 = tmp_path / "bad0"
     shutil.copytree(cam0, bad0)
@@ -94,7 +144,7 @@ def test_prepare_rejects_other_formats_and_counts(raw, tmp_path):
     with pytest.raises(SystemExit, match="different frame counts"):
         torch_main(["prepare", str(bad0), str(cam1), str(calib), str(tmp_path / "o1"), "--device", "cpu"])
     (bad1 / "c.png").write_bytes((bad1 / "a.png").read_bytes())
-    with pytest.raises(SystemExit, match="8-bit grayscale PNG"):
+    with pytest.raises(SystemExit, match="cannot read the raw frame .*c.png"):
         torch_main(["prepare", str(bad0), str(bad1), str(calib), str(tmp_path / "o2"), "--device", "cpu"])
 
 

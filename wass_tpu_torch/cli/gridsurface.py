@@ -9,7 +9,8 @@
 The options and defaults of the JAX package's wass-tpu-gridsurface
 (wass_tpu/cli/gridsurface.py, after the reference's CLI,
 gridding/wassgridsurface/wassgridsurface.py:596-768),
-plus --device.  --mask takes an 8-bit grayscale PNG (the port's codec).
+plus --device.  --mask takes any image OpenCV decodes (nonzero pixels of
+its first channel kept, as the JAX console reads imageio's array).
 The matplotlib renders (area_grid.png, gridded.png) are not made: the
 port has no plotting library; grid_img.png is written.
 """
@@ -25,7 +26,7 @@ import numpy as np
 from wass_tpu_torch.cli.main import DEVICE_HELP
 
 PROG = "wass-tpu-torch-gridsurface"
-NO_PLOTS = "the port has no plotting library (ROADMAP.md §1 item 11)"
+NO_PLOTS = "the port has no plotting library (ROADMAP.md §1 item 2)"
 
 
 def _fail(msg: str) -> int:
@@ -55,8 +56,8 @@ def main(argv=None) -> int:
     parser.add_argument("--refine", action="store_true",
                         help="photo-consistency surface refinement (not ported: refused)")
     parser.add_argument("--mask", type=Path, default=None,
-                        help="user grid mask: 8-bit grayscale PNG of the grid size; zero pixels are "
-                             "excluded from every frame (reference --mask, wassgridsurface.py:640)")
+                        help="user grid mask: an image of the grid size; zero pixels (of its first channel) "
+                             "are excluded from every frame (reference --mask, wassgridsurface.py:640)")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help=DEVICE_HELP)
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--area_center" in argv[:-1]:  # "-5,-20" is a value here (click takes it), not an option
@@ -74,7 +75,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     if args.refine:
         return _fail("--refine (the photo-consistency refinement, wass_tpu/grid/variational.py) is not "
-                     "ported yet (ROADMAP.md §1 item 8)")
+                     "ported yet (ROADMAP.md §1 item 4)")
     if args.mask is not None and not args.mask.exists():
         parser.error(f"no such file: {args.mask}")
     out = args.outdir
@@ -115,9 +116,14 @@ def main(argv=None) -> int:
     )
     user_mask = None
     if args.mask is not None:
-        from wass_tpu_torch.io.png import read_gray
+        from wass_tpu_torch.io.image import read_image
 
-        user_mask = (read_gray(args.mask) > 0).astype(np.float32)
+        try:
+            user_mask = (read_image(args.mask) > 0).astype(np.float32)
+        except ValueError as e:
+            return _fail(f"--mask: {e}")
+        if user_mask.ndim == 3:
+            user_mask = user_mask[..., 0]
         if user_mask.shape != setup.XX.shape:
             return _fail(f"--mask shape {user_mask.shape} != grid {setup.XX.shape}")
     grid_sequence(wds, setup, out / "gridded.nc", cfg, user_mask=user_mask, diag_dir=out, device=device)

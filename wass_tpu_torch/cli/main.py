@@ -1,4 +1,4 @@
-"""wass-tpu-torch command line: prepare, match, autocalibrate, stereo and genconfig.
+"""wass-tpu-torch command line: prepare, match, autocalibrate, stereo, measure and genconfig.
 
 The wasscli flow on the port:
 
@@ -10,13 +10,19 @@ The wasscli flow on the port:
                                               every frame workdir
   stereo OUTDIR                               dense reconstruction of every
                                               frame workdir under OUTDIR
+  measure WORKDIR U0 V0 U1 V1 [--baseline B] [--radius R]
+                                              the 3D distance between the
+                                              mesh points nearest two cam0
+                                              pixels of a reconstructed frame
   genconfig OUTDIR --stage {prepare,matcher,stereo}   the commented option file
 
 match and stereo read <outdir>/matcher_config.txt and
 <outdir>/stereo_config.txt when they exist and take the reference's
 defaults otherwise.  prepare, as the JAX package's command, takes the
-default prepare options and reads no prepare_config.txt.  Raw frames must
-be 8-bit grayscale PNG, decoded by the port's own codec.
+default prepare options and reads no prepare_config.txt.  Raw frames are
+any image OpenCV decodes, read as the JAX command reads them
+(io/image.py:read_raw_frame).  measure's --interactive picker is refused:
+it needs matplotlib, which the port does without.
 """
 
 from __future__ import annotations
@@ -54,13 +60,14 @@ def load_pipeline(outdir, device: str = "cuda"):
 
 
 def read_raw_frame(path) -> np.ndarray:
-    """A raw frame as float32; the port reads 8-bit grayscale PNG only."""
-    from wass_tpu_torch.io.png import read_gray
+    """A raw frame as float32 (io/image.py); exits naming a file that does
+    not decode."""
+    from wass_tpu_torch.io import image
 
     try:
-        return read_gray(path).astype(np.float32)
+        return image.read_raw_frame(path)
     except (ValueError, OSError) as e:
-        raise SystemExit(f"wass-tpu-torch prepare: cannot read {path}: raw frames must be 8-bit grayscale PNG ({e})")
+        raise SystemExit(f"wass-tpu-torch prepare: cannot read the raw frame {path}: {e}")
 
 
 def prepare(cam0_dir: Path, cam1_dir: Path, calibdir: Path, outdir: Path, continue_if_existing: bool,
@@ -100,6 +107,36 @@ def prepare(cam0_dir: Path, cam1_dir: Path, calibdir: Path, outdir: Path, contin
     return 0
 
 
+def measure(workdir: Path, pixels, baseline, radius: float) -> int:
+    """Two-point 3D distance on a reconstructed frame (the wass_stereo
+    --measure workflow, wass_stereo.cpp:1934-1973): each cam0 pixel is
+    snapped to the nearest mesh point reprojected through K0."""
+    from wass_tpu_torch.io.workdir import Workdir
+    from wass_tpu_torch.stereo.meshops import measure_distance
+
+    wd = Workdir(workdir)
+    mesh = wd.load_mesh_cam()  # (3, N) cam0-frame, baseline units
+    if mesh.shape[1] == 0:
+        raise SystemExit("wass-tpu-torch measure: empty mesh_cam.xyzC")
+    uv = wd.load_intrinsics(0) @ mesh
+    uv = uv[:2] / uv[2:3]
+    picked = []
+    for u, v in ((pixels[0], pixels[1]), (pixels[2], pixels[3])):
+        d2 = (uv[0] - u) ** 2 + (uv[1] - v) ** 2
+        j = int(np.argmin(d2))
+        if d2[j] > radius * radius:
+            raise SystemExit(f"wass-tpu-torch measure: no reconstructed point within {radius:g} px of ({u:g}, {v:g})")
+        p = mesh[:, j]
+        print(f"({u:g}, {v:g}) -> point #{j} at [{p[0]:.4f} {p[1]:.4f} {p[2]:.4f}] "
+              f"(reprojects to {uv[0][j]:.1f}, {uv[1][j]:.1f})")
+        picked.append(p)
+    dist = float(measure_distance(picked[0], picked[1]))
+    print(f"distance: {dist:.6f} baseline units")
+    if baseline is not None:
+        print(f"distance: {dist * baseline:.6f} m (baseline {baseline:g} m)")
+    return 0
+
+
 def genconfig(outdir: Path, stage: str) -> int:
     """Write the commented key=value options of a stage (--genconfig)."""
     from wass_tpu_torch.cli.options import register_all
@@ -127,6 +164,15 @@ def main(argv=None) -> int:
         stage = sub.add_parser(name, help=text)
         stage.add_argument("outdir", type=Path)
         stage.add_argument("--device", default="cuda", choices=("cuda", "cpu"), help=DEVICE_HELP)
+    me = sub.add_parser("measure", help="two-point 3D distance on a reconstructed frame")
+    me.add_argument("workdir", type=Path)
+    me.add_argument("pixels", nargs="*", type=float, help="U0 V0 U1 V1: two cam0 pixels")
+    me.add_argument("--baseline", type=float, default=None,
+                    help="camera baseline in meters; scales the distance from baseline units to meters")
+    me.add_argument("--radius", type=float, default=10.0,
+                    help="max pixel distance between a requested pixel and the nearest reconstructed point")
+    me.add_argument("--interactive", action="store_true",
+                    help="pick the points on the cam0 image (refused: the port has no matplotlib)")
     gc = sub.add_parser("genconfig", help="write a stage's commented option file")
     gc.add_argument("outdir", type=Path)
     gc.add_argument("--stage", default="stereo", choices=("prepare", "matcher", "stereo"))
@@ -140,6 +186,15 @@ def main(argv=None) -> int:
                        args.device)
     if args.command == "genconfig":
         return genconfig(args.outdir, args.stage)
+    if args.command == "measure":
+        if args.interactive:
+            parser.error("--interactive needs matplotlib's point picker, which the port does without; "
+                         "give the two pixels as U0 V0 U1 V1")
+        if len(args.pixels) != 4:
+            parser.error("expected 4 coordinates: U0 V0 U1 V1")
+        if not args.workdir.is_dir():
+            parser.error(f"no such directory: {args.workdir}")
+        return measure(args.workdir, args.pixels, args.baseline, args.radius)
     if not args.outdir.is_dir():
         parser.error(f"no such directory: {args.outdir}")
     pipe = load_pipeline(args.outdir, args.device)

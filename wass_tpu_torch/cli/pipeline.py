@@ -11,7 +11,12 @@ threads finalize the frames (the c2f fallback resolved and, where it
 trips, the frame re-run at full range; plane.txt, mesh_cam.xyzC,
 P0cam/P1cam, poses, stereo_config.txt, wass_stereo_log.txt) while later
 frames compute; at most dispatch_depth frames are in flight, and a
-`[P|cur|tot]` line follows each finalized frame.  output/planes.txt
+`[P|cur|tot]` line follows each finalized frame.  With debug_renders (the
+default, as in the JAX package) the writers also write the frame's six
+debug renders (stereo_input.jpg, disparity_final_scaled.jpg, stereo.jpg,
+disparity_coverage.jpg, graph_components.jpg, triangulation_failmap.jpg;
+utils/render.py), and the match stage its matches.jpg and
+matches_epifilter.jpg.  output/planes.txt
 collects the planes.  The AUTO smoothing sigma is resolved once from
 frame 0.
 
@@ -21,10 +26,9 @@ the dispatching stream would wait for every frame dispatched since.  The
 one host read left on the dispatching thread is the plane refinement's
 3x3 eigenproblem (stereo/plane.py).
 
-Not ported yet: the match stage's debug renders (matches.jpg), the
-frame-sharded multi-device runner, the optical-flow path, the stereo
-debug renders and the delta-coded wire format (the .xyzC payload is
-always the direct u16 export).
+Not ported yet: the frame-sharded multi-device runner, the optical-flow
+path and the delta-coded wire format (the .xyzC payload is always the
+direct u16 export).
 """
 
 from __future__ import annotations
@@ -60,6 +64,7 @@ from wass_tpu_torch.stereo.dense import (
     prepare_frame_geometry,
     rectify_on_device,
 )
+from wass_tpu_torch.utils import render
 from wass_tpu_torch.utils.progress import progress
 
 
@@ -78,6 +83,10 @@ class SequenceConfig:
     # the oldest one not yet finalized, and finalizing writer threads.
     dispatch_depth: int = 3
     writer_threads: int = 2
+    # The reference's always-on stereo and match debug images
+    # (wass_stereo.cpp:854,1001,1017,1910-1926, PovMesh.cpp:982-984,
+    # wass_match.cpp:70-95).
+    debug_renders: bool = True
 
 
 class SequencePipeline:
@@ -86,8 +95,10 @@ class SequencePipeline:
         self.cfg = cfg or SequenceConfig()
         self.outdir.mkdir(parents=True, exist_ok=True)
         # The last stereo loop's host timings: seconds of each PNG decode on
-        # the prefetch threads, and of each frame's dispatch on the main thread.
+        # the prefetch threads, of each frame's dispatch on the main thread,
+        # and of each frame's debug renders on its writer thread.
         self.loop_stats: dict = {}
+        self._render_s: List[float] = []
 
     def _device(self) -> torch.device:
         return resolve_device(self.cfg.device)
@@ -130,8 +141,6 @@ class SequencePipeline:
                     f.write(f"[INFO] matches: {res.n_matches}\n")
                     f.write(f"[INFO] epipolar error avg/std/min/max: {res.epi_avg:.4f} {res.epi_std:.4f} "
                             f"{res.epi_min:.4f} {res.epi_max:.4f} px\n")
-                    f.write("[INFO] matches.jpg / matches_epifilter.jpg: not written (the port has no debug "
-                            "renders yet)\n")
                 f.write(f"[INFO] wall time: {time.time() - t0:.3f}s\n")
             if res is None:
                 continue
@@ -140,6 +149,14 @@ class SequencePipeline:
             wd.save_matches("matches_epionly.txt", res.uv0_epi, res.uv1_epi)
             wd.save_matches("matches_unfiltered.txt", res.uv0_all, res.uv1_all)
             wd.save_matcher_stats(res.n_matches, res.epi_avg, res.epi_std, res.epi_min, res.epi_max)
+            if self.cfg.debug_renders:
+                try:
+                    render.save(wd.path / "matches.jpg", render.render_matches(img0, img1, res.uv0_pose, res.uv1_pose))
+                    render.save(wd.path / "matches_epifilter.jpg",
+                                render.render_matches(img0, img1, res.uv0_epi, res.uv1_epi))
+                except Exception as e:  # debug imagery must never fail the stage
+                    with open(wd.path / "wass_match_log.txt", "a") as f:
+                        f.write(f"[INFO] debug renders failed: {e}\n")
             n_ok += 1
         return n_ok
 
@@ -176,9 +193,10 @@ class SequencePipeline:
     def _finalize_stereo_frame(self, wd: Workdir, geom, res, K0, K1, extras: dict) -> np.ndarray:
         """Per-frame outputs, on a writer thread; the first host reads of the
         frame's results.  extras: the frame's kernel launches ("launches"),
-        and, when c2f ran, its deferred diagnostics ("c2f"), the pipeline
-        ("pipe"), the rectified pair ("rect") and the geometry pack ("gp")
-        for a full-range re-run."""
+        the uploaded uint8 base and match images ("imgs") and the rectified
+        pair ("rect") for the renders, and, when c2f ran, its deferred
+        diagnostics ("c2f"), the pipeline ("pipe") and the geometry pack
+        ("gp") for a full-range re-run."""
         t0 = time.time()
         c2f = extras.get("c2f")
         if c2f is not None:
@@ -240,8 +258,23 @@ class SequencePipeline:
             pts = res.points.cpu().numpy().astype(np.float64)[valid]
             wd.save_mesh(pts, np.eye(3), np.zeros(3))
 
+        if self.cfg.debug_renders:
+            t_render = time.perf_counter()
+            try:
+                self._write_renders(wd, geom, res, extras)
+            except Exception as e:  # debug imagery must never fail the stage
+                log_lines.append(f"debug renders failed: {e}")
+            self._render_s.append(time.perf_counter() - t_render)
+
         self._write_stereo_log(wd, log_lines, t0)
         return plane
+
+    @staticmethod
+    def _write_renders(wd: Workdir, geom, res, extras: dict) -> None:
+        images = render.stereo_renders(res.disparity, res.valid, res.fail_reasons, extras["imgs"], extras["rect"],
+                                       geom.roi)
+        for name, img in images.items():
+            render.save(wd.path / name, img)
 
     @staticmethod
     def _write_stereo_log(wd: Workdir, lines, t0) -> None:
@@ -288,7 +321,7 @@ class SequencePipeline:
                 stream = writer_local.stream = torch.cuda.Stream(device)
             stream.wait_event(extras["ready"])
             c2f = extras["c2f"] or {}
-            for t in (*res, *extras["rect"], c2f.get("coverage"), c2f.get("offband")):
+            for t in (*res, *extras["rect"], *extras["imgs"], c2f.get("coverage"), c2f.get("offband")):
                 if isinstance(t, torch.Tensor):
                     t.record_stream(stream)
             with torch.cuda.stream(stream):
@@ -299,6 +332,7 @@ class SequencePipeline:
             planes[j] = fut.result()
             progress(j + 1, len(wds), stream=progress_stream)
 
+        self._render_s = []
         prefetcher = Prefetcher(4)
         tickets: dict = {}
 
@@ -323,13 +357,13 @@ class SequencePipeline:
                 launches: dict = {}
                 with frame_scope(launches):
                     # uint8 upload from pinned memory, cast on the device.
-                    b = to_device(torch.from_numpy(b_img), device).to(torch.float32)
-                    m = to_device(torch.from_numpy(m_img), device).to(torch.float32)
+                    b8, m8 = (to_device(torch.from_numpy(x), device) for x in (b_img, m_img))
+                    b, m = b8.to(torch.float32), m8.to(torch.float32)
                     base_rect = rectify_on_device(b, gp["H_base"], (H, W))
                     match_rect = rectify_on_device(m, gp["H_match"], (H, W))
                     res = pipe(base_rect, match_rect, gp)
                 extras = {"launches": launches, "c2f": pipe.last_c2f, "pipe": pipe,
-                          "rect": (base_rect, match_rect), "gp": gp}
+                          "rect": (base_rect, match_rect), "imgs": (b8, m8), "gp": gp}
                 if on_card:
                     extras["ready"] = torch.cuda.Event()
                     extras["ready"].record()
@@ -344,7 +378,8 @@ class SequencePipeline:
         finally:
             writers.shutdown(wait=True)
             prefetcher.close()
-            self.loop_stats = {"decode_s": list(prefetcher.decode_s), "dispatch_s": dispatch_s}
+            self.loop_stats = {"decode_s": list(prefetcher.decode_s), "dispatch_s": dispatch_s,
+                               "render_s": list(self._render_s)}
         return planes
 
     def _write_sequence_outputs(self, wds, planes) -> None:

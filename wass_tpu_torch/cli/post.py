@@ -14,10 +14,11 @@ GPU host has no h5py), streamed under WASS_POST_MEMORY_MB (default 512).
 A command that writes to a cube of another layout (the JAX package's
 h5py cube: chunked, symbol-table groups) first rewrites it in the port's
 layout and says so; `info`, `spectrum` and `spectrum3d` read such a cube
-as it is.  Stated limits: `spectrum` writes no PNG plot (the port has no
-plotting library); `radiance` decodes PNG frames of `cam0images` and
-refuses JPEG ones; `polarimetric_setup` refuses (the port's prepare
-writes no Stokes TIFFs).
+as it is.  `radiance` decodes the JPEG frames of `cam0images` (the JAX
+package's cubes and the port's) and the PNG frames of the port's earlier
+cubes; `polarimetric_setup` reads the Stokes TIFFs that prepare writes
+with save_stokes.  Stated limit: `spectrum` writes no PNG plot (the port
+has no plotting library).
 """
 
 from __future__ import annotations
@@ -33,9 +34,7 @@ import numpy as np
 from wass_tpu_torch.cli.main import DEVICE_HELP
 
 PROG = "wass-tpu-torch-post"
-NO_PLOT = "the port has no plotting library (ROADMAP.md §1 item 11)"
-NO_STOKES = ("polarimetric_setup needs the Stokes TIFFs of the prepare stage (save_stokes), which the port's "
-             "prepare does not write (ROADMAP.md §1 item 3)")
+NO_PLOT = "the port has no plotting library (ROADMAP.md §1 item 2)"
 
 
 class CommandError(Exception):
@@ -216,17 +215,8 @@ def cmd_renamevar(a):
     print(f"renamed {a.srcvar} -> {a.dstvar}")
 
 
-def _frame_image(data: bytes) -> np.ndarray:
-    """A cam0images frame: PNG through the port's codec; JPEG is refused."""
-    from wass_tpu_torch.io import png
-
-    if data[:2] == b"\xff\xd8":
-        raise CommandError("cam0images holds JPEG frames (the JAX package's cubes); the port decodes PNG only: "
-                           "pass --wassdir with the sequence's frame workdirs")
-    return png.decode_gray(data).astype(np.float32)
-
-
 def cmd_radiance(a):
+    from wass_tpu_torch.io.image import decode_gray
     from wass_tpu_torch.io.workdir import frame_workdirs
     from wass_tpu_torch.post.radiance import radiance_frame
 
@@ -242,7 +232,10 @@ def cmd_radiance(a):
         out = f.create_dataset(name, (N,) + Z.shape[1:], "f4")
         wds = frame_workdirs(a.wassdir) if a.wassdir else None
         for i in range(N):
-            img = wds[i].load_undistorted(a.cam) if wds is not None else _frame_image(f["cam0images"][i].tobytes())
+            if wds is not None:
+                img = wds[i].load_undistorted(a.cam)
+            else:
+                img = decode_gray(f["cam0images"][i].tobytes()).astype(np.float32)  # JPEG or PNG
             out[i] = radiance_frame(img, Z[i] / 1000.0, XX, YY, Pplane, device=a.device)
     print(f"wrote radiance_cam{a.cam} ({N} frames)")
 
@@ -276,7 +269,32 @@ def cmd_radiance_threshold(a):
 
 
 def cmd_polarimetric_setup(a):
-    raise CommandError(NO_STOKES)
+    """Grid-sampled Stokes, normals, elevation and incidence averages over
+    the frames' Stokes TIFFs (prepare's save_stokes) -> pdata_avg.npz."""
+    from wass_tpu_torch.io.image import read_float_tiff
+    from wass_tpu_torch.io.workdir import frame_workdirs
+    from wass_tpu_torch.post.polarimetric import PolarimetricAccumulator, accumulate_frame
+
+    out = Path(a.outputdir)
+    out.mkdir(parents=True, exist_ok=True)
+    wds = frame_workdirs(a.wassdir)
+    with _read(a.ncfile) as f:
+        Pplane = f["meta"][f"P{a.cam}plane"][...]
+        Cam2Grid = f["meta"][f"Cam{a.cam}toGrid"][...]
+        XX = f["X_grid"][...] / 1000.0
+        YY = f["Y_grid"][...] / 1000.0
+        Z = f["Z"]
+        N = a.numframes if a.numframes > 0 else min(Z.shape[0], len(wds))
+        cam_origin = Cam2Grid @ np.array([0.0, 0, 0, 1])
+        cam_origin = cam_origin[:3] / cam_origin[3]
+        acc = PolarimetricAccumulator.zeros(XX.shape)
+        for i in range(N):
+            pre = wds[i].path / "undistorted" / f"{a.cam:08d}"
+            S0, S1, S2 = (read_float_tiff(f"{pre}_{s}.tiff") for s in ("S0", "S1", "S2"))
+            acc = accumulate_frame(acc, Z[i] / 1000.0, XX, YY, S0, S1, S2, Pplane, cam_origin, device=a.device)
+    Savg, Navg, Zavg, inc = acc.finalize()
+    np.savez(out / "pdata_avg", Savg=Savg, Navg_grid=Navg, Zavg=Zavg, incidence_avg=inc, Cam2Grid=Cam2Grid)
+    print(f"polarimetric averages over {N} frames saved to {out / 'pdata_avg.npz'}")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -335,7 +353,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--cam", type=int, default=0)
     p.add_argument("--threshold-val", type=float, default=0.35)
     p.add_argument("--use-vats", action="store_true")
-    p = command("polarimetric_setup", cmd_polarimetric_setup, "grid-sampled Stokes averages (refused)")
+    p = command("polarimetric_setup", cmd_polarimetric_setup, "grid-sampled Stokes, normal and incidence averages")
     p.add_argument("--cam", type=int, default=0)
     p.add_argument("--wassdir", required=True)
     p.add_argument("--outputdir", required=True)

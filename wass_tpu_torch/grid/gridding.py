@@ -38,6 +38,7 @@ from wass_tpu_torch.device import resolve_device, to_device
 from wass_tpu_torch.grid.interpolators import dct_interpolate, idw_interpolate
 from wass_tpu_torch.grid.setup import GridSetup
 from wass_tpu_torch.io import png
+from wass_tpu_torch.io.image import CAM_IMAGE_QUALITY, encode_jpeg
 from wass_tpu_torch.io.workdir import Workdir
 from wass_tpu_torch.ops.morphology import median_filter
 
@@ -294,7 +295,7 @@ def grid_sequence(
             frame_idx = int(str(wd.path.name)[:-3]) if str(wd.path.name).endswith("_wd") else i
             image = imagemask = None
             if cfg.save_images:
-                image, imagemask, dims = _load_frame_png(wd, cfg.image_id_to_save)
+                image, imagemask, dims = _load_frame_jpeg(wd, cfg.image_id_to_save)
                 if dims is not None:
                     writer.add_meta_attribute("image_width", dims[1])
                     writer.add_meta_attribute("image_height", dims[0])
@@ -342,19 +343,18 @@ def _save_grid_diagnostics(Z: torch.Tensor, diag_dir) -> None:
     png.write_gray(diag / "grid_img.png", torch.nan_to_num(img, nan=0.0).to(torch.uint8).cpu().numpy())
 
 
-def _load_frame_png(wd: Workdir, cam: int):
-    """The undistorted frame for the cube's cam0images variable: the bytes
-    of the workdir's undistorted PNG as they are (an 8-bit grayscale PNG,
-    the port's own codec writes them), with its (H, W), plus the raw mask
-    bytes when undistorted/maskN.png exists (wassgridsurface.py:494-513).
-    (None, None, None) when the frame cannot be read, as in the JAX
-    package."""
+def _load_frame_jpeg(wd: Workdir, cam: int):
+    """The undistorted frame JPEG-encoded at quality 90 for the cube's
+    cam0images variable, as the JAX package's native encoder does (the
+    bytes differ by encoder, the decoded images agree), with its (H, W),
+    plus the raw mask bytes when undistorted/maskN.png exists
+    (wassgridsurface.py:494-513).  (None, None, None) when the frame
+    cannot be read, as in the JAX package."""
     try:
-        data = wd.undistorted_path(cam).read_bytes()
-        dims = png.gray_shape(data)
+        img = wd.load_undistorted(cam)
         maskfile = wd.path / "undistorted" / f"mask{cam}.png"
         imagemask = maskfile.read_bytes() if maskfile.exists() else None
-        return data, imagemask, dims
+        return encode_jpeg(img, CAM_IMAGE_QUALITY), imagemask, img.shape
     except (OSError, ValueError):
         return None, None, None
 

@@ -1,8 +1,11 @@
-"""8-bit grayscale PNG codec (stdlib zlib + struct + numpy).
+"""8-bit grayscale PNG codec.
 
-The port's image IO needs neither imageio nor libpng.  The writer emits
-filter type 0 rows in one IDAT chunk; the reader takes non-interlaced
-8-bit grayscale images with any of the five row filters.
+The writer (stdlib zlib + struct + numpy) emits filter type 0 rows in one
+IDAT chunk: the workdirs' PNGs.  The reader takes non-interlaced 8-bit
+grayscale images with any of the five row filters; it checks the header
+and decodes through OpenCV's libpng, which releases the interpreter lock
+(io/image.py has the other formats).  decode_gray_plain is the codec's
+own numpy decoder, the tests' reference.
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import struct
 import zlib
 
+import cv2
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
@@ -93,7 +97,16 @@ def gray_shape(buf: bytes) -> tuple:
 
 
 def decode_gray(buf: bytes) -> np.ndarray:
-    """(H, W) uint8 gray image from PNG bytes."""
+    """(H, W) uint8 gray image from PNG bytes, decoded by OpenCV."""
+    H, W = gray_shape(buf)
+    img = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_UNCHANGED)
+    if img is None or img.shape != (H, W):
+        raise ValueError("corrupt PNG image data")
+    return img
+
+
+def decode_gray_plain(buf: bytes) -> np.ndarray:
+    """(H, W) uint8 gray image from PNG bytes, by the codec's numpy unfilter."""
     if buf[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8

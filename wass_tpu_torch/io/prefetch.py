@@ -4,10 +4,10 @@ The port's counterpart of the JAX package's native Prefetcher
 (wass_tpu/native/__init__.py:170-203, a C++ thread pool on libpng), with
 its interface: submit(path) -> ticket, take(ticket) -> (H, W) uint8,
 close().  The native library does not build where the port runs (no
-libpng headers), so a pool of Python threads decodes with the port's
-codec (io/png.py): zlib.decompress, most of a filter-0 decode, releases
-the interpreter lock.  A decode error is raised by take(), in the
-caller's thread.
+libpng headers), so a pool of Python threads decodes through io/png.py,
+whose OpenCV decode releases the interpreter lock: the threads decode at
+once, whatever row filters the PNGs use.  A decode error is raised by
+take(), in the caller's thread.
 """
 
 from __future__ import annotations

@@ -17,8 +17,9 @@ Matlab verifiers, and any existing WASS tooling can consume our outputs:
 The port's own copy of the JAX package's wass_tpu/io/workdir.py, with the same
 behaviour (the port imports nothing of the JAX package); file
 references are to the WASS reference sources.  The undistorted images go
-through the port's stdlib PNG codec (io/png.py) where the original takes
-its native codec or imageio; the decoded pixels are the same.
+through the port's PNG codec (io/png.py: a stdlib writer of filter-0
+rows, a reader through OpenCV) where the original takes its native codec
+or imageio; the decoded pixels are the same.
 """
 
 from __future__ import annotations

@@ -6,10 +6,9 @@ optional CLAHE, undistortion, and the workdir contract out
 (undistorted/0000000{0,1}.png, the per-frame intrinsics XMLs, extrinsics
 passed through), as main() of wass_prepare.cpp:303-540 of the WASS
 sources.  The image work runs on `device`; file IO stays on the host.
-
-The JAX package writes the Stokes images of the polarimetric path as
-float32 TIFFs through imageio (save_stokes); the port has no TIFF writer
-and refuses that option.
+With demosaic and save_stokes the Stokes images go next to the PNGs as
+float32 TIFFs, undistorted/0000000{cam}_S{0,1,2}.tiff (io/image.py), as
+the JAX package writes them through imageio.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import numpy as np
 import torch
 
 from wass_tpu_torch.device import resolve_device, to_device
+from wass_tpu_torch.io.image import write_float_tiff
 from wass_tpu_torch.io.workdir import Workdir
 from wass_tpu_torch.ops.sampling import undistort_image
 from wass_tpu_torch.prepare.clahe import clahe
@@ -37,7 +37,7 @@ class PrepareConfig:
     clahe_tile_px_cam1: int = 0
     demosaic: bool = False
     hdr: bool = False
-    save_stokes: bool = False  # refused: the port writes no TIFF
+    save_stokes: bool = False  # write _S0/_S1/_S2.tiff next to the PNGs
 
 
 def _clahe_tiles(shape, tile_px: int):
@@ -47,11 +47,9 @@ def _clahe_tiles(shape, tile_px: int):
 
 
 def prepare_image(img: np.ndarray, K: np.ndarray, dist: np.ndarray, cfg: PrepareConfig, cam: int,
-                  device="cuda") -> np.ndarray:
-    """One raw frame -> its undistorted image, float in [0, 255]."""
-    if cfg.demosaic and cfg.save_stokes:
-        raise ValueError("save_stokes: the port writes no TIFF files (the JAX package writes the Stokes "
-                         "images through imageio); run without it")
+                  device="cuda", out_stokes_prefix=None) -> np.ndarray:
+    """One raw frame -> its undistorted image, float in [0, 255]; with
+    demosaic, save_stokes and a prefix, also its Stokes TIFFs."""
     tile_px = cfg.clahe_tile_px_cam0 if cam == 0 else cfg.clahe_tile_px_cam1
     clip = cfg.clahe_clip_limit_cam0 if cam == 0 else cfg.clahe_clip_limit_cam1
     dist = np.asarray(dist).reshape(-1)
@@ -65,7 +63,11 @@ def prepare_image(img: np.ndarray, K: np.ndarray, dist: np.ndarray, cfg: Prepare
     Kt = to_device(torch.as_tensor(np.asarray(K, np.float32)), device)
     dt = to_device(torch.as_tensor(dist.astype(np.float32)), device)
     if cfg.demosaic:
-        out = polarimetric_process(x, Kt, dt, use_hdr=cfg.hdr).intensity
+        res = polarimetric_process(x, Kt, dt, use_hdr=cfg.hdr)
+        if cfg.save_stokes and out_stokes_prefix is not None:
+            for name, arr in (("S0", res.S0), ("S1", res.S1), ("S2", res.S2)):
+                write_float_tiff(f"{out_stokes_prefix}_{name}.tiff", arr.cpu().numpy())
+        out = res.intensity
         if tiles != (0, 0):
             out = clahe(out, clip, tiles_x=tiles[1], tiles_y=tiles[0])
     else:
@@ -89,9 +91,11 @@ def prepare_frame(
     device="cuda",
 ) -> Workdir:
     """Create and populate one frame workdir (the wass_prepare contract)."""
-    u0 = prepare_image(img0, K0, d0, cfg, cam=0, device=device)
-    u1 = prepare_image(img1, K1, d1, cfg, cam=1, device=device)
     wd = Workdir(workdir_path).create()
+    pref0 = wd.path / "undistorted" / "00000000" if cfg.save_stokes else None
+    pref1 = wd.path / "undistorted" / "00000001" if cfg.save_stokes else None
+    u0 = prepare_image(img0, K0, d0, cfg, cam=0, device=device, out_stokes_prefix=pref0)
+    u1 = prepare_image(img1, K1, d1, cfg, cam=1, device=device, out_stokes_prefix=pref1)
     wd.save_undistorted(0, u0)
     wd.save_undistorted(1, u1)
     wd.save_intrinsics(0, K0)

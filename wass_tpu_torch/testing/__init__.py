@@ -111,13 +111,64 @@ def load_or_render_raw(rig: SyntheticRig, seed: int, dist0, dist1, cache_dir) ->
     return img0, img1
 
 
-def write_raw_sequence(root, raw0: np.ndarray, raw1: np.ndarray, rig: SyntheticRig, n_frames: int,
-                       dist0=None, dist1=None) -> tuple:
-    """The input of the prepare stage: n_frames copies of the raw pair
-    (raw0, raw1) as 8-bit PNGs in root/cam0 and root/cam1, and root/calib
-    with intrinsics_0{0,1}.xml, ext_R.xml, ext_T.xml and, for each lens
-    given, distortion_0{0,1}.xml.  Returns (cam0, cam1, calib)."""
+# Raw frame formats of write_raw_sequence and their file suffixes: forms a
+# camera's software writes, each of which prepare reads back as the frame
+# (JPEG up to its loss).
+RAW_FORMATS = {"png": ".png", "colour_png": ".png", "png16": ".png", "jpeg95": ".jpg", "tiff32": ".tiff"}
+
+
+def encode_raw(img: np.ndarray, fmt: str) -> bytes:
+    """An (H, W) uint8 frame in RAW_FORMATS[fmt]: 8-bit grey PNG (the port's
+    codec), colour PNG with R = G = B, 16-bit PNG of frame x 257 (its high
+    byte the frame), quality-95 JPEG, float32 TIFF."""
+    import cv2
+
     from wass_tpu_torch.io import png
+
+    if fmt == "png":
+        return png.encode_gray(img)
+    arr, params = {
+        "colour_png": (np.stack([img] * 3, axis=-1), ()),
+        "png16": (img.astype(np.uint16) * 257, ()),
+        "jpeg95": (img, (cv2.IMWRITE_JPEG_QUALITY, 95)),
+        "tiff32": (img.astype(np.float32), ()),
+    }[fmt]
+    ok, buf = cv2.imencode(RAW_FORMATS[fmt], arr, list(params))
+    if not ok:
+        raise ValueError(f"OpenCV cannot encode {fmt}")
+    return buf.tobytes()
+
+
+def png_with_filters(img: np.ndarray, ftypes) -> bytes:
+    """PNG bytes of an (H, W) uint8 image whose row y is filtered with
+    ftypes[y] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth; libpng writers
+    choose among them row by row)."""
+    import struct
+    import zlib
+
+    from wass_tpu_torch.io import png
+
+    x = img.astype(np.int32)
+    a = np.pad(x, ((0, 0), (1, 0)))[:, :-1]
+    b = np.pad(x, ((1, 0), (0, 0)))[:-1]
+    c = np.pad(x, ((1, 0), (1, 0)))[:-1, :-1]
+    ftypes = np.broadcast_to(np.asarray(ftypes, np.uint8), x.shape[:1])
+    pred = np.choose(np.broadcast_to(ftypes[:, None], x.shape), [np.zeros_like(x), a, b, (a + b) >> 1, png._paeth(a, b, c)])
+    raw = np.empty((x.shape[0], x.shape[1] + 1), np.uint8)
+    raw[:, 0] = ftypes
+    raw[:, 1:] = (x - pred) & 0xFF
+    ihdr = struct.pack(">IIBBBBB", x.shape[1], x.shape[0], 8, 0, 0, 0, 0)
+    return (png._SIGNATURE + png._chunk(b"IHDR", ihdr) + png._chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + png._chunk(b"IEND", b""))
+
+
+def write_raw_sequence(root, raw0: np.ndarray, raw1: np.ndarray, rig: SyntheticRig, n_frames: int,
+                       dist0=None, dist1=None, fmt: str = "png") -> tuple:
+    """The input of the prepare stage: n_frames copies of the raw pair
+    (raw0, raw1) as frames of RAW_FORMATS[fmt] (8-bit grey PNG by default)
+    in root/cam0 and root/cam1, and root/calib with intrinsics_0{0,1}.xml,
+    ext_R.xml, ext_T.xml and, for each lens given,
+    distortion_0{0,1}.xml.  Returns (cam0, cam1, calib)."""
     from wass_tpu_torch.io.matrices import save_matrix_xml
 
     root = Path(root)
@@ -130,9 +181,9 @@ def write_raw_sequence(root, raw0: np.ndarray, raw1: np.ndarray, rig: SyntheticR
         if dist is not None:
             save_matrix_xml(dirs[2] / f"distortion_0{cam}.xml", "distortion", np.reshape(dist, (1, -1)))
         save_matrix_xml(dirs[2] / f"intrinsics_0{cam}.xml", "intrinsics", K)
-        data = png.encode_gray(np.clip(np.asarray(img), 0, 255).astype(np.uint8))
+        data = encode_raw(np.clip(np.asarray(img), 0, 255).astype(np.uint8), fmt)
         for i in range(n_frames):
-            (dirs[cam] / f"{i:06d}.png").write_bytes(data)
+            (dirs[cam] / f"{i:06d}{RAW_FORMATS[fmt]}").write_bytes(data)
     save_matrix_xml(dirs[2] / "ext_R.xml", "ext_R", rig.R)
     save_matrix_xml(dirs[2] / "ext_T.xml", "ext_T", np.reshape(rig.T, (3, 1)))
     return dirs
