@@ -112,6 +112,27 @@ M. Match and autocalibrate on the card (phase M): MATCH_FRAMES workdirs of
    mask.  The loop runs with its debug renders on (the default) and off,
    and prints the writers' render ms a frame.  Measurement only: nothing here is counted as a launch of the
    main path.
+F. The optical flow (phase F): FLOW_FRAMES of phase 5's frames through
+   SequencePipeline with ENABLE_OPTICAL_FLOW=true (the flow defaults: 8
+   linearisations and 200 Jacobi sweeps, the loop's defaults, renders on).
+   Gates: each workdir's flow_coarse.png and flow.png decode to (1536,
+   2048, 3); mesh_full_flow.ply's vertex count equals the frame's valid
+   flow pixels; mesh_cam.xyzC and plane.txt byte-equal to phase 5's frame
+   with the flow off; each frame launched 8 flow_linearize and 200
+   flow_jacobi; the flow points' trimmed-mean elevation error (the worst
+   0.1% dropped, tests/test_flow.py) under FLOW_GATE = 0.05, the point
+   count printed.  Then frames/s with the flow against phase 5's with it
+   off; frame 0's flow stage by stage on the loop's own inputs (CUDA
+   events: coarse flow, opening, the IDW fill, the image gradients, the 8
+   linearisations and 200 sweeps timed launch by launch, gates and
+   triangulation; host ms of the two renders and the PLY write), the
+   result equal to the loop's bit for bit; flow_linearize and
+   flow_jacobi against their plain versions on frame 0's inputs (the
+   first linearisation's, the second sweep's: u apart from the warp point,
+   as in 24 of a warp's 25 sweeps)
+   (bit-equal), timed, with their bounds; the whole solver through the
+   kernels against the plain versions' loop on the card (bit-equal), both
+   timed.
 G. The grid stage on phase 5's ten frames (2048x1536, c2f, ~2.7M points
    a frame): `wass-tpu-torch-gridsurface --action setup` (GRID_AREA m
    about frame 0's median point, N = 256) and `--action grid` (DCT, 500
@@ -131,7 +152,13 @@ G. The grid stage on phase 5's ten frames (2048x1536, c2f, ~2.7M points
    giving more than GRID_MIN_FINITE finite cells; the outlier votes' frame
    twice, gated on the same Z bytes.  Then the votes on frame 0's points:
    twice on the card (gated equal, timed) and once on the CPU (the share
-   of votes that differ printed).
+   of votes that differ printed).  Then --refine: frame 0's gridded Z
+   refined (400 Adam steps) eagerly and through the CUDA graph of the step
+   (capture, then replays), twice more by the graph: the two replays'
+   bits equal, Z finite exactly inside the mask; printed: the eager and
+   graph times against a step's bound, the loss at step 0 and after step
+   400, the mean |dZ| inside the mask; then --refine through the console
+   on one frame.
 S. The post stage (phase S) on a cube of phase G's grid and meta (N = 256,
    its config.mat, P0plane and Cam0toGrid): POST_FRAMES frames at POST_FPS
    (200 s; users film 10-30 min at 10-20 Hz, the cut is the duration), Z
@@ -195,8 +222,9 @@ I. Image IO and the renders.  Phase 4's frames must carry the six stereo
    at the live columns, 4 n_live bytes each; the fused visibility
    kernel's 9 bytes a cell (Z in, occ and inc out) and XX, YY, its ~60
    float operations a cell and 13 a march step; the march-only kernel's
-   17 bytes a ray (Z, d and the flag) and 13 operations a step; no single
-   PyTorch call
+   17 bytes a ray (Z, d and the flag) and 13 operations a step; the flow
+   kernels' 40 bytes a pixel each (flow_linearize, flow_jacobi); no
+   single PyTorch call
    computes any of these
    functions, so library_ms is null), then the last line
    {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}},
@@ -211,6 +239,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import io
 import json
 import os
@@ -285,6 +314,11 @@ KERNELS = {
     # a slab; and the march alone of the occlusion masks.
     "visibility_batch": ("wass_tpu_torch/csrc/visibility.cu", "wass_tpu/post/geometry.py:94"),
     "visibility_march": ("wass_tpu_torch/csrc/visibility.cu", "wass_tpu/post/geometry.py:33"),
+    # Not Pallas kernels: the flow solver's compiled loops (flow.py:
+    # variational_refine), the outer warp and linearisation (outer_body) and
+    # one Jacobi sweep of the inner lax.scan.
+    "flow_linearize": ("wass_tpu_torch/csrc/flow.cu", "wass_tpu/stereo/flow.py:248"),
+    "flow_jacobi": ("wass_tpu_torch/csrc/flow.cu", "wass_tpu/stereo/flow.py:261"),
 }
 # The default path's SGM keys, which no H2 frame may launch.
 DEFAULT_SGM = ("sgm_wta_fused", "sgm_wta_fused_windowed", "sgm_aggregate", "sgm_aggregate_windowed")
@@ -1552,8 +1586,10 @@ def dispatch_syncs(img0, img1, rig, cfg) -> list:
     return sites
 
 
-def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
-    """Phase 5: the c2f frame's device stages and the sequence loop's rate."""
+def profile_c2f_frame(root: Path, img0, img1, rig) -> dict:
+    """Phase 5: the c2f frame's device stages and the sequence loop's rate.
+    Returns the loop's frames/s by (dispatch_depth, writer_threads,
+    renders)."""
     import numpy as np
     import torch
 
@@ -1566,6 +1602,7 @@ def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
 
     seq = root / "smoke_loop"
     write_sequence(seq, img0, img1, rig, LOOP_FRAMES)
+    loop_rates = {}
     for (depth, writers), renders in [(s, r) for s in LOOP_SETTINGS for r in (True, False)]:
         pipe = load_pipeline(seq)
         pipe.cfg.dispatch_depth, pipe.cfg.writer_threads, pipe.cfg.debug_renders = depth, writers, renders
@@ -1576,6 +1613,7 @@ def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
             t0 = time.time()
             pipe.stereo(progress_stream=io.StringIO())  # returns after the last frame's files are written
             rates.append(LOOP_FRAMES / (time.time() - t0))
+            loop_rates[(depth, writers, renders)] = rates
             decode += pipe.loop_stats["decode_s"]
             dispatch += pipe.loop_stats["dispatch_s"]
             render_s += pipe.loop_stats["render_s"]
@@ -1637,6 +1675,256 @@ def profile_c2f_frame(root: Path, img0, img1, rig) -> None:
     sums = [sum(t[i] for t in times.values()) for i in range(3)]
     log(f"stage sum: {min(sums):.3f}-{max(sums):.3f} ms; K7 on the frame's z-gap mask: {k7_rounds} of "
         f"{LABEL_ROUNDS} rounds changed labels")
+    return loop_rates
+
+FLOW_FRAMES = 3  # phase F's frames: phase 5's scene with ENABLE_OPTICAL_FLOW=true
+FLOW_CONFIG = "ENABLE_OPTICAL_FLOW=true\n"  # phase F's stereo_config.txt (the defaults otherwise)
+FLOW_GATE = 0.05  # tests/test_flow.py's gate on the flow points' trimmed-mean elevation error (stereo: 0.02)
+FLOW_MAX_MOTION = 200.0  # the flow renders' max motion (the stereo loop's)
+# Bytes each flow kernel must move a pixel (inputs read once, outputs written
+# once) and its float operations a pixel: the linearisation reads u, v, I0
+# and the three sampled fields and writes It, Ix, Iy, wdata (u, v stay the
+# sweeps' warp point); a sweep reads u, v, u0, v0, It, Ix, Iy, wdata and
+# writes u', v'.
+FLOW_BYTES = {"flow_linearize": 4 * (6 + 4), "flow_jacobi": 4 * (8 + 2)}
+FLOW_OPS = {"flow_linearize": 40, "flow_jacobi": 46}
+
+
+def read_ply_points(path: Path) -> tuple:
+    """(header vertex count, (N, 3) float32 points, (N, 3) uint8 colours) of
+    a binary xyz+rgb PLY (io/ply.py:save_ply_points)."""
+    import numpy as np
+
+    data = path.read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    n = int(data[:end].decode().split("element vertex ")[1].split("\n")[0])
+    if len(data) - end != 15 * n:
+        raise AssertionError(f"{path.name}: {len(data) - end} bytes of vertices for {n} vertices")
+    rec = np.frombuffer(data[end:], dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+    return n, rec["xyz"], rec["rgb"]
+
+
+def flow_stages(disp, valid_rect, b8, m8, geom, cfg, min_disp: float, out: Path) -> tuple:
+    """Phase F: one frame's flow stage by stage (CUDA events; a synchronize
+    between stages; the solver's launches timed one by one) and the host
+    render and PLY write (into out).  Returns (times, FlowResult, the first
+    linearisation's inputs, the second sweep's inputs)."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.io.ply import save_ply_points
+    from wass_tpu_torch.stereo import flow as fl
+    from wass_tpu_torch.stereo import flow_kernels as fk
+    from wass_tpu_torch.utils import render
+
+    times: dict = {}
+
+    def stage(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[name] = start.elapsed_time(end)
+        return out
+
+    I0, I1 = b8.to(torch.float32), m8.to(torch.float32)
+    H, W = I0.shape
+    flow, valid = stage("coarse flow", lambda: fl.coarse_flow_from_disparity(disp, geom.H_base, geom.Hi_match, (H, W),
+                                                                             min_disp, valid_rect))
+    mask = stage("opening", lambda: fl.binary_erode(fl.binary_dilate(valid.float(), cfg.opening_dilate),
+                                                    cfg.opening_erode))
+    coarse = stage(f"IDW fill ({cfg.idw_reps} passes, plain torch)", lambda: fl.idw_fill(flow, valid, cfg.idw_reps))
+    outer = max(1, cfg.fullres_iterations // cfg.inner_iterations)
+    lam = fl.smoothness_ratio(cfg.fullres_smoothness, cfg.color_consistency)
+    u, v = coarse[..., 0].contiguous(), coarse[..., 1].contiguous()
+    g1x, g1y = stage("image gradients", lambda: fl._image_grads(I1))
+    lin_in, jac_in = (I0, I1, g1x, g1y, u, v), None
+    # The solver's buffers rotate as in variational_refine, from copies, so
+    # that lin_in keeps the first warp point.
+    u, v = u.clone(), v.clone()
+    spare = [(torch.empty_like(u), torch.empty_like(v)) for _ in range(2)]
+    events = {"flow_linearize": [], "flow_jacobi": []}
+    torch.cuda.synchronize()
+    for _ in range(outer):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        u0, v0 = u, v
+        ev[0].record()
+        It, Ix, Iy, wdata = fk.flow_linearize(I0, I1, g1x, g1y, u0, v0)
+        ev[1].record()
+        events["flow_linearize"].append(ev)
+        for k in range(cfg.inner_iterations):
+            if jac_in is None and k == 1:  # copies: the rotation overwrites u and the warp point later
+                jac_in = (u.clone(), v.clone(), *lin_in[4:], It, Ix, Iy, wdata, lam)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            u, v = fk.flow_jacobi(u, v, u0, v0, It, Ix, Iy, wdata, lam, out=spare[k % 2])
+            ev[1].record()
+            events["flow_jacobi"].append(ev)
+        spare[(cfg.inner_iterations - 1) % 2] = (u0, v0)
+    torch.cuda.synchronize()
+    for name, evs in events.items():
+        times[f"{len(evs)} x {name}"] = sum(a.elapsed_time(b) for a, b in evs)
+    refined = torch.stack([u, v], -1)
+
+    def gates():
+        ok = fl.flow_correspondence_gates(refined, mask, I0, I1) & (fl.norm2(refined - coarse) <= 4.0)
+        return fl.triangulate_flow(refined, ok, geom.K0, geom.K1, geom.R, geom.T, bool(geom.base_is_cam0), cfg)
+
+    pts, ok = stage("gates + triangulation", gates)
+    fr = fl.FlowResult(flow=refined, coarse_flow=coarse, points=pts, valid=ok)
+    out.mkdir(parents=True, exist_ok=True)
+    images = []
+    t0 = time.perf_counter()
+    for f in (coarse, refined):
+        images.append(render.render_flow(f, FLOW_MAX_MOTION))
+    t1 = time.perf_counter()
+    for name, img in zip(("flow_coarse.png", "flow.png"), images):
+        render.save_png(out / name, img)
+    times["render (host: fetch, float64 numpy), 2 images"] = 1e3 * (t1 - t0)
+    times["PNG encode + write (host, zlib), 2 images"] = 1e3 * (time.perf_counter() - t1)
+    t0 = time.perf_counter()
+    save_ply_points(out / "mesh_full_flow.ply", pts[ok].cpu().numpy(),
+                    np.repeat(b8[ok].cpu().numpy()[:, None], 3, axis=1))
+    times["PLY write (host: fetch, write)"] = 1e3 * (time.perf_counter() - t0)
+    return times, fr, lin_in, jac_in
+
+
+def run_flow_phase(root: Path, img0, img1, rig, scene, results: dict, card: str, loop_rates: dict) -> dict:
+    """Phase F: the optical flow through SequencePipeline on FLOW_FRAMES of
+    phase 5's frames (ENABLE_OPTICAL_FLOW=true, the default loop settings,
+    renders on).  Returns the main-path run's launches."""
+    import numpy as np
+    import torch
+
+    import wass_tpu_torch
+    from wass_tpu_torch.cli import pipeline as cli_pipeline
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.io.image import read_image
+    from wass_tpu_torch.stereo import flow as fl
+    from wass_tpu_torch.stereo import flow_kernels as fk
+    from wass_tpu_torch.testing import read_frame, trimmed_elevation_error, write_sequence
+
+    t_phase = time.time()
+    seq = root / "smoke_flow"
+    shutil.rmtree(seq, ignore_errors=True)
+    write_sequence(seq, img0, img1, rig, FLOW_FRAMES)
+    (seq / "stereo_config.txt").write_text(FLOW_CONFIG)
+    pipe = load_pipeline(seq)
+    if pipe.cfg.flow != fl.FlowConfig() or not pipe.cfg.debug_renders:
+        raise AssertionError(f"phase F: flow config {pipe.cfg.flow}, renders {pipe.cfg.debug_renders}")
+    kept: dict = {}
+    write_flow = cli_pipeline.SequencePipeline._write_flow
+
+    def keep_flow(self, wd, geom, res, extras):
+        fr = write_flow(self, wd, geom, res, extras)
+        kept[wd.path.name] = int(fr.valid.sum())
+        if wd.path.name == "000000_wd" and "inputs" not in kept:
+            kept["inputs"] = (res.disparity.clone(), res.valid.clone(), *(t.clone() for t in extras["imgs"]), geom,
+                              fr)
+        return fr
+
+    cli_pipeline.SequencePipeline._write_flow = keep_flow
+    try:
+        wass_tpu_torch.reset_launch_counts()
+        t0 = time.time()
+        pipe.stereo(progress_stream=io.StringIO())
+        wall = time.time() - t0
+        launches = wass_tpu_torch.launch_counts()
+        rates = []
+        for _ in range(2):
+            t0 = time.time()
+            pipe.stereo(progress_stream=io.StringIO())
+            rates.append(FLOW_FRAMES / (time.time() - t0))
+    finally:
+        cli_pipeline.SequencePipeline._write_flow = write_flow
+    outer = max(1, pipe.cfg.flow.fullres_iterations // pipe.cfg.flow.inner_iterations)
+    want = {"flow_linearize": outer, "flow_jacobi": outer * pipe.cfg.flow.inner_iterations}
+    log(f"phase F: {FLOW_FRAMES} frames with the optical flow through SequencePipeline (dispatch_depth "
+        f"{pipe.cfg.dispatch_depth}, writer_threads {pipe.cfg.writer_threads}, renders on) in {wall:.2f} s (first "
+        f"pass); launches {launches}")
+    for i in range(FLOW_FRAMES):
+        wd = seq / f"{i:06d}_wd"
+        ref = root / "smoke_loop" / wd.name
+        differ = [n for n in ("mesh_cam.xyzC", "plane.txt") if (wd / n).read_bytes() != (ref / n).read_bytes()]
+        if differ:
+            raise AssertionError(f"phase F frame {i}: {differ} differ from phase 5's frame with the flow off")
+        for name in ("flow_coarse.png", "flow.png"):
+            shape = read_image(wd / name).shape
+            if shape != (H, W, 3):
+                raise AssertionError(f"phase F frame {i}: {name} decodes to {shape}")
+        n, pts, cols = read_ply_points(wd / "mesh_full_flow.ply")
+        if n != kept[wd.name] or not np.isfinite(pts).all():
+            raise AssertionError(f"phase F frame {i}: PLY of {n} vertices, {kept[wd.name]} valid flow pixels")
+        plane, _, per_frame = read_frame(wd)
+        if any(per_frame.get(k) != c for k, c in want.items()):
+            raise AssertionError(f"phase F frame {i}: flow launches {per_frame}, want {want}")
+        err = trimmed_elevation_error(scene, pts, plane)
+        log(f"phase F frame {i}: mesh_cam.xyzC and plane.txt byte-equal to the flow-off frame; flow_coarse.png, "
+            f"flow.png {H}x{W}x3; mesh_full_flow.ply {n} points (= the valid count), trimmed-mean elevation error "
+            f"{err:.5f} (gate {FLOW_GATE}); launches {per_frame}")
+        if not err < FLOW_GATE:
+            raise AssertionError(f"phase F frame {i}: flow elevation error {err} >= {FLOW_GATE}")
+    off = loop_rates[(pipe.cfg.dispatch_depth, pipe.cfg.writer_threads, True)]
+    log(f"phase F: frames/s with the flow {' '.join(f'{r:.4f}' for r in rates)} ({FLOW_FRAMES} frames a pass, "
+        f"renders on) against phase 5's flow off {' '.join(f'{r:.4f}' for r in off)} ({LOOP_FRAMES} frames a pass)")
+
+    # Frame 0's flow stage by stage, the kernels against their plain versions.
+    disp, valid_rect, b8, m8, geom, fr_loop = kept["inputs"]
+    times, fr, lin_in, jac_in = flow_stages(disp, valid_rect, b8, m8, geom, pipe.cfg.flow,
+                                            float(pipe.cfg.stereo.min_disp), root / "smoke_flow_stages")
+    for name in ("flow", "coarse_flow", "points", "valid"):
+        if not torch.equal(getattr(fr, name), getattr(fr_loop, name)):
+            raise AssertionError(f"phase F: the staged flow's {name} differs from the loop's")
+    for name, ms in times.items():
+        log(f"phase F stage {name}: {ms:.3f} ms")
+    log(f"phase F stage sum: {sum(times.values()):.3f} ms (frame 0, {int(fr.valid.sum())} points, the same bits as "
+        f"the loop's frame); {card}")
+    n = H * W
+    checks = {"flow_linearize": (lambda: fk.flow_linearize(*lin_in), lambda: fk.flow_linearize_plain(*lin_in)),
+              "flow_jacobi": (lambda: fk.flow_jacobi(*jac_in), lambda: fk.flow_jacobi_plain(*jac_in))}
+    for name, (kernel, plain) in checks.items():
+        for a, b in zip(kernel(), plain()):
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], compare(name, a, b))
+        log(f"kernel {name} on frame 0's inputs ({W}x{H}): every output bit-equal")
+        results[name]["ms"] = cuda_ms(kernel, 20)
+        results[name]["plain_ms"] = cuda_ms(plain, 3)
+        set_bound(results, name, FLOW_BYTES[name] * n, FLOW_OPS[name] * n)
+        r = results[name]
+        log(f"kernel {name}: {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}; {FLOW_BYTES[name]} bytes a pixel), {100 * r['bound_ms'] / r['ms']:.1f}% of it; "
+            f"{want[name]} launches a flow frame")
+
+    # The whole solver: the kernels against the plain versions' loop on the card.
+    I0, I1, g1x, g1y, u, v = lin_in
+    cfg = pipe.cfg.flow
+    lam = fl.smoothness_ratio(cfg.fullres_smoothness, cfg.color_consistency)
+    coarse = torch.stack([u, v], -1)
+
+    def plain_solver():
+        pu, pv = u, v
+        for _ in range(outer):
+            u0, v0 = pu, pv
+            It, Ix, Iy, wdata = fk.flow_linearize_plain(I0, I1, g1x, g1y, u0, v0)
+            for _ in range(cfg.inner_iterations):
+                pu, pv = fk.flow_jacobi_plain(pu, pv, u0, v0, It, Ix, Iy, wdata, lam)
+        return torch.stack([pu, pv], -1)
+
+    def kernel_solver():
+        return fl.variational_refine(I0, I1, coarse, cfg.fullres_smoothness, cfg.color_consistency, outer,
+                                     cfg.inner_iterations)
+
+    compare("flow solver (kernels against the plain loop)", kernel_solver(), plain_solver())
+    if not torch.equal(kernel_solver(), fr.flow):
+        raise AssertionError("phase F: the solver's result differs from the frame's refined flow")
+    k_ms, p_ms = cuda_ms(kernel_solver, 3), cuda_ms(plain_solver, 1)
+    log(f"phase F solver ({outer} linearisations, {outer * cfg.inner_iterations} sweeps, 2048x1536): kernels "
+        f"{k_ms:.3f} ms, the plain versions on the card {p_ms:.3f} ms (a record, not a yardstick), bit-equal; "
+        f"bounds {outer * results['flow_linearize']['bound_ms'] + want['flow_jacobi'] * results['flow_jacobi']['bound_ms']:.3f} ms; {card}")
+    log(f"phase F: {time.time() - t_phase:.1f} s wall")
+    return launches
+
 
 GRID_AREA = 16.0  # phase G's --area_size (m) about frame 0's median point: every cell inside the footprint
 GRID_MIN_FINITE = 0.5  # the share of finite cells each of phase G's modes must give
@@ -1882,7 +2170,70 @@ def run_grid_phase(root: Path, scene, card: str) -> None:
                     raise AssertionError(f"phase G mode {label}: a second run gave other Z bytes")
             log(f"phase G mode {label}: a second run gives the same Z bytes")
     check_votes(wds[0], setup, card)
+    check_refine(wds[0], setup, one, out, card)
     log(f"phase G: {time.time() - t_phase:.1f} s wall")
+
+
+def check_refine(wd, setup, one: Path, out: Path, card: str) -> None:
+    """Phase G --refine: frame 0's gridded Z (N = 256, DCT) refined by
+    photo-consistency eagerly and by the CUDA graph of its Adam step (the
+    first call captures it), then replayed again on the same inputs (the
+    same bits required); then --refine through the console on one frame."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.grid import gridding
+    from wass_tpu_torch.grid import variational as gv
+    from wass_tpu_torch.grid.netcdf import NetCDFReader
+
+    cfg = gridding.GridConfig()
+    Z, mask = gridding.grid_frame(wd, setup, cfg, device="cuda")
+    inside = mask > 0
+    P0, P1 = wd.load_projection_matrices()
+    args = (Z, wd.load_undistorted(0), wd.load_undistorted(1), P0, P1, setup.Rpl, setup.Tpl, setup.XX, setup.YY,
+            setup.baseline, inside.float())
+
+    def run(**kw):
+        stats: dict = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Zr = gv.variational_refine(*args, stats=stats, **kw)
+        torch.cuda.synchronize()
+        return Zr, 1e3 * (time.perf_counter() - t0), stats
+
+    Ze, eager_ms, st_e = run(use_graph=False)
+    Zg, first_ms, st_g = run()
+    Zg2, replay_ms, _ = run()
+    if not torch.equal(Zg.view(torch.int32), Zg2.view(torch.int32)):  # the bits, NaNs included
+        raise AssertionError("phase G --refine: two graph replays on the same inputs gave other bits")
+    if not (torch.equal(torch.isfinite(Zg), inside) and torch.equal(torch.isnan(Zg), ~inside)):
+        raise AssertionError("phase G --refine: the refined Z is not finite inside the mask and NaN outside")
+    dz = (Zg - Z).abs()[inside]
+    H, W = Z.shape
+    h, w = H // 2, W // 2
+    # One step's least device time: Zc, mu and nu read and written, XX, YY
+    # and the mask read, the four bilinear taps of each image; or the
+    # derivative-of-Gaussian convolutions (2 x 49 multiply-adds a cell,
+    # forward and backward) at 67 TFLOP/s.
+    step_bound = bound(6 * 4 * h * w + 3 * 4 * H * W + 2 * 4 * 4 * H * W, 4 * 2 * 49 * 2 * H * W)
+    n = inspect.signature(gv.variational_refine).parameters["max_iters"].default
+    log(f"phase G --refine (frame 0, N = {H}, {n} Adam steps): eager {eager_ms:.1f} ms ({eager_ms / n:.3f} ms a "
+        f"step), the CUDA graph's first call (capture + replays) {first_ms:.1f} ms, replays {replay_ms:.1f} ms "
+        f"({1e3 * replay_ms / n:.1f} us a step; a step's bound {1e3 * step_bound[0]:.2f} us, {step_bound[1]}); "
+        f"loss {st_g['loss_first']:.6g} at step 0 and {st_g['loss_last']:.6g} after step {n} (eager "
+        f"{st_e['loss_first']:.6g}, {st_e['loss_last']:.6g}); mean |dZ| inside the mask {float(dz.mean()):.5f} m "
+        f"(max {float(dz.max()):.4f}); eager against graph max |diff| {float((Ze - Zg).abs()[inside].max()):.3g} m; "
+        f"two replays bit-equal; Z finite inside the mask, NaN outside; {card}")
+    mout = one.parent / "smoke_grid_refine"
+    shutil.rmtree(mout, ignore_errors=True)
+    t = grid_cli(one, mout, "--action", "grid", "--gridsetup", str(out / "config.mat"), "--refine")
+    with NetCDFReader(mout / "gridded.nc") as cube:
+        Zc = cube.Z[0].T / 1000.0
+    if not np.array_equal(np.isfinite(Zc), inside.cpu().numpy()):
+        raise AssertionError("phase G --refine: the console's refined Z is not finite exactly inside the mask")
+    log(f"phase G mode --refine: one frame {t:.2f} s through the console, "
+        f"{100 * np.isfinite(Zc).mean():.1f}% finite, max |Z - the direct refinement| "
+        f"{float(np.nanmax(np.abs(Zc - Zg.cpu().numpy()))):.3g} m")
 
 
 def check_votes(wd, setup, card: str) -> None:
@@ -2445,7 +2796,9 @@ def main() -> int:
                        "match renders of phase M")
 
     # Phase 5: where the c2f frame's time goes.
-    profile_c2f_frame(_build.BUILD_DIR, img0, img1, rig)
+    loop_rates = profile_c2f_frame(_build.BUILD_DIR, img0, img1, rig)
+    # Phase F: the optical flow on phase 5's frames.
+    add_counts(launches, run_flow_phase(_build.BUILD_DIR, img0, img1, rig, scene, results, smi, loop_rates))
     # Phase G: the grid stage on phase 5's frames.
     run_grid_phase(_build.BUILD_DIR, scene, smi)
     # Phase S: the post stage on a cube of phase G's grid.

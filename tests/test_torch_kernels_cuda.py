@@ -14,6 +14,8 @@ from wass_tpu_torch.match import iidyn as im
 from wass_tpu_torch.ops import components_kernels as ck
 from wass_tpu_torch.post import geometry as pg
 from wass_tpu_torch.post import visibility_kernels as vk
+from wass_tpu_torch.stereo import flow as tflow
+from wass_tpu_torch.stereo import flow_kernels as fk
 from wass_tpu_torch.stereo import sgm_kernels as sk
 from wass_tpu_torch.stereo import sgm as plain_sgm
 from wass_tpu_torch.stereo.cost import census_cost_volume, census_cost_volume_windowed, census_transform
@@ -583,3 +585,78 @@ def test_visibility_kernels_cut_marches(dev, max_steps):
     assert torch.equal(occ, occ_p) and _same_bits(inc, inc_p)
     d, maxz = pg.ray_steps(pg.view_rays(Z, cam, XX, YY)), Z.amax(dim=(1, 2))
     assert torch.equal(vk.march(Z, d, maxz, max_steps), vk.march_plain(Z, d, maxz, max_steps))
+
+
+# The flow kernels' shapes: ragged, one-pixel and three-pixel images (no
+# pixel inside the one-pixel border), and warps of each scale: small ones
+# that stay inside the image, large ones that leave it, some on integer
+# taps, a NaN and an infinite one.
+FLOW_SHAPES = [(777, 1001), (1, 5), (3, 3), (2, 40), (33, 1), (64, 96)]
+
+
+def _flow_case(dev, h, w, scale, seed):
+    g = torch.Generator().manual_seed(seed)
+    I0, I1 = (torch.rand((h, w), generator=g) * 255 for _ in range(2))
+    u, v = (torch.randn((h, w), generator=g) * scale for _ in range(2))
+    u.view(-1)[::7] = torch.round(u.view(-1)[::7])
+    if h * w > 4:
+        u.view(-1)[1] = float("nan")
+        v.view(-1)[2] = float("inf")
+    gx, gy = tflow._image_grads(I1)
+    return [t.to(dev).contiguous() for t in (I0, I1, gx, gy, u, v)]
+
+
+def _same_fields(a, b):
+    return all(torch.equal(x.nan_to_num(7.0), y.nan_to_num(7.0)) and torch.equal(x.isnan(), y.isnan())
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("h,w", FLOW_SHAPES)
+@pytest.mark.parametrize("scale", [0.3, 3.0, 60.0])
+def test_flow_linearize_kernel(dev, h, w, scale):
+    args = _flow_case(dev, h, w, scale, h * w)
+    before = wass_tpu_torch.launch_counts()["flow_linearize"]
+    out = fk.flow_linearize(*args)
+    assert wass_tpu_torch.launch_counts()["flow_linearize"] == before + 1
+    assert _same_fields(out, fk.flow_linearize_plain(*args))
+
+
+@pytest.mark.parametrize("h,w", FLOW_SHAPES)
+@pytest.mark.parametrize("scale", [0.3, 60.0])
+def test_flow_jacobi_kernel(dev, h, w, scale):
+    I0, I1, gx, gy, u, v = _flow_case(dev, h, w, scale, h + w)
+    u0, v0 = u.nan_to_num(0.0, 0.0, 0.0), v.nan_to_num(0.0, 0.0, 0.0)
+    It, Ix, Iy, wdata = fk.flow_linearize_plain(I0, I1, gx, gy, u0, v0)
+    g = torch.Generator().manual_seed(h * w + 1)
+    un, vn = (torch.randn((h, w), generator=g).to(dev) for _ in range(2))
+    lam = tflow.smoothness_ratio(300.0, 100.0)
+    out = fk.flow_jacobi(un, vn, u0, v0, It, Ix, Iy, wdata, lam)
+    assert _same_fields(out, fk.flow_jacobi_plain(un, vn, u0, v0, It, Ix, Iy, wdata, lam))
+
+
+@pytest.mark.parametrize("outer,inner", [(2, 5), (3, 5), (3, 4)])
+def test_flow_solver_kernels_match_plain_loop(dev, outer, inner):
+    """A solve through the kernels (the three rotating buffers included:
+    odd and even sweep counts, every buffer a warp point once) against the
+    plain versions' loop on the card."""
+    I0, I1, gx, gy, u, v = _flow_case(dev, 97, 131, 0.5, 5)
+    flow = torch.stack([u.nan_to_num(0.0, 0.0, 0.0), v.nan_to_num(0.0, 0.0, 0.0)], -1)
+    kept = flow.clone()
+    got = tflow.variational_refine(I0, I1, flow, 300.0, 100.0, outer, inner)
+    assert torch.equal(flow, kept)
+    lam = tflow.smoothness_ratio(300.0, 100.0)
+    pu, pv = flow[..., 0].contiguous(), flow[..., 1].contiguous()
+    for _ in range(outer):
+        u0, v0 = pu, pv
+        It, Ix, Iy, wdata = fk.flow_linearize_plain(I0, I1, gx, gy, u0, v0)
+        for _ in range(inner):
+            pu, pv = fk.flow_jacobi_plain(pu, pv, u0, v0, It, Ix, Iy, wdata, lam)
+    assert torch.equal(got, torch.stack([pu, pv], -1))
+
+
+def test_flow_jacobi_refuses_aliased_output(dev):
+    args = _flow_case(dev, 8, 9, 0.5, 1)
+    u0, v0 = args[4], args[5]
+    It, Ix, Iy, wdata = fk.flow_linearize(*args)
+    with pytest.raises(ValueError):
+        fk.flow_jacobi(u0, v0, u0, v0, It, Ix, Iy, wdata, 3.0, out=(u0, torch.empty_like(u0)))

@@ -1,6 +1,7 @@
 """The port runs without jax and without any module of the JAX package
 (a dense frame, prepare on colour frames, the stereo CLI with its debug
-renders, measure, the grid console on its meshes, the post console on
+renders and the optical flow, measure, the grid console (--refine) on its
+meshes, the post console on
 that cube, and the match stage through the CLI), and without h5py,
 imageio, matplotlib or click, which the GPU host lacks (click: the
 port's consoles are argparse); its PNG codec agrees with imageio and
@@ -76,8 +77,11 @@ with tempfile.TemporaryDirectory() as tmp:
     seq = Path(tmp)
     cam0, cam1, calib = write_raw_sequence(seq / "raw", sc.img0, sc.img1, rig, 1, fmt="colour_png")
     assert main(["prepare", str(cam0), str(cam1), str(calib), str(seq), "--device", "cpu"]) == 0
-    (seq / "stereo_config.txt").write_text("MAX_DISPARITY=16\nPLANE_RANSAC_ROUNDS=50\n")
+    (seq / "stereo_config.txt").write_text("MAX_DISPARITY=16\nPLANE_RANSAC_ROUNDS=50\nENABLE_OPTICAL_FLOW=true\n"
+                                           "FLOW_REFINEMENT_FULLRES_ITERATIONS=50\n")
     assert main(["stereo", str(seq), "--device", "cpu"]) == 0
+    for name in ("flow_coarse.png", "flow.png", "mesh_full_flow.ply"):
+        assert (seq / "000000_wd" / name).stat().st_size > 0, name
     plane, mesh, _ = read_frame(seq / "000000_wd")
     assert mesh.shape[1] == 3 and len(mesh) > 0
     renders = sorted(p.name for p in (seq / "000000_wd").glob("*.jpg"))
@@ -88,7 +92,7 @@ with tempfile.TemporaryDirectory() as tmp:
     grid = seq / "grid"
     assert grid_main([str(seq), str(grid), "--action", "setup", "--baseline", "2.5", "--area_center",
                       f"{cx},{cy}", "--area_size", "4", "-N", "16", "--device", "cpu"]) == 0
-    assert grid_main([str(seq), str(grid), "--action", "grid", "--device", "cpu"]) == 0
+    assert grid_main([str(seq), str(grid), "--action", "grid", "--refine", "--device", "cpu"]) == 0
     with NetCDFReader(grid / "gridded.nc") as cube:
         assert cube.Z.shape == (1, 16, 16) and np.isfinite(cube.Z[...]).any()
         z0 = np.nan_to_num(cube.Z[0])
@@ -126,8 +130,8 @@ print("OK", int(res.n_points), len(mesh), n_matches)
 
 def test_port_runs_without_jax():
     """jax, every module of the JAX package, h5py, imageio, matplotlib and
-    click are refused at import; a frame, the stereo CLI, the grid console
-    (setup and grid), the post console (info, spectrum, visibilitymap,
+    click are refused at import; a frame, the stereo CLI (with the optical
+    flow), the grid console (setup and grid with --refine), the post console (info, spectrum, visibilitymap,
     filter) and the match CLI still run, and the match, calibration and
     grid modules import."""
     proc = subprocess.run([sys.executable, "-c", _NOJAX_RUN], cwd=ROOT, capture_output=True, text=True,

@@ -10,8 +10,8 @@ full-range fallback included), gridding and post stages on an NVIDIA H100:
              match, autocalibrate, and the production stereo loop (PNG
              prefetch, dispatch ahead, writer threads)
   grid/      grid setup (config.mat), per-frame gridding on the device
-             (median stack, DCT/IDW/LinearND fill, outlier votes) and the
-             gridded.nc cube
+             (median stack, DCT/IDW/LinearND fill, outlier votes, the
+             photo-consistency refinement) and the gridded.nc cube
   post/      the post stage over gridded cubes: spectra, filters, the
              visibility batch and ray march, radiance, polarimetric averages, and
              the out-of-core streaming under a memory budget
@@ -20,20 +20,21 @@ full-range fallback included), gridding and post stages on an NVIDIA H100:
   calib/     two-view bundle adjustment, the Sampson polish, the pooled
              sequence autocalibration
   stereo/    census, cost volumes, SGM, coarse-to-fine windows, plane fit,
-             the dense frame pipeline
+             the dense frame pipeline, the optical-flow reconstruction
   ops/       sampling and undistortion, morphology, connected components
   core/      geometry, epipolar errors, triangulation, rectification
   prepare/   the prepare stage (CLAHE, undistortion, the polarimetric
              path) and the input-degradation estimate (AUTO smoothing)
   config.py  the self-registering option registry
   launches.py  thread-safe kernel launch counts, per frame
-  io/        stdlib PNG codec and its prefetcher, workdirs, .xyzC, matrices,
+  io/        stdlib PNG codec and its prefetcher, workdirs, .xyzC, PLY, matrices,
              a minimal HDF5 writer, reader and editor (the cube without h5py)
   utils/     the [P|cur|tot] progress line, the stage timer
   testing/   synthetic wave-field scenes and smoke-run helpers
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
              K5/K6 SGM sums, the H2 pair and folding walks, K7 labels,
-             the iidyn loop, the fused visibility batch and the ray march)
+             the iidyn loop, the fused visibility batch and the ray march,
+             the flow solver's linearisation and Jacobi sweep)
 
 Kernel wrappers launch the CUDA kernel for CUDA tensors and run the plain
 PyTorch version for CPU tensors only.  This package never imports jax.
@@ -53,16 +54,18 @@ def launch_counts() -> dict:
     from wass_tpu_torch.match import iidyn
     from wass_tpu_torch.ops import components_kernels
     from wass_tpu_torch.post import visibility_kernels
-    from wass_tpu_torch.stereo import sgm_kernels
+    from wass_tpu_torch.stereo import flow_kernels, sgm_kernels
 
-    return {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES, **iidyn.LAUNCHES, **visibility_kernels.LAUNCHES}
+    return {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES, **iidyn.LAUNCHES, **visibility_kernels.LAUNCHES,
+            **flow_kernels.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     from wass_tpu_torch.match import iidyn
     from wass_tpu_torch.ops import components_kernels
     from wass_tpu_torch.post import visibility_kernels
-    from wass_tpu_torch.stereo import sgm_kernels
+    from wass_tpu_torch.stereo import flow_kernels, sgm_kernels
 
-    for counts in (sgm_kernels.LAUNCHES, components_kernels.LAUNCHES, iidyn.LAUNCHES, visibility_kernels.LAUNCHES):
+    for counts in (sgm_kernels.LAUNCHES, components_kernels.LAUNCHES, iidyn.LAUNCHES, visibility_kernels.LAUNCHES,
+                   flow_kernels.LAUNCHES):
         counts.reset()

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "wass_iidyn": [_PTR] * 6 + [_INT, _c.c_float, _INT, _PTR],
     "wass_visibility_batch": [_PTR] * 8 + [_INT] * 4 + [_PTR],
     "wass_visibility_march": [_PTR] * 5 + [_INT] * 4 + [_PTR],
+    "wass_flow_linearize": [_PTR] * 10 + [_INT] * 2 + [_PTR],
+    "wass_flow_jacobi": [_PTR] * 10 + [_INT] * 2 + [_c.c_float, _PTR],
 }
 
 

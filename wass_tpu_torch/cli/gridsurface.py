@@ -54,7 +54,8 @@ def main(argv=None) -> int:
                         help="chunked per-point temporal zero-mean rewrite after gridding")
     parser.add_argument("--no-images", action="store_true", help="skip pushing the cam frames into the cube")
     parser.add_argument("--refine", action="store_true",
-                        help="photo-consistency surface refinement (not ported: refused)")
+                        help="photo-consistency surface refinement (experimental; the reference's "
+                             "TFVariationalRefinement)")
     parser.add_argument("--mask", type=Path, default=None,
                         help="user grid mask: an image of the grid size; zero pixels (of its first channel) "
                              "are excluded from every frame (reference --mask, wassgridsurface.py:640)")
@@ -73,9 +74,6 @@ def main(argv=None) -> int:
     if not args.workdir.is_dir():
         parser.error(f"no such directory: {args.workdir}")
     device = resolve_device(args.device)
-    if args.refine:
-        return _fail("--refine (the photo-consistency refinement, wass_tpu/grid/variational.py) is not "
-                     "ported yet (ROADMAP.md §1 item 4)")
     if args.mask is not None and not args.mask.exists():
         parser.error(f"no such file: {args.mask}")
     out = args.outdir
@@ -112,7 +110,7 @@ def main(argv=None) -> int:
     cfg = GridConfig(
         algorithm=args.algorithm, subsample_percent=args.subsample,
         median_filter_size=args.medianfilter, filter_outliers=args.filter_outliers,
-        force_zero_mean=args.force_zero_mean, save_images=not args.no_images,
+        force_zero_mean=args.force_zero_mean, save_images=not args.no_images, variational=args.refine,
     )
     user_mask = None
     if args.mask is not None:

@@ -39,6 +39,7 @@ DEVICE_HELP = "cuda runs the CUDA kernels (default); cpu runs their plain versio
 def load_pipeline(outdir, device: str = "cuda"):
     """SequencePipeline configured from <outdir>/{prepare,matcher,stereo}_config.txt."""
     from wass_tpu_torch.cli.options import (
+        flow_config_from_registry,
         match_config_from_registry,
         prepare_config_from_registry,
         register_all,
@@ -55,7 +56,7 @@ def load_pipeline(outdir, device: str = "cuda"):
         if cfgfile.exists():
             reg.load_file(cfgfile)
     cfg = SequenceConfig(prepare=prepare_config_from_registry(), match=match_config_from_registry(),
-                         stereo=stereo_config_from_registry(), device=device)
+                         stereo=stereo_config_from_registry(), flow=flow_config_from_registry(), device=device)
     return SequencePipeline(outdir, cfg)
 
 

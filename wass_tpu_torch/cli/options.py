@@ -3,7 +3,7 @@ mapping to the configs.
 
 Copied from the prepare, matcher and stereo blocks of
 wass_tpu/cli/options.py (register_all and the *_config_from_registry
-functions), whose package imports jax, onto the port's own registries
+functions, flow_config_from_registry included), whose package imports jax, onto the port's own registries
 (wass_tpu_torch/config.py): the reference's prepare_config.txt,
 matcher_config.txt and stereo_config.txt names and defaults
 (wass_prepare.cpp:36-39; wass_match.cpp:39-45, FeatureSet.cpp:42-47,
@@ -92,8 +92,6 @@ def register_all() -> None:
     s.register(bool, "PLANE_USE_CENTRAL_THIRD_ONLY", False, "use only the central third of the image to estimate the mean sea plane")
     s.register(float, "PLANE_REFINEMENT_MAX_DISTANCE", 70.0, "max point distance for plane refinement")
     s.register(float, "DENSE_INPUT_SMOOTH_SIGMA", -1.0, "Gaussian pre-smoothing of the rectified images before the census transform (negative = AUTO from the estimated input degradation; 0 disables)")
-    # The optical-flow options are registered so that stereo_config.txt
-    # files load unchanged; the port has no flow path yet.
     s.register(bool, "ENABLE_OPTICAL_FLOW", False, "Enable the optical-flow reconstruction path (mesh_full_flow.ply)")
     s.register(int, "FLOW_REFINEMENT_FULLRES_ITERATIONS", 200, "Number of iterations for flow refinement")
     s.register(float, "FLOW_REFINEMENT_COLOR_CONSISTENCY_FACTOR", 100, "Color consistency factor for both the low-res and high-res flow refinement")
@@ -134,6 +132,25 @@ def stereo_config_from_registry():
         min_triangulated=g("MIN_TRIANGULATED_POINTS"),
         random_seed=max(g("RANDOM_SEED"), 0),
         input_smooth_sigma=g("DENSE_INPUT_SMOOTH_SIGMA"),
+    )
+
+
+def flow_config_from_registry():
+    """The port's FlowConfig from the registry's values; None unless
+    ENABLE_OPTICAL_FLOW is set."""
+    from wass_tpu_torch.stereo.flow import FlowConfig
+
+    register_all()
+    g = stereo_cfg.get
+    if not g("ENABLE_OPTICAL_FLOW"):
+        return None
+    return FlowConfig(
+        fullres_iterations=g("FLOW_REFINEMENT_FULLRES_ITERATIONS"),
+        color_consistency=g("FLOW_REFINEMENT_COLOR_CONSISTENCY_FACTOR"),
+        lowres_smoothness=g("FLOW_REFINEMENT_LOWRES_SMOOTHNESS_FACTOR"),
+        fullres_smoothness=g("FLOW_REFINEMENT_FULLRES_SMOOTHNESS_FACTOR"),
+        opening_dilate=g("FLOW_OPENING_DILATE"),
+        opening_erode=g("FLOW_OPENING_ERODE"),
     )
 
 

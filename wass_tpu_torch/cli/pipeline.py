@@ -16,7 +16,11 @@ default, as in the JAX package) the writers also write the frame's six
 debug renders (stereo_input.jpg, disparity_final_scaled.jpg, stereo.jpg,
 disparity_coverage.jpg, graph_components.jpg, triangulation_failmap.jpg;
 utils/render.py), and the match stage its matches.jpg and
-matches_epifilter.jpg.  output/planes.txt
+matches_epifilter.jpg.  With an optical-flow config (SequenceConfig.flow,
+ENABLE_OPTICAL_FLOW in stereo_config.txt) each writer also runs the flow
+stage on the frame's disparity (stereo/flow.py, the CUDA solver of
+stereo/flow_kernels.py) and writes flow_coarse.png, flow.png and
+mesh_full_flow.ply.  output/planes.txt
 collects the planes.  The AUTO smoothing sigma is resolved once from
 frame 0.
 
@@ -26,8 +30,8 @@ the dispatching stream would wait for every frame dispatched since.  The
 one host read left on the dispatching thread is the plane refinement's
 3x3 eigenproblem (stereo/plane.py).
 
-Not ported yet: the frame-sharded multi-device runner, the optical-flow
-path and the delta-coded wire format (the .xyzC payload is always the
+Not ported yet: the frame-sharded multi-device runner and the
+delta-coded wire format (the .xyzC payload is always the
 direct u16 export).
 """
 
@@ -47,6 +51,7 @@ import torch
 from wass_tpu_torch.calib.autocalibrate import AutocalConfig, autocalibrate_sequence
 from wass_tpu_torch.core.geometry import rt_from_plane
 from wass_tpu_torch.device import resolve_device, to_device
+from wass_tpu_torch.io.ply import save_ply_points
 from wass_tpu_torch.io.png import read_gray
 from wass_tpu_torch.io.prefetch import Prefetcher
 from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
@@ -55,7 +60,7 @@ from wass_tpu_torch.launches import frame_scope
 from wass_tpu_torch.match.pipeline import MatchConfig, match_frame
 from wass_tpu_torch.ops import components_kernels
 from wass_tpu_torch.prepare.prepare import PrepareConfig, prepare_frame
-from wass_tpu_torch.stereo import sgm_kernels
+from wass_tpu_torch.stereo import flow_kernels, sgm_kernels
 from wass_tpu_torch.stereo.dense import (
     DenseStereoConfig,
     DenseStereoPipeline,
@@ -64,6 +69,7 @@ from wass_tpu_torch.stereo.dense import (
     prepare_frame_geometry,
     rectify_on_device,
 )
+from wass_tpu_torch.stereo.flow import FlowConfig, flow_reconstruct_frame
 from wass_tpu_torch.utils import render
 from wass_tpu_torch.utils.progress import progress
 
@@ -87,6 +93,9 @@ class SequenceConfig:
     # (wass_stereo.cpp:854,1001,1017,1910-1926, PovMesh.cpp:982-984,
     # wass_match.cpp:70-95).
     debug_renders: bool = True
+    # The optical-flow reconstruction (ENABLE_OPTICAL_FLOW; None: off, as in
+    # the reference).
+    flow: Optional[FlowConfig] = None
 
 
 class SequencePipeline:
@@ -196,7 +205,8 @@ class SequencePipeline:
         the uploaded uint8 base and match images ("imgs") and the rectified
         pair ("rect") for the renders, and, when c2f ran, its deferred
         diagnostics ("c2f"), the pipeline ("pipe") and the geometry pack
-        ("gp") for a full-range re-run."""
+        ("gp") for a full-range re-run.  The frame's flow kernels count in
+        its launches too."""
         t0 = time.time()
         c2f = extras.get("c2f")
         if c2f is not None:
@@ -205,11 +215,7 @@ class SequencePipeline:
             # for this frame.
             with frame_scope(extras["launches"]):
                 res, c2f = extras["pipe"].resolve_fallback(res, c2f, *extras["rect"], extras["gp"])
-        log_lines = [
-            "kernel launches: "
-            + " ".join(f"{k}={extras['launches'].get(k, 0)}"
-                       for k in sorted({**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES}))
-        ]
+        log_lines = []
         if c2f is not None:
             log_lines.append(
                 f"c2f window coverage: {c2f['coverage']:.4f} "
@@ -231,7 +237,7 @@ class SequencePipeline:
             wd.save_plane(None)
             wd.save_mesh(np.zeros((0, 3)), np.eye(3), np.zeros(3))
             log_lines.append("FRAME FAILED: below MIN_TRIANGULATED_POINTS")
-            self._write_stereo_log(wd, log_lines, t0)
+            self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, t0)
             return np.full(4, np.nan)
 
         plane = res.plane.cpu().numpy().astype(np.float64)
@@ -266,8 +272,36 @@ class SequencePipeline:
                 log_lines.append(f"debug renders failed: {e}")
             self._render_s.append(time.perf_counter() - t_render)
 
-        self._write_stereo_log(wd, log_lines, t0)
+        if self.cfg.flow is not None:
+            # The optical-flow reconstruction (refine_flow,
+            # wass_stereo.cpp:1985-1990): a second, flow-based point cloud
+            # beside the stereo mesh, and the flow renders.  Outside the
+            # renders' handler: a failure fails the frame.
+            with frame_scope(extras["launches"]):
+                self._write_flow(wd, geom, res, extras)
+
+        self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, t0)
         return plane
+
+    def _launch_line(self, launches: dict) -> str:
+        names = {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES}
+        if self.cfg.flow is not None:
+            names.update(flow_kernels.LAUNCHES)
+        return "kernel launches: " + " ".join(f"{k}={launches.get(k, 0)}" for k in sorted(names))
+
+    def _write_flow(self, wd: Workdir, geom, res, extras: dict):
+        """flow_coarse.png, flow.png and mesh_full_flow.ply of a frame from
+        its (c2f-resolved) disparity and validity and its uploaded uint8
+        base and match images; returns the FlowResult."""
+        b8, m8 = extras["imgs"]
+        fr = flow_reconstruct_frame(res.disparity, b8.to(torch.float32), m8.to(torch.float32), geom, self.cfg.flow,
+                                    min_disp=float(self.cfg.stereo.min_disp), valid_rect=res.valid)
+        render.save_png(wd.path / "flow_coarse.png", render.render_flow(fr.coarse_flow, 200.0))
+        render.save_png(wd.path / "flow.png", render.render_flow(fr.flow, 200.0))
+        pts = fr.points[fr.valid].cpu().numpy()
+        grey = b8[fr.valid].cpu().numpy()
+        save_ply_points(wd.path / "mesh_full_flow.ply", pts, np.repeat(grey[:, None], 3, axis=1))
+        return fr
 
     @staticmethod
     def _write_renders(wd: Workdir, geom, res, extras: dict) -> None:

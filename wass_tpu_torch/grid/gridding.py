@@ -5,8 +5,9 @@ grid equivalent (_grid_task,
 gridding/wassgridsurface/wassgridsurface.py:304-523):
 align the compressed camera mesh to the sea plane, quantize points into
 grid cells with NREPS=10 random-subsample *median stacking*, interpolate
-the holes (DCT / IDW / LinearND), optional median filter, and stream the
-frames into the gridded.nc cube.
+the holes (DCT / IDW / LinearND), optional median filter, the optional
+photo-consistency refinement (--refine, grid/variational.py), and stream
+the frames into the gridded.nc cube.
 
 A frame stays on its device from the mesh upload to its Z grid: the
 .xyzC decode, both plane transforms and the cell indices are float64
@@ -65,6 +66,11 @@ class GridConfig:
     # (wassgridsurface.py:494, image_id_to_save).
     image_id_to_save: int = 0
     save_images: bool = True
+    # Photo-consistency refinement of the gridded surface (--refine;
+    # grid/variational.py, the reference's experimental
+    # TFVariationalRefinement, call-site commented out there; off by
+    # default here too).
+    variational: bool = False
 
 
 def load_mesh(path, device) -> torch.Tensor:
@@ -231,6 +237,15 @@ def grid_frame(
     if cfg.median_filter_size >= 3:
         Zi = median_filter(torch.nan_to_num(Zi, nan=0.0).float(), cfg.median_filter_size)
         Zi = torch.where(mask > 0, Zi, torch.nan)
+    if cfg.variational:
+        # Photo-consistency polish against the undistorted frames.
+        from wass_tpu_torch.grid.variational import variational_refine
+
+        P0cam, P1cam = workdir.load_projection_matrices()
+        Zi = variational_refine(
+            Zi.float(), workdir.load_undistorted(0), workdir.load_undistorted(1), P0cam, P1cam, setup.Rpl, setup.Tpl,
+            setup.XX, setup.YY, setup.baseline, (mask > 0).float(),
+        )
     return Zi, mask
 
 

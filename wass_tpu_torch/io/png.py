@@ -1,7 +1,7 @@
 """8-bit grayscale PNG codec.
 
 The writer (stdlib zlib + struct + numpy) emits filter type 0 rows in one
-IDAT chunk: the workdirs' PNGs.  The reader takes non-interlaced 8-bit
+IDAT chunk: the workdirs' PNGs (grey) and the flow renders (RGB).  The reader takes non-interlaced 8-bit
 grayscale images with any of the five row filters; it checks the header
 and decodes through OpenCV's libpng, which releases the interpreter lock
 (io/image.py has the other formats).  decode_gray_plain is the codec's
@@ -23,18 +23,32 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
     return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF)
 
 
+def _encode(img: np.ndarray, colour_type: int) -> bytes:
+    H, W = img.shape[:2]
+    row = img.reshape(H, -1)
+    raw = np.empty((H, row.shape[1] + 1), np.uint8)
+    raw[:, 0] = 0  # filter type 0 (None) on every row
+    raw[:, 1:] = row
+    ihdr = struct.pack(">IIBBBBB", W, H, 8, colour_type, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + _chunk(b"IEND", b""))
+
+
 def encode_gray(img: np.ndarray) -> bytes:
     """PNG bytes of an (H, W) uint8 image."""
     img = np.ascontiguousarray(img, dtype=np.uint8)
     if img.ndim != 2:
         raise ValueError(f"expected an (H, W) image, got shape {img.shape}")
-    H, W = img.shape
-    raw = np.empty((H, W + 1), np.uint8)
-    raw[:, 0] = 0  # filter type 0 (None) on every row
-    raw[:, 1:] = img
-    ihdr = struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0)
-    return (_SIGNATURE + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw.tobytes()))
-            + _chunk(b"IEND", b""))
+    return _encode(img, 0)
+
+
+def encode_rgb(img: np.ndarray) -> bytes:
+    """PNG bytes of an (H, W, 3) uint8 image in R, G, B order (colour type 2,
+    the debug renders that must stay lossless)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) image, got shape {img.shape}")
+    return _encode(img, 2)
 
 
 def _paeth(a, b, c):

@@ -13,8 +13,10 @@ ops on the device of its inputs, in float64 as the JAX package's numpy
 does, with the same clip and truncation to uint8, so the images equal the
 JAX package's bit for bit; save() fetches the uint8 image and encodes it
 on the host (JPEG, io/image.py).  render_matches rasterises its lines on
-the host with numpy, as the JAX function does.  The flow render goes with
-the flow path, which the port does not have yet.
+the host with numpy, as the JAX function does.  The flow renders
+(flow.png, flow_coarse.png; render_flow) are built on the host too, in
+float64 numpy, the JAX function's own code on the fetched flow field, and
+written losslessly as RGB PNG by the port's writer (save_png).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from wass_tpu_torch.io import png
 from wass_tpu_torch.io.image import encode_jpeg
 from wass_tpu_torch.stereo.dense import (
     FAIL_ANGLE, FAIL_BURNED, FAIL_NO_DISPARITY, FAIL_OUTSIDE_BBOX,
@@ -173,3 +176,58 @@ def save(path, img) -> None:
     if isinstance(img, torch.Tensor):
         img = img.cpu().numpy()
     Path(path).write_bytes(encode_jpeg(img))
+
+
+def _flow_color_wheel() -> np.ndarray:
+    """Middlebury flow colour wheel (drawOpticalFlow,
+    wass_stereo.cpp:1398-1466): 55 hue steps with perceptually chosen
+    transition lengths."""
+    RY, YG, GC, CB, BM, MR = 15, 6, 4, 11, 13, 6
+    cols = []
+    for i in range(RY):
+        cols.append((255, 255 * i // RY, 0))
+    for i in range(YG):
+        cols.append((255 - 255 * i // YG, 255, 0))
+    for i in range(GC):
+        cols.append((0, 255, 255 * i // GC))
+    for i in range(CB):
+        cols.append((0, 255 - 255 * i // CB, 255))
+    for i in range(BM):
+        cols.append((255 * i // BM, 0, 255))
+    for i in range(MR):
+        cols.append((255, 0, 255 - 255 * i // MR))
+    return np.array(cols, np.float32)
+
+
+def render_flow(flow, max_motion: float = -1.0) -> np.ndarray:
+    """Flow-field visualization with the Middlebury colour coding
+    (saturation encodes magnitude, hue direction): the (H, W, 3) uint8 RGB
+    image of the JAX function, from an (H, W, 2) flow (tensor or array)."""
+    if isinstance(flow, torch.Tensor):
+        flow = flow.cpu().numpy()
+    fx = flow[..., 0]
+    fy = flow[..., 1]
+    ok = np.isfinite(fx) & np.isfinite(fy) & (np.abs(fx) < 1e9) & (np.abs(fy) < 1e9)
+    rad = np.sqrt(fx * fx + fy * fy)
+    maxrad = max_motion if max_motion > 0 else max(1.0, np.nanmax(np.where(ok, rad, 0)))
+    fx = np.where(ok, fx / maxrad, 0)
+    fy = np.where(ok, fy / maxrad, 0)
+    rad = np.sqrt(fx * fx + fy * fy)
+
+    wheel = _flow_color_wheel()
+    ncols = len(wheel)
+    a = np.arctan2(-fy, -fx) / np.pi
+    fk = (a + 1.0) / 2.0 * (ncols - 1)
+    k0 = np.floor(fk).astype(int) % ncols
+    k1 = (k0 + 1) % ncols
+    f = (fk - np.floor(fk))[..., None]
+    col = (wheel[k0] * (1 - f) + wheel[k1] * f) / 255.0
+    small = rad <= 1
+    col = np.where(small[..., None], 1 - rad[..., None] * (1 - col), col * 0.75)
+    img = np.where(ok[..., None], col * 255.0, 0.0)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def save_png(path, img: np.ndarray) -> None:
+    """Write an (H, W, 3) uint8 RGB render as PNG (lossless)."""
+    Path(path).write_bytes(png.encode_rgb(img))
