@@ -158,7 +158,10 @@ G. The grid stage on phase 5's ten frames (2048x1536, c2f, ~2.7M points
    bits equal, Z finite exactly inside the mask; printed: the eager and
    graph times against a step's bound, the loss at step 0 and after step
    400, the mean |dZ| inside the mask; then --refine through the console
-   on one frame.
+   on one frame.  The setup's area_grid.png and the second grid run's
+   gridded.png (drawn with OpenCV from fetched arrays) decode to 1200 x
+   1200 and 800 x 800 RGB and equal a re-render on the host from the
+   arrays the console drew them from; their draw and PNG ms are printed.
 S. The post stage (phase S) on a cube of phase G's grid and meta (N = 256,
    its config.mat, P0plane and Cam0toGrid): POST_FRAMES frames at POST_FPS
    (200 s; users film 10-30 min at 10-20 Hz, the cut is the duration), Z
@@ -196,7 +199,23 @@ S. The post stage (phase S) on a cube of phase G's grid and meta (N = 256,
    max S of the port's CPU run on the same patch; after zeromean |time
    mean| < 1e-3 mm at every finite cell; visibilitymap's occlusion_cam0
    and incident_angles_cam0 byte-equal between the fused kernel's run and
-   the plain version's; the occlusion masks equal to the CPU's.
+   the plain version's; the occlusion masks equal to the CPU's; spectrum's
+   post.spectrum.png 1200 x 720 RGB and equal to its host re-render (draw
+   and PNG ms printed).
+H. HDF5 layouts (phase H, after phase S): every file of
+   tests/torch_h5_fixtures/ (written by h5py, tests/torch_h5_fixtures.py;
+   this host has no h5py) read through the port's reader with every
+   sha256 of its MANIFEST.json matched (deflate, shuffle, fletcher32, a
+   filter mask, the version 4 chunk indexes, dense links and attributes,
+   a committed VLEN type), LZF and scale-offset refused with their ids.
+   The host ms and decoded MB/s of reading each fixture whole, dataset by
+   dataset, and of the filter pipeline on one chunk of the reference's
+   size (512 x 128 x 128 float32, shuffle and deflate level 4).  Then
+   `wass-tpu-torch-post` info, spectrum (its plot), visibilitymap (the
+   fused visibility kernel on the card) and zeromean on a copy of the
+   netCDF-C-like cube and on its copy_to_port_layout copy: the same
+   stdout (the conversion line aside), the same spectrum CSV and PNG bytes
+   and, after the edits, the same digest of every dataset and attribute.
 I. Image IO and the renders.  Phase 4's frames must carry the six stereo
    renders and phase M's matched frames the two match renders, each
    decoding to its shape; frame 0's render images from the card (kept while
@@ -1926,6 +1945,63 @@ def run_flow_phase(root: Path, img0, img1, rig, scene, results: dict, card: str,
     return launches
 
 
+PLOT_SHAPES = {"area_grid.png": (1200, 1200, 3), "gridded.png": (800, 800, 3), "spectrum.png": (720, 1200, 3)}
+
+
+@contextlib.contextmanager
+def plot_capture():
+    """The three figure functions wrapped: plots[name] gets (the function,
+    its arguments, its draw ms) for each call, keyed by the file it makes."""
+    from wass_tpu_torch.cli import gridsurface
+    from wass_tpu_torch.grid import gridding
+    from wass_tpu_torch.post import plotting
+
+    plots: dict = {}
+    targets = [(gridsurface, "area_figure", "area_grid.png"), (gridding, "grid_figure", "gridded.png"),
+               (plotting, "spectrum_figure", "spectrum.png")]
+    saved = []
+    for owner, attr, name in targets:
+        fn = getattr(owner, attr)
+
+        def drawn(*args, _fn=fn, _name=name, **kwargs):
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            plots.setdefault(_name, []).append((_fn, args, kwargs, 1e3 * (time.perf_counter() - t0)))
+            return out
+
+        setattr(owner, attr, drawn)
+        saved.append((owner, attr, fn))
+    try:
+        yield plots
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def check_plots(plots: dict, files: dict, phase: str, card: str) -> None:
+    """Each plot file decodes to its figure's shape and equals a re-render,
+    on the host, from the arrays the console drew it from (fetched from the
+    card); prints its draw and PNG ms."""
+    import cv2
+
+    for name, path in files.items():
+        if not plots.get(name):
+            raise AssertionError(f"phase {phase}: {path.name} was not drawn")
+        fn, args, kwargs, draw_ms = plots[name][-1]
+        img = cv2.imread(str(path), cv2.IMREAD_COLOR)
+        if img is None or img.shape != PLOT_SHAPES[name]:
+            raise AssertionError(f"phase {phase}: {path} decodes to {None if img is None else img.shape}")
+        ax = fn(*args, **kwargs)
+        if img[..., ::-1].tobytes() != ax.fig.image.tobytes():
+            raise AssertionError(f"phase {phase}: {path.name} differs from its host re-render")
+        t0 = time.perf_counter()
+        ax.fig.save(path.with_suffix(".rerender.png"))
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        path.with_suffix(".rerender.png").unlink()
+        log(f"phase {phase} plot {path.name}: {img.shape[1]}x{img.shape[0]} RGB, equal to its host re-render from "
+            f"the same arrays; drawn in {draw_ms:.1f} ms, PNG written in {save_ms:.1f} ms (host, {card})")
+
+
 GRID_AREA = 16.0  # phase G's --area_size (m) about frame 0's median point: every cell inside the footprint
 GRID_MIN_FINITE = 0.5  # the share of finite cells each of phase G's modes must give
 GRID_MODES = (  # phase G's other modes, one frame each: (label, setup options, grid options)
@@ -2054,7 +2130,9 @@ def run_grid_phase(root: Path, scene, card: str) -> None:
     cx, cy = np.median(ma[:2], axis=1)
     area = ["--baseline", str(scene.rig.baseline), "--area_center", f"{cx:.3f},{cy:.3f}", "--area_size",
             str(GRID_AREA), "--fps", "4"]
-    t_setup = grid_cli(seq, out, "--action", "setup", *area)
+    with plot_capture() as plots:
+        t_setup = grid_cli(seq, out, "--action", "setup", *area)
+    check_plots(plots, {"area_grid.png": out / "area_grid.png"}, "G", card)
     setup = GridSetup.load_mat(out / "config.mat")
     log(f"phase G: setup {t_setup:.2f} s ({len(wds)} frames of {mesh.shape[1]} points; area {GRID_AREA} m about "
         f"({cx:.2f}, {cy:.2f}), N = {setup.XX.shape[0]})")
@@ -2067,7 +2145,9 @@ def run_grid_phase(root: Path, scene, card: str) -> None:
     peak = torch.cuda.max_memory_allocated() / 2**30
     with NetCDFReader(out / "gridded.nc") as cube:
         Z1 = cube.Z[...]
-    t_grid2 = grid_cli(seq, out, "--action", "grid")
+    with plot_capture() as plots:
+        t_grid2 = grid_cli(seq, out, "--action", "grid")
+    check_plots(plots, {"gridded.png": out / "gridded.png"}, "G", card)
     cube_bytes = (out / "gridded.nc").stat().st_size
     with NetCDFReader(out / "gridded.nc") as cube:
         Zc = cube.Z[...]
@@ -2568,8 +2648,10 @@ def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_fr
     s = str(nc)
     res, secs, times, peak, grown = post_cli(["info", s], dev=dev)
     log_post("info", secs, times, peak, grown, f" ({len(res.splitlines())} lines)")
-    res, secs, times, peak, grown = post_cli(["spectrum", s, "--nperseg", "512", "--rangespan", "5"],
-                                             [(fft, "rfft", "device rfft")], dev)
+    with plot_capture() as plots:
+        res, secs, times, peak, grown = post_cli(["spectrum", s, "--nperseg", "512", "--rangespan", "5"],
+                                                 [(fft, "rfft", "device rfft")], dev)
+    check_plots(plots, {"spectrum.png": nc.with_suffix(".spectrum.png")}, "S", card)
     fr, S = np.loadtxt(nc.with_suffix(".spectrum.csv"), delimiter=";").T
     st = spectra.spectrum_stats(fr, S)
     log_post("spectrum", secs, times, peak, grown, f": Hm0 {st.hm0:.4f} m (the field's {HM0} m), Tm01 {st.tm01:.3f} s, "
@@ -2718,6 +2800,144 @@ def run_post_phase(root: Path, scene, results: dict, card: str, dev="cuda", n_fr
     return launches
 
 
+H5_FIXTURES = ROOT / "tests" / "torch_h5_fixtures"
+H5_CUBE = "netcdfc_cube.nc"  # the netCDF-C-like cube of the fixtures
+H5_REFUSED = {"unsupported.h5": {"/lzf": "filter 32000 (lzf)", "/scaleoffset": "filter 6 (scaleoffset)"}}
+H5_COMMANDS = (["info"], ["spectrum", "--nperseg", "32", "--rangespan", "3"], ["visibilitymap"], ["zeromean"])
+REF_CHUNK = (512, 128, 128)  # the reference's Z chunk (netcdfoutput.py:85)
+
+
+def read_whole(path) -> list:
+    """(dataset path, decoded bytes, host ms) of reading every dataset of
+    the file at path whole, the file opened anew (the best of 3)."""
+    from wass_tpu_torch.io import hdf5
+
+    best: dict = {}
+    for _ in range(3):
+        with hdf5.H5File(path) as f:
+            names = []
+            f.visititems(lambda n, o: names.append("/" + n) if isinstance(o, hdf5.H5Dataset) else None)
+            for n in names:
+                if n in H5_REFUSED.get(Path(path).name, {}):
+                    continue
+                t0 = time.perf_counter()
+                v = f[n][()]
+                ms = 1e3 * (time.perf_counter() - t0)
+                nbytes = sum(len(e) for e in v.ravel()) if v.dtype == object else v.nbytes
+                best[n] = (nbytes, min(ms, best.get(n, (0, float("inf")))[1]))
+    return [(n, b, ms) for n, (b, ms) in best.items()]
+
+
+def run_h5_phase(root: Path, card: str, dev="cuda") -> dict:
+    """Phase H: the HDF5 fixtures against their manifest, read times, then
+    the post console on the netCDF-C-like cube and on its port-layout
+    copy.  Returns visibilitymap's launches."""
+    import zlib
+
+    import numpy as np
+
+    import wass_tpu_torch
+    from wass_tpu_torch.io import hdf5, hdf5_index
+    from wass_tpu_torch.testing.h5_manifest import file_manifest
+
+    t_phase = time.time()
+    manifest = json.loads((H5_FIXTURES / "MANIFEST.json").read_text())
+    for name, want in manifest.items():
+        refused = H5_REFUSED.get(name, {})
+        got = file_manifest(H5_FIXTURES / name, refused=tuple(refused))
+        if got != want:
+            bad = [k for k in want["datasets"] if got["datasets"].get(k) != want["datasets"][k]]
+            bad += [k for k in want["attrs"] if got["attrs"].get(k) != want["attrs"][k]]
+            raise AssertionError(f"phase H: {name} differs from its manifest at {bad[:8]}")
+        with hdf5.H5File(H5_FIXTURES / name) as f:
+            for path, filt in refused.items():
+                try:
+                    f[path][()]
+                except hdf5.LayoutError as e:
+                    if filt not in str(e):
+                        raise AssertionError(f"phase H: {name}{path} refused without naming {filt}: {e}")
+                else:
+                    raise AssertionError(f"phase H: {name}{path} read although its filter is not supported")
+        n_sums = len(want["datasets"]) + sum(len(v) for v in want["attrs"].values())
+        log(f"phase H: {name} ({(H5_FIXTURES / name).stat().st_size} bytes) reads as h5py wrote it: {n_sums} sha256 "
+            f"of datasets and attributes matched" + (f", {', '.join(refused)} refused naming the filter" if refused
+                                                     else ""))
+    for name in manifest:
+        rows = read_whole(H5_FIXTURES / name)
+        total_b, total_ms = sum(r[1] for r in rows), sum(r[2] for r in rows)
+        parts = [f"{n} {ms:.2f} ms ({b} B, {b / ms / 1e3:.1f} MB/s)" for n, b, ms in rows if ms > 0]
+        log(f"phase H read {name}: {total_ms:.2f} ms for {total_b} decoded bytes in {len(rows)} datasets "
+            f"({total_b / total_ms / 1e3:.1f} MB/s, host)" + ("; " + "; ".join(parts) if len(parts) <= 30 else ""))
+    # One chunk of the reference's size through the filter pipeline.
+    rng = np.random.default_rng(14)
+    t = np.arange(REF_CHUNK[0])[:, None, None] / 15.0
+    y, x = np.mgrid[:REF_CHUNK[1], :REF_CHUNK[2]] * 0.1
+    z = np.zeros(REF_CHUNK, np.float32)
+    for k, th, a, ph in zip(rng.uniform(0.3, 1.5, 6), rng.normal(0, 0.5, 6), rng.uniform(20, 120, 6),
+                            rng.uniform(0, 6.28, 6)):
+        z += (a * np.cos(k * np.cos(th) * x + k * np.sin(th) * y + ph - np.sqrt(9.81 * k) * t)).astype(np.float32)
+    raw = z.tobytes()
+    packed = zlib.compress(np.frombuffer(raw, np.uint8).reshape(-1, 4).T.tobytes(), 4)
+    pipeline = [hdf5_index.Filter(2, (4,)), hdf5_index.Filter(1, (4,))]
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = hdf5_index.unfilter(packed, pipeline, 0, "reference chunk")
+        times.append(time.perf_counter() - t0)
+    if out != raw:
+        raise AssertionError("phase H: the reference-size chunk does not decode to its bytes")
+    log(f"phase H filter pipeline on one {REF_CHUNK} float32 chunk (shuffle, deflate level 4; {len(raw)} bytes, "
+        f"{len(packed)} stored): {1e3 * min(times):.1f} ms, {len(raw) / min(times) / 1e6:.1f} MB/s decoded (host, "
+        f"{card})")
+
+    # The post console on the cube and on its port-layout copy.
+    work = root / "smoke_h5"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    cubes = (work / "netcdfc.nc", work / "port_layout.nc")
+    shutil.copy(H5_FIXTURES / H5_CUBE, cubes[0])
+    t0 = time.perf_counter()
+    hdf5.copy_to_port_layout(H5_FIXTURES / H5_CUBE, cubes[1])
+    log(f"phase H: copy_to_port_layout of {H5_CUBE} in {1e3 * (time.perf_counter() - t0):.1f} ms")
+    launches = {}
+    for cmd in H5_COMMANDS:
+        outs, secs = [], []
+        for nc in cubes:
+            wass_tpu_torch.reset_launch_counts()
+            with plot_capture() as plots:
+                res, sec, _, _, _ = post_cli([cmd[0], str(nc), *cmd[1:]], dev=dev)
+            if cmd[0] == "visibilitymap" and nc is cubes[0]:
+                launches = wass_tpu_torch.launch_counts()
+            if cmd[0] == "spectrum":
+                check_plots(plots, {"spectrum.png": nc.with_suffix(".spectrum.png")}, "H", card)
+            lines = [ln.replace(str(nc.with_suffix("")), "NC") for ln in res.splitlines()
+                     if not ln.startswith("converted ")]
+            # info lists meta's attributes in h5py's order: creation order in
+            # the netCDF-C-like cube, names in the port's layout.
+            meta = sorted(ln for ln in lines if ln.startswith("  meta."))
+            outs.append([ln for ln in lines if not ln.startswith("  meta.")] + meta)
+            secs.append(sec)
+        if outs[0] != outs[1]:
+            raise AssertionError(f"phase H {cmd[0]}: stdout differs between the two layouts: {outs}")
+        if cmd[0] == "spectrum":
+            for suffix in (".spectrum.csv", ".spectrum.png"):
+                if cubes[0].with_suffix(suffix).read_bytes() != cubes[1].with_suffix(suffix).read_bytes():
+                    raise AssertionError(f"phase H spectrum: {suffix} differs between the two layouts")
+        log(f"phase H {' '.join(cmd)}: {secs[0]:.2f} s on the netCDF-C-like cube, {secs[1]:.2f} s on its port-layout "
+            f"copy, the same output ({outs[0][-1] if outs[0] else ''})")
+    digests = [file_manifest(nc) for nc in cubes]
+    if digests[0] != digests[1]:
+        bad = [k for k in digests[0]["datasets"] if digests[0]["datasets"][k] != digests[1]["datasets"].get(k)]
+        raise AssertionError(f"phase H: after the edits the two cubes differ at {bad[:8]}")
+    if launches.get("visibility_batch", 0) < 1:
+        raise AssertionError(f"phase H: visibilitymap launched no visibility kernel: {launches}")
+    log(f"phase H: after visibilitymap and zeromean both cubes hold the same {len(digests[0]['datasets'])} datasets "
+        f"and {sum(len(v) for v in digests[0]['attrs'].values())} attributes (sha256); visibilitymap launched the "
+        f"fused kernel {launches['visibility_batch']} times")
+    log(f"phase H: {time.time() - t_phase:.1f} s wall")
+    return launches
+
+
 def main() -> int:
     t_start = time.time()
     if not (ROOT / "wass_tpu_torch").is_dir():
@@ -2803,6 +3023,8 @@ def main() -> int:
     run_grid_phase(_build.BUILD_DIR, scene, smi)
     # Phase S: the post stage on a cube of phase G's grid.
     add_counts(launches, run_post_phase(_build.BUILD_DIR, scene, results, smi))
+    # Phase H: the HDF5 layouts of h5py and netCDF-C, and the post console on them.
+    add_counts(launches, run_h5_phase(_build.BUILD_DIR, smi))
     # Phase I: image IO (the renders and codecs were checked above).
     t0 = time.time()
     check_decode(np.clip(img0, 0, 255).astype(np.uint8), _build.BUILD_DIR, smi)

@@ -55,7 +55,8 @@ def test_setup_matches_jax(seq, tmp_path, monkeypatch, capsys):
     jd, pd = _both(seq, tmp_path, SETUP, monkeypatch)
     assert (jd / "config.mat").read_bytes()[128:] == (pd / "config.mat").read_bytes()[128:]
     out = capsys.readouterr().out
-    assert "grid setup saved to" in out and "area plot skipped" in out
+    assert "grid setup saved to" in out and "skipped" not in out
+    assert (jd / "area_grid.png").exists() and (pd / "area_grid.png").exists()
 
 
 def _z_tol(args, Zj):

@@ -167,8 +167,8 @@ def test_spatial_lowpass_matches_jax(cube, tmp_path):
 
 def test_spectrum_matches_jax(cube, tmp_path):
     jp, pp, out_j, out_p = run_both(cube, tmp_path, ["spectrum", "--nperseg", "32", "--rangespan", "3"])
-    assert out_j.splitlines()[:4] == out_p.splitlines()[:4]
-    assert out_p.splitlines()[-1].startswith("(plot skipped: the port has no plotting library")
+    assert out_j == out_p  # "plot saved to NC.spectrum.png" last (the port's figure is drawn with OpenCV)
+    assert out_p.splitlines()[-1] == "plot saved to NC.spectrum.png" and pp.with_suffix(".spectrum.png").exists()
     sj, sp = (np.loadtxt(p.with_suffix(".spectrum.csv"), delimiter=";") for p in (jp, pp))
     np.testing.assert_array_equal(sj[:, 0], sp[:, 0])
     assert np.abs(sj[:, 1] - sp[:, 1]).max() <= 1e-5 * sj[:, 1].max()

@@ -11,8 +11,10 @@ The options and defaults of the JAX package's wass-tpu-gridsurface
 gridding/wassgridsurface/wassgridsurface.py:596-768),
 plus --device.  --mask takes any image OpenCV decodes (nonzero pixels of
 its first channel kept, as the JAX console reads imageio's array).
-The matplotlib renders (area_grid.png, gridded.png) are not made: the
-port has no plotting library; grid_img.png is written.
+setup writes area_grid.png and grid writes gridded.png and grid_img.png,
+as the JAX console does; the two figures are drawn with OpenCV
+(utils/plotting.py), with matplotlib's data, limits and marks but not its
+pixels.
 """
 
 from __future__ import annotations
@@ -26,12 +28,54 @@ import numpy as np
 from wass_tpu_torch.cli.main import DEVICE_HELP
 
 PROG = "wass-tpu-torch-gridsurface"
-NO_PLOTS = "the port has no plotting library (ROADMAP.md §1 item 2)"
+AREA_FIGSIZE, AREA_DPI = (12, 12), 100  # the JAX figure's inches and savefig dpi
+AREA_STRIDE = 50  # every 50th point of the mesh
 
 
 def _fail(msg: str) -> int:
     print(f"{PROG}: {msg}", file=sys.stderr)
     return 1
+
+
+def area_figure(ma: np.ndarray, setup, title: str):
+    """area_grid.png's figure (wassgridsurface.py:176-190): every 50th
+    point of the aligned mesh ma (3, N, scaled by the baseline) coloured by
+    z over [zmin, zmax] in viridis, later points over earlier ones, the y
+    axis inverted, equal axes, a colorbar and the grid's rectangle in
+    black.  Returns its axes."""
+    from wass_tpu_torch.utils import plotting as pl
+
+    x, y, z = (np.asarray(v, np.float64) for v in ma[:, ::AREA_STRIDE])
+    ok = np.isfinite(x) & np.isfinite(y) & np.isfinite(z)
+    x, y, z = x[ok], y[ok], z[ok]
+    rx = [setup.xmin, setup.xmax, setup.xmax, setup.xmin, setup.xmin]
+    ry = [setup.ymin, setup.ymin, setup.ymax, setup.ymax, setup.ymin]
+    fig = pl.Figure(*AREA_FIGSIZE, AREA_DPI)
+    box, bar = pl.split_colorbar(fig.subplot_box())
+    xlim = pl.data_limits(min(np.min(x, initial=np.inf), setup.xmin), max(np.max(x, initial=-np.inf), setup.xmax))
+    ylim = pl.data_limits(min(np.min(y, initial=np.inf), setup.ymin), max(np.max(y, initial=-np.inf), setup.ymax))
+    xlim, ylim = pl.equal_limits(box, xlim, ylim)
+    ax = pl.Axes(fig, box, xlim, ylim, yinvert=True)
+    ax.grid()
+    ax.scatter(x, y, pl.colormap(z, setup.zmin, setup.zmax))
+    ax.line(rx, ry, pl.BLACK, 2.0)
+    ax.decorate(title)
+    pl.colorbar(fig, bar, setup.zmin, setup.zmax)
+    return ax
+
+
+def _save_area_plot(wd, setup, meanplane, out: Path) -> None:
+    """area_grid.png: the point cloud and the grid's footprint; a failure
+    is printed and does not fail the stage (as in the JAX console)."""
+    try:
+        from wass_tpu_torch.grid.setup import align_on_sea_plane
+        from wass_tpu_torch.io.xyzc import load_camera_mesh
+
+        mesh = load_camera_mesh(wd.path / "mesh_cam.xyzC")
+        ma = align_on_sea_plane(mesh, meanplane) * setup.baseline
+        area_figure(ma, setup, f"WASS point cloud {wd.path}").fig.save(out / "area_grid.png")
+    except Exception as e:  # diagnostics must never fail the stage
+        print(f"(area plot skipped: {e})")
 
 
 def main(argv=None) -> int:
@@ -99,7 +143,7 @@ def main(argv=None) -> int:
             Nx=args.grid_size, Ny=args.grid_size, fps=args.fps,
         )
         setup.save_mat(out / "config.mat")
-        print(f"(area plot skipped: {NO_PLOTS})")
+        _save_area_plot(wds[0], setup, meanplane, out)
         print(f"grid setup saved to {out / 'config.mat'}")
         return 0
 
@@ -125,7 +169,6 @@ def main(argv=None) -> int:
         if user_mask.shape != setup.XX.shape:
             return _fail(f"--mask shape {user_mask.shape} != grid {setup.XX.shape}")
     grid_sequence(wds, setup, out / "gridded.nc", cfg, user_mask=user_mask, diag_dir=out, device=device)
-    print(f"(gridded.png skipped: {NO_PLOTS})")
     print(f"gridded {len(wds)} frames into {out / 'gridded.nc'}")
     return 0
 

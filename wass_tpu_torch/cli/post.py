@@ -17,8 +17,9 @@ layout and says so; `info`, `spectrum` and `spectrum3d` read such a cube
 as it is.  `radiance` decodes the JPEG frames of `cam0images` (the JAX
 package's cubes and the port's) and the PNG frames of the port's earlier
 cubes; `polarimetric_setup` reads the Stokes TIFFs that prepare writes
-with save_stokes.  Stated limit: `spectrum` writes no PNG plot (the port
-has no plotting library).
+with save_stokes.  `spectrum` draws its PNG plot with OpenCV
+(post/plotting.py): the JAX figure's file, data and marks, not
+matplotlib's pixels.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ import numpy as np
 from wass_tpu_torch.cli.main import DEVICE_HELP
 
 PROG = "wass-tpu-torch-post"
-NO_PLOT = "the port has no plotting library (ROADMAP.md §1 item 2)"
 
 
 class CommandError(Exception):
@@ -82,7 +82,7 @@ def cmd_info(a):
 
         f.visititems(show)
         if "meta" in f:
-            for k, v in sorted(f["meta"].attrs.items()):
+            for k, v in f["meta"].attrs.items():  # h5py's order
                 print(f"  meta.{k} = {v}")
 
 
@@ -132,7 +132,14 @@ def cmd_spectrum(a):
     out = Path(a.ncfile).with_suffix(".spectrum.csv")
     np.savetxt(out, np.c_[fr, S], delimiter=";", header="f_Hz;S_m2_per_Hz")
     print(f"spectrum saved to {out}")
-    print(f"(plot skipped: {NO_PLOT})")
+    try:
+        from wass_tpu_torch.post.plotting import plot_spectrum
+
+        png = Path(a.ncfile).with_suffix(".spectrum.png")
+        plot_spectrum(fr, S, png)
+        print(f"plot saved to {png}")
+    except Exception as e:  # a diagnostic plot never fails the command
+        print(f"(plot skipped: {e})")
 
 
 def cmd_spectrum3d(a):

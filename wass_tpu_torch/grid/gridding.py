@@ -343,10 +343,30 @@ def grid_sequence(
     return stats
 
 
+GRID_FIGSIZE, GRID_DPI = (8, 8), 100  # gridded.png: the JAX figure's inches, matplotlib's default dpi
+
+
+def grid_figure(Z: np.ndarray):
+    """gridded.png's figure (wassgridsurface.py:364-375): the frame's Z as
+    an image over its [nanmin, nanmax] in viridis, NaN cells white, row 0
+    at the top, equal aspect, with a colorbar.  Returns its axes."""
+    from wass_tpu_torch.utils import plotting as pl
+
+    zmin, zmax = float(np.nanmin(Z)), float(np.nanmax(Z))
+    fig = pl.Figure(*GRID_FIGSIZE, GRID_DPI)
+    box, bar = pl.split_colorbar(fig.subplot_box())
+    H, W = Z.shape
+    ax = pl.Axes(fig, pl.fit_aspect(box, H, W), (-0.5, W - 0.5), (-0.5, H - 0.5), yinvert=True)
+    ax.image(pl.colormap(Z, zmin, zmax))
+    ax.decorate()
+    pl.colorbar(fig, bar, zmin, zmax)
+    return ax
+
+
 def _save_grid_diagnostics(Z: torch.Tensor, diag_dir) -> None:
     """Frame 0's grid_img.png (normalized grayscale, wassgridsurface.py:364-375)
-    through the port's PNG codec.  The matplotlib surface render
-    (gridded.png) is not made: the port has no plotting library."""
+    through the port's PNG codec, and gridded.png drawn with OpenCV from
+    the fetched Z (a failure of the figure is printed, not raised)."""
     diag = Path(diag_dir)
     diag.mkdir(parents=True, exist_ok=True)
     finite = ~torch.isnan(Z)
@@ -356,6 +376,10 @@ def _save_grid_diagnostics(Z: torch.Tensor, diag_dir) -> None:
     zmax = torch.where(finite, Z, -torch.inf).max()
     img = (Z - zmin) / torch.clamp_min(zmax - zmin, 1e-12) * 255.0
     png.write_gray(diag / "grid_img.png", torch.nan_to_num(img, nan=0.0).to(torch.uint8).cpu().numpy())
+    try:
+        grid_figure(Z.cpu().numpy()).fig.save(diag / "gridded.png")
+    except Exception as e:  # diagnostics must never fail the stage
+        print(f"(gridded.png skipped: {e})")
 
 
 def _load_frame_jpeg(wd: Workdir, cam: int):

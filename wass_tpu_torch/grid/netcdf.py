@@ -162,8 +162,9 @@ class NetCDFWriter:
 
 
 class NetCDFReader:
-    """Reader for gridded.nc cubes, the port's and the JAX package's h5py
-    ones (io/hdf5.py's H5File; the JAX reader's methods)."""
+    """Reader for gridded.nc cubes, the port's, the JAX package's h5py ones
+    and the netCDF library's (io/hdf5.py's H5File; the JAX reader's
+    methods)."""
 
     def __init__(self, filename):
         self.f = hdf5.H5File(filename)

@@ -21,14 +21,18 @@ Datatypes: little-endian integers and IEEE floats, fixed-length and
 variable-length strings, variable-length sequences, object references,
 and the compound REFERENCE_LIST type of the dimension-scale convention.
 
-`H5File` reads those files and h5py's default layout (the JAX package's
-cubes: superblock 0, version 1 object headers, symbol-table groups,
-chunked datasets with a version 1 B-tree index, no filters), and edits
-files of this module's layout in place (`H5File(path, "r+")`, see its
-docstring); `copy_to_port_layout` rewrites any file it reads in this
-module's layout.  Not read: the netCDF-C library's layouts (version 2
-B-trees, fractal-heap dense links and attributes, fixed and extensible
-array chunk indexes) and filters (deflate).
+`H5File` reads those files and the layouts that h5py and the netCDF-C
+library write (superblocks 0-3, version 1 and 2 object headers,
+symbol-table groups, compact and dense links and attributes, committed
+datatypes, compact, contiguous and chunked datasets under every chunk
+index, deflate, shuffle and fletcher32; the on-disk structures are in
+io/hdf5_index.py), and edits files of this module's layout in place
+(`H5File(path, "r+")`, see its docstring); `copy_to_port_layout`
+rewrites any file it reads in this module's layout.  Not read, each with
+a LayoutError that says so: filters other than those three (szip, N-bit,
+scale-offset, LZF and plugins, named by their id), huge objects and I/O
+filters in a fractal heap, shared-message (SOHM) tables, shared
+dataspaces, virtual datasets, big-endian numbers.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-UNDEF = 0xFFFFFFFFFFFFFFFF  # the undefined address
+from wass_tpu_torch.io import hdf5_index
+from wass_tpu_torch.io.hdf5_index import UNDEF, LayoutError, lookup3
+
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 SUPERBLOCK_SIZE = 48  # version 2, 8-byte offsets and lengths
 HEAP_MIN = 4096  # the library reads a global heap collection's first 4096 bytes
@@ -52,40 +58,6 @@ MIN_DENSE = 6
 _DATASPACE, _LINK_INFO, _DATATYPE, _FILL, _LINK, _LAYOUT, _GROUP_INFO, _ATTRIBUTE, _CONTINUATION = (
     0x01, 0x02, 0x03, 0x05, 0x06, 0x08, 0x0A, 0x0C, 0x10)
 _CONSTANT = 0x01  # message flag: the message does not change
-
-
-def _rot(x: int, k: int) -> int:
-    return ((x << k) | (x >> (32 - k))) & 0xFFFFFFFF
-
-
-def lookup3(data: bytes, initval: int = 0) -> int:
-    """Bob Jenkins' lookup3 hashlittle, the checksum of HDF5 metadata."""
-    n = len(data)
-    a = b = c = (0xDEADBEEF + n + initval) & 0xFFFFFFFF
-    m = 0xFFFFFFFF
-    pos = 0
-    while n - pos > 12:
-        x, y, z = struct.unpack_from("<3I", data, pos)
-        a, b, c = (a + x) & m, (b + y) & m, (c + z) & m
-        a = ((a - c) & m) ^ _rot(c, 4); c = (c + b) & m
-        b = ((b - a) & m) ^ _rot(a, 6); a = (a + c) & m
-        c = ((c - b) & m) ^ _rot(b, 8); b = (b + a) & m
-        a = ((a - c) & m) ^ _rot(c, 16); c = (c + b) & m
-        b = ((b - a) & m) ^ _rot(a, 19); a = (a + c) & m
-        c = ((c - b) & m) ^ _rot(b, 4); b = (b + a) & m
-        pos += 12
-    if n - pos == 0:
-        return c
-    x, y, z = struct.unpack("<3I", data[pos:].ljust(12, b"\0"))
-    a, b, c = (a + x) & m, (b + y) & m, (c + z) & m
-    c = (c ^ b) - _rot(b, 14) & m
-    a = (a ^ c) - _rot(c, 11) & m
-    b = (b ^ a) - _rot(a, 25) & m
-    c = (c ^ b) - _rot(b, 16) & m
-    a = (a ^ c) - _rot(c, 4) & m
-    b = (b ^ a) - _rot(a, 14) & m
-    c = (c ^ b) - _rot(b, 24) & m
-    return c
 
 
 # -- datatypes ----------------------------------------------------------------
@@ -427,11 +399,8 @@ class Writer:
 
 # -- reader and editor ----------------------------------------------------------
 
-_NIL, _FILL_OLD, _FILTERS, _SYMBOL_TABLE, _ATTR_INFO = 0x00, 0x04, 0x0B, 0x11, 0x15
-
-
-class LayoutError(ValueError):
-    """A file this module reads but does not edit (or does not read)."""
+_NIL, _FILL_OLD, _FILTERS, _SHARED_TABLE, _SYMBOL_TABLE, _ATTR_INFO = 0x00, 0x04, 0x0B, 0x0F, 0x11, 0x15
+_SHARED = 0x02  # message flag: the message is shared (it lies in another object's header)
 
 
 @dataclasses.dataclass
@@ -546,12 +515,17 @@ class H5Dataset(H5Object):
         self.dtype = None  # numpy dtype; object for VLEN data
         self.layout = "contiguous"  # or "chunked", "compact"
         self.chunks: Optional[Tuple[int, ...]] = None
+        self.maxshape: Tuple[int, ...] = ()  # UNDEF on an unlimited axis
         self.data_addr = UNDEF
         self.data_size = 0
+        self.chunk_decodes = 0  # chunks read and decoded since the file was opened
         self._type: Optional[_ReadType] = None
         self._compact = b""
-        self._btree = UNDEF
+        self._layout: Optional[hdf5_index.Layout] = None
+        self._filters: List[hdf5_index.Filter] = []
         self._index = None  # chunk origin -> (address, bytes, filter mask)
+        self._cache: Dict[Tuple[int, ...], Optional[np.ndarray]] = {}  # decoded chunks of one row along axis 0
+        self._cache_row = -1
         self._fill = b""
 
     @property
@@ -620,22 +594,52 @@ class H5Dataset(H5Object):
         arr = self._elements(raw, (b - a) * row // self._type.size).reshape((b - a,) + self.shape[1:])
         return arr[(slice(None),) + tuple(slice(a, b) for a, b in box[1:])]
 
-    def _read_chunked(self, box: list, shape: list) -> np.ndarray:
-        if self._index is None:
-            self._index = self.file._chunk_index(self._btree, len(self.shape) + 1)
-        out = self._filled(shape)
+    def _chunk(self, origin: Tuple[int, ...]) -> Optional[np.ndarray]:
+        """The chunk at origin, read and decoded; None where none was written
+        (the fill value).  A partial edge chunk of a dataset whose layout
+        says so was stored unfiltered."""
+        entry = self._index.get(origin)
+        if entry is None:
+            return None
+        addr, nbytes, mask = entry
         cs = self.chunks
         n = int(np.prod(cs, dtype=np.int64))
+        raw = self.file._read(addr, nbytes)
+        edge = any(o + c > s for o, c, s in zip(origin, cs, self.shape))
+        if self._filters and not (edge and self._layout.partial_unfiltered):
+            raw = hdf5_index.unfilter(raw, self._filters, mask, f"{self.path}: chunk {origin}")
+        if len(raw) != n * self._type.size:
+            raise ValueError(f"{self.path}: chunk {origin} holds {len(raw)} bytes, not {n * self._type.size}")
+        self.chunk_decodes += 1
+        return self._elements(raw, n).reshape(cs)
+
+    def _read_chunked(self, box: list, shape: list) -> np.ndarray:
+        """The box from the chunks it intersects, each decoded once: the
+        decoded chunks of the last row along the first axis are kept while
+        they fit the post stage's memory budget, so that consecutive slabs
+        inside one row of chunks decode it once."""
+        from wass_tpu_torch.post.ooc import memory_budget_bytes
+
+        if self._index is None:
+            self._index = self.file._chunk_index(self)
+        out = self._filled(shape)
+        cs = self.chunks
+        chunk_bytes = int(np.prod(cs, dtype=np.int64)) * max(self.dtype.itemsize, self._type.size)
+        budget = memory_budget_bytes()
         ranges = [range(a // c, (b - 1) // c + 1) for (a, b), c in zip(box, cs)]
         for idx in itertools.product(*ranges):
+            if idx[0] != self._cache_row:
+                self._cache.clear()
+                self._cache_row = idx[0]
             origin = tuple(i * c for i, c in zip(idx, cs))
-            entry = self._index.get(origin)
-            if entry is None:  # never written: the fill value
+            if origin in self._cache:
+                chunk = self._cache[origin]
+            else:
+                chunk = self._chunk(origin)
+                if (len(self._cache) + 1) * chunk_bytes <= budget:
+                    self._cache[origin] = chunk
+            if chunk is None:
                 continue
-            addr, nbytes, mask = entry
-            if mask:
-                raise LayoutError(f"{self.path}: chunk {origin} went through a filter")
-            chunk = self._elements(self.file._read(addr, n * self._type.size), n).reshape(cs)
             src = tuple(slice(max(a, o) - o, min(b, o + c) - o) for (a, b), o, c in zip(box, origin, cs))
             dst = tuple(slice(max(a, o) - a, min(b, o + c) - a) for (a, b), o, c in zip(box, origin, cs))
             out[dst] = chunk[src]
@@ -643,11 +647,14 @@ class H5Dataset(H5Object):
 
 
 def _v2_messages(body: bytes, flags: int) -> list:
+    """[(type, flags, data, creation order)] of a version 2 header chunk; the
+    creation order is 0 unless the header tracks attribute creation order."""
     step = 6 if flags & 0x04 else 4
     msgs, p = [], 0
     while p + step <= len(body):
         t, n, fl = body[p], struct.unpack_from("<H", body, p + 1)[0], body[p + 3]
-        msgs.append((t, fl, body[p + step:p + step + n]))
+        order = struct.unpack_from("<H", body, p + 4)[0] if flags & 0x04 else 0
+        msgs.append((t, fl, body[p + step:p + step + n], order))
         p += step + n
     return msgs
 
@@ -682,12 +689,17 @@ class H5File:
     """An HDF5 file's objects, parsed on open.
 
     Reads this module's layout (superblock 2, version 2 object headers,
-    compact links, contiguous datasets) and the h5py default one
-    (superblock 0, version 1 object headers with continuation blocks,
-    symbol-table groups, chunked datasets indexed by a version 1 B-tree,
-    no filters).  `f["/Z"]` is a dataset with `shape`, `dtype`, `attrs`
-    and numpy basic indexing that reads only what it selects; object
-    references read back as the referenced object's path.
+    compact links, contiguous datasets), h5py's default one (superblock
+    0, version 1 object headers with continuation blocks, symbol-table
+    groups, chunked datasets indexed by a version 1 B-tree) and the
+    netCDF-C library's (superblock 2 or 3, dense links and attributes in
+    fractal heaps, committed datatypes, version 4 layouts with deflate and
+    shuffle).  `f["/Z"]` is a dataset with `shape`, `dtype`, `attrs` and
+    numpy basic indexing that reads only what it selects (a chunked one
+    decodes the chunks the selection meets); object references read back
+    as the referenced object's path, attributes come in h5py's order
+    (creation order where the object tracks it, else by name) and
+    committed datatypes are not listed as objects.
 
     Opened "r+" (this module's layout only), a file is edited without a
     copy: a dataset is written in place (`ds[key] = value`),
@@ -735,8 +747,10 @@ class H5File:
             sb = self._read(0, SUPERBLOCK_SIZE)
             if lookup3(sb[:44]) != struct.unpack_from("<I", sb, 44)[0]:
                 raise ValueError(f"{path}: superblock checksum mismatch")
-            base, _, eof, root = struct.unpack_from("<QQQQ", sb, 12)
+            base, ext, eof, root = struct.unpack_from("<QQQQ", sb, 12)
             self._sb = sb
+            if ext != UNDEF and any(t == _SHARED_TABLE for t, _, _ in self._header(ext)[1]):
+                raise LayoutError(f"{path}: shared object header messages (a shared-message table) are not read")
         else:
             raise ValueError(f"{path}: superblock version {head[8]} is not read")
         if base != 0:
@@ -744,12 +758,15 @@ class H5File:
         self._eof = max(eof, os.path.getsize(path))
         self._objects: Dict[str, H5Object] = {}
         self._paths: Dict[int, str] = {}
+        self._committed: Dict[int, _ReadType] = {}  # committed datatypes by object header address
         self.editable = head[8] >= 2  # this module's layout, checked object by object below
         pending = []
         self._load("/", root, pending)
-        for obj, attr_msgs in pending:  # references resolve once every path is known
-            for fl, data in attr_msgs:
-                name, rtype, shape, value = self._decode_attr(data)
+        for obj, attr_msgs, tracked in pending:  # references resolve once every path is known
+            decoded = [(fl, data, self._decode_attr(data)) for fl, data in attr_msgs]
+            if not tracked:  # h5py's order: creation order where tracked, else names
+                decoded.sort(key=lambda a: a[2][0])
+            for fl, data, (name, rtype, shape, value) in decoded:
                 dict.__setitem__(obj.attrs, name, value)
                 obj._attr_types[name] = (rtype, shape)
                 obj._attr_msgs[name] = (fl, data)
@@ -820,10 +837,13 @@ class H5File:
                 raise ValueError(f"object header at {addr}: checksum mismatch")
             chunk0 = (addr, len(whole))
             todo = _v2_messages(whole[pos + width:-4], flags)
+            attrs = []
             while True:
-                for t, fl, d in todo:
+                for t, fl, d, order in todo:
                     if t == _CONTINUATION:
                         conts.append(struct.unpack_from("<QQ", d))
+                    elif t == _ATTRIBUTE:
+                        attrs.append((order, len(attrs), (t, fl, d)))
                     elif t != _NIL:
                         msgs.append((t, fl, d))
                 if not conts:
@@ -833,7 +853,7 @@ class H5File:
                 if block[:4] != b"OCHK" or lookup3(block[:-4]) != struct.unpack_from("<I", block, clen - 4)[0]:
                     raise ValueError(f"continuation block at {caddr}: bad signature or checksum")
                 todo = _v2_messages(block[4:-4], flags)
-            return 2, msgs, chunk0
+            return 2, msgs + [m for _, _, m in sorted(attrs)], chunk0  # attributes in creation order
         if head[0] != 1:
             raise ValueError(f"object header at {addr}: not a version 1 or 2 header")
         size = struct.unpack_from("<I", head, 8)[0]
@@ -852,7 +872,9 @@ class H5File:
                 p += 8 + n
         return 1, msgs, None
 
-    def _load(self, path: str, addr: int, pending: list) -> None:
+    def _load(self, path: str, addr: int, pending: list) -> bool:
+        """Load the object at addr and below; False for a committed datatype,
+        which is kept by address and not linked as an object."""
         version, msgs, chunk0 = self._header(addr)
         types = {t for t, _, _ in msgs}
         if _LAYOUT in types:
@@ -861,56 +883,101 @@ class H5File:
         elif types & {_LINK_INFO, _GROUP_INFO, _LINK, _SYMBOL_TABLE} or not msgs:
             obj = H5Group(self, path, addr)
             for t, fl, d in msgs:
-                if t == _LINK_INFO and struct.unpack_from("<Q", d, 2 + (8 if d[1] & 1 else 0))[0] != UNDEF:
-                    raise LayoutError(f"{path}: dense link storage (a fractal heap) is not read")
-                if t == _LINK:
+                if t == _LINK_INFO:
+                    links = self._dense(d, attrs=False)
+                    for m in links:
+                        name, target = self._decode_link(m)
+                        obj.links[name] = target
+                    self.editable &= not links
+                elif t == _LINK:
                     name, target = self._decode_link(d)
                     obj.links[name] = target
                 elif t == _SYMBOL_TABLE:
                     obj.links.update(self._symbol_table(*struct.unpack_from("<QQ", d)))
+        elif _DATATYPE in types and _DATASPACE not in types:
+            self._committed_type(addr, msgs)
+            self.editable = False
+            return False
         else:
             raise LayoutError(f"{path}: an object that is neither a group nor a dataset (message types {types})")
+        attr_msgs = [(fl, d) for t, fl, d in msgs if t == _ATTRIBUTE]
+        tracked = False
         for t, fl, d in msgs:
-            if t == _ATTR_INFO and struct.unpack_from("<Q", d, 2 + (2 if d[1] & 1 else 0))[0] != UNDEF:
-                raise LayoutError(f"{path}: dense attribute storage (a fractal heap) is not read")
+            if t == _ATTR_INFO:
+                tracked = bool(d[1] & 1)
+                dense = self._dense(d, attrs=True)
+                attr_msgs += [(0, m) for m in dense]
+                self.editable &= not dense
         obj._version, obj._chunk0 = version, chunk0
         obj._msgs = [(t, fl, d) for t, fl, d in msgs if t != _ATTRIBUTE]
         self.editable &= version == 2 and not (isinstance(obj, H5Dataset) and obj.layout == "chunked")
         self._objects[path] = obj
         self._paths[addr] = path
-        pending.append((obj, [(fl, d) for t, fl, d in msgs if t == _ATTRIBUTE]))
+        pending.append((obj, attr_msgs, tracked))
         if isinstance(obj, H5Group):
-            for name, target in obj.links.items():
-                self._load(_join(path, name), target, pending)
+            for name, target in list(obj.links.items()):
+                if not self._load(_join(path, name), target, pending):
+                    del obj.links[name]
+        return True
+
+    def _dense(self, d: bytes, attrs: bool) -> List[bytes]:
+        """The messages of a Link Info (IV.A.2.c) or Attribute Info
+        (IV.A.2.v) message's dense storage: a fractal heap with a name
+        index and, where creation order is indexed, an order index."""
+        flags = d[1]
+        p = 2 + ((2 if attrs else 8) if flags & 1 else 0)
+        heap, names = struct.unpack_from("<QQ", d, p)
+        order = struct.unpack_from("<Q", d, p + 16)[0] if flags & 2 else UNDEF
+        if heap == UNDEF:
+            return []
+        return hdf5_index.dense_messages(self._read, heap, names, order, attrs)
+
+    def _shared_type(self, d: bytes) -> _ReadType:
+        """The datatype a shared message (IV.A.2 "shared messages",
+        versions 1-3) points to: a committed datatype's object header."""
+        version, kind = d[0], d[1]
+        if version == 1:
+            addr = struct.unpack_from("<Q", d, 8)[0]
+        elif version == 2 or (version == 3 and kind == 2):
+            addr = struct.unpack_from("<Q", d, 2)[0]
+        elif version == 3 and kind == 1:
+            raise LayoutError("a message in the shared-message heap is not read")
+        else:
+            raise LayoutError(f"shared message version {version}, type {kind} is not read")
+        return self._committed_type(addr)
+
+    def _committed_type(self, addr: int, msgs: Optional[list] = None) -> _ReadType:
+        """The committed datatype whose object header is at addr (its
+        messages when already read)."""
+        if addr not in self._committed:
+            found = [d for t, _, d in (msgs or self._header(addr)[1]) if t == _DATATYPE]
+            if not found:
+                raise ValueError(f"committed datatype at {addr}: no datatype message")
+            self._committed[addr] = self._decode_type(found[0], 0)[0]
+        return self._committed[addr]
 
     def _load_dataset(self, obj: H5Dataset, msgs: list) -> None:
         for t, fl, d in msgs:
-            if fl & 0x02 and t in (_DATASPACE, _DATATYPE):
-                raise LayoutError(f"{obj.path}: shared messages are not read")
+            if fl & _SHARED and t != _DATATYPE:
+                raise LayoutError(f"{obj.path}: a shared message of type {t} is not read")
             if t == _DATASPACE:
                 obj.shape = self._decode_dataspace(d)
+                obj.maxshape = self._decode_maxshape(d)
             elif t == _DATATYPE:
-                obj._type, _ = self._decode_type(d, 0)
+                obj._type = self._shared_type(d) if fl & _SHARED else self._decode_type(d, 0)[0]
             elif t == _FILTERS:
-                raise LayoutError(f"{obj.path}: a filter pipeline (compression) is not read")
+                obj._filters = hdf5_index.parse_filters(d)
             elif t == _FILL:
                 obj._fill = self._decode_fill(d)
             elif t == _LAYOUT:
-                if d[0] != 3:
-                    raise LayoutError(f"{obj.path}: a version {d[0]} layout message is not read")
-                cls = d[1]
-                if cls == 0:
-                    n = struct.unpack_from("<H", d, 2)[0]
-                    obj.layout, obj._compact = "compact", d[4:4 + n]
-                elif cls == 1:
-                    obj.data_addr, obj.data_size = struct.unpack_from("<QQ", d, 2)
-                elif cls == 2:
-                    ndims = d[2]
-                    obj.layout = "chunked"
-                    obj._btree = struct.unpack_from("<Q", d, 3)[0]
-                    obj.chunks = struct.unpack_from(f"<{ndims}I", d, 11)[:-1]
+                lay = obj._layout = hdf5_index.parse_layout(d, obj.path)
+                obj.layout = lay.kind
+                if lay.kind == "compact":
+                    obj._compact = lay.data
+                elif lay.kind == "contiguous":
+                    obj.data_addr, obj.data_size = lay.address, lay.size
                 else:
-                    raise LayoutError(f"{obj.path}: layout class {cls} is not read")
+                    obj.chunks = lay.chunks
         obj.dtype = obj._type.numpy if obj._type.kind == "fixed" else np.dtype(object)
 
     @staticmethod
@@ -926,21 +993,6 @@ class H5File:
             return d[6:6 + n]
         return b""
 
-    def _btree_children(self, addr: int, node_type: int, key_size: int):
-        """The (key, child address) pairs of a version 1 B-tree's leaves."""
-        head = self._read(addr, 24)
-        if head[:4] != b"TREE" or head[4] != node_type:
-            raise ValueError(f"B-tree node at {addr}: bad signature or type")
-        level, n = head[5], struct.unpack_from("<H", head, 6)[0]
-        body = self._read(addr + 24, n * (key_size + 8) + key_size)
-        for i in range(n):
-            key = body[i * (key_size + 8):i * (key_size + 8) + key_size]
-            child = struct.unpack_from("<Q", body, i * (key_size + 8) + key_size)[0]
-            if level:
-                yield from self._btree_children(child, node_type, key_size)
-            else:
-                yield key, child
-
     def _symbol_table(self, btree: int, heap: int) -> Dict[str, int]:
         """A symbol-table group's links, from its B-tree's symbol nodes and its local heap."""
         h = self._read(heap, 32)
@@ -949,7 +1001,7 @@ class H5File:
         size, _, data_addr = struct.unpack_from("<QQQ", h, 8)
         names = self._read(data_addr, size)
         links = {}
-        for _, snod in self._btree_children(btree, 0, 8):
+        for _, snod in hdf5_index.btree1_leaves(self._read, btree, 0, 8):
             head = self._read(snod, 8)
             if head[:4] != b"SNOD":
                 raise ValueError(f"symbol table node at {snod}: bad signature")
@@ -960,15 +1012,10 @@ class H5File:
                 links[names[off:names.index(b"\0", off)].decode()] = target
         return links
 
-    def _chunk_index(self, btree: int, ndims: int) -> dict:
+    def _chunk_index(self, ds: H5Dataset) -> dict:
         """A chunked dataset's chunks: origin -> (address, bytes, filter mask)."""
-        if btree == UNDEF:
-            return {}
-        out = {}
-        for key, child in self._btree_children(btree, 1, 8 + 8 * ndims):
-            nbytes, mask = struct.unpack_from("<II", key)
-            out[struct.unpack_from(f"<{ndims}Q", key, 8)[:-1]] = (child, nbytes, mask)
-        return out
+        return hdf5_index.chunk_index(self._read, ds._layout, ds.shape, ds.maxshape or ds.shape, ds._type.size,
+                                      bool(ds._filters), ds.path)
 
     @staticmethod
     def _decode_link(d: bytes) -> Tuple[str, int]:
@@ -994,6 +1041,15 @@ class H5File:
                 raise LayoutError("null dataspaces are not read")
             return struct.unpack_from(f"<{rank}Q", d, 4) if d[3] == 1 else ()
         raise LayoutError(f"dataspace version {d[0]} is not read")
+
+    @classmethod
+    def _decode_maxshape(cls, d: bytes) -> Tuple[int, ...]:
+        """A dataspace's maximum dimensions (UNDEF: unlimited); its
+        dimensions where it gives none."""
+        shape = cls._decode_dataspace(d)
+        if not d[2] & 1:
+            return shape
+        return struct.unpack_from(f"<{len(shape)}Q", d, (8 if d[0] == 1 else 4) + 8 * len(shape))
 
     def _decode_type(self, d: bytes, p: int) -> Tuple[_ReadType, int]:
         """The datatype at d[p:] and the offset after it."""
@@ -1074,14 +1130,14 @@ class H5File:
         version = d[0]
         if version not in (1, 2, 3):
             raise LayoutError(f"attribute message version {version} is not read")
-        if version > 1 and d[1] & 0x03:
-            raise LayoutError("attributes with shared types or dataspaces are not read")
+        if version > 1 and d[1] & 0x02:
+            raise LayoutError("attributes with shared dataspaces are not read")
         nlen, tlen, slen = struct.unpack_from("<HHH", d, 2)
         pad = _pad8 if version == 1 else (lambda n: n)
         p = {1: 8, 2: 8, 3: 9}[version]
         name = d[p:p + nlen].split(b"\0")[0].decode()
         p += pad(nlen)
-        t, _ = self._decode_type(d, p)
+        t = self._shared_type(d[p:p + tlen]) if version > 1 and d[1] & 0x01 else self._decode_type(d, p)[0]
         p += pad(tlen)
         shape = self._decode_dataspace(d[p:p + slen])
         raw = d[p + pad(slen):]
@@ -1246,9 +1302,11 @@ class H5File:
 
 def copy_to_port_layout(src_path, dst_path, budget_bytes: int = 512 << 20) -> None:
     """Write the file at src_path (any layout H5File reads) again in this
-    module's layout at dst_path: the same groups, datasets (contiguous),
-    values and attributes, object references mapped to the copies.  Data
-    are copied in slabs along the first axis of at most budget_bytes."""
+    module's layout at dst_path: the same groups, datasets (contiguous:
+    filtered chunks decoded), values and attributes (compact: dense links
+    and attributes become compact ones), a committed VLEN uint8 type
+    inline, object references mapped to the copies.  Data are copied in
+    slabs along the first axis of at most budget_bytes."""
     with H5File(src_path) as src:
         w = Writer(dst_path)
         try:
