@@ -233,6 +233,31 @@ I. Image IO and the renders.  Phase 4's frames must carry the six stereo
    with save_stokes (frame 0's TIFFs read back bit-equal to the card's
    Stokes images), then `polarimetric_setup` over phase G's cube, the
    finite share of its averages printed (no physics gate).
+D. The frame-sharded path (phase D, after phase I).  (a) One process in
+   an NCCL group of world size 1, a frame mesh of 2 slots on cuda:0:
+   `SequencePipeline.stereo` through the sharded loop over phase 5's ten
+   frames with the defaults and the renders (two passes, frames/s; two
+   slots on one card are a record of overlap on one device, not a scaling
+   number).  Every frame must launch K1, K3 (the coarse pass), K2, K6 and
+   K7, not K4, take the windowed branch, pass the elevation gate, and
+   its mesh_cam.xyzC and plane.txt, and output/planes.txt, must be
+   byte-equal to phase 5's pipelined frames.  A 2-frame batch with
+   _select_fallback forced to slot 1: that frame re-runs at full range
+   (K7 twice), byte-equal to phase 4b's c2f_window = 0 frame,
+   n_fallback_reruns printed.  lm_refine_two_view_sharded over the 2
+   slots on phase M's pooled matches against the unsharded BA (float32:
+   R and T's direction within 5e-5, |T| printed; float64: 1e-10).  K6
+   timed on frame 0's windowed volume.  (b) Two processes on the card
+   (this script with --sharded-rank, a localhost TCP store, gloo: NCCL
+   refuses two ranks on one device), one slot each: the same ten frames
+   through stereo(), each rank writing its own frames and rank 0
+   planes.txt, all byte-equal to (a)'s; then the BA across the two ranks
+   against (a)'s.  (c) The wire probe (card-to-host MB/s, host decode ns
+   a point) and its AUTO decision; phase 5's frame 0 with
+   wire_delta=True, its .xyzC byte-equal to the direct one; n_exc and the
+   host ms of the delta and direct fetches.  (d) With more than one card,
+   a frame on the last card bit-equal to cuda:0's (one card: a line says
+   the check needs two).
 6. A JSON line of per-kernel results (times, launches, and the bound: the
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
@@ -2938,6 +2963,421 @@ def run_h5_phase(root: Path, card: str, dev="cuda") -> dict:
     return launches
 
 
+SHARDED_SLOTS = 2  # phase D (a): frame slots on cuda:0 in one process; (b): two ranks, one slot each
+SHARDED_DEVICE = "cuda:0"  # the card of phase D's slots
+ONE_PROCESS_BACKEND = "nccl"  # phase D (a)'s process group of world size 1
+# Kernels each sharded c2f frame must launch: the coarse pass (K1 + K3), K2,
+# K6 and K7; the pipelined loop's K4 must not run.
+SHARDED_PATH = ("census_cost", "sgm_wta_fused", "census_cost_windowed", "sgm_aggregate_windowed", "label_propagate")
+RANKS_TIMEOUT = 300  # seconds for the two ranks of phase D (b)
+# The sharded BA against the unsharded one, the limits of
+# tests/test_torch_parallel.py: float32 R and T's direction (the pose
+# autocalibrate keeps) within 5e-5 and T within 1e-4 (|T| is the gauge, set
+# by the damping's path); float64 R and T within 1e-10.
+BA_TOL = {"float32": (5e-5, 5e-5, 1e-4), "float64": (1e-10, 1e-10, 1e-10)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def seq_files(seq: Path) -> dict:
+    """Bytes of each frame's mesh_cam.xyzC and plane.txt and of
+    output/planes.txt, by path under seq."""
+    files = {f"{wd.name}/{f}": (wd / f).read_bytes() for wd in sorted(seq.glob("*_wd"))
+             for f in ("mesh_cam.xyzC", "plane.txt")}
+    files["output/planes.txt"] = (seq / "output" / "planes.txt").read_bytes()
+    return files
+
+
+def same_files(a: dict, b: dict, what: str) -> None:
+    differ = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+    if differ:
+        raise AssertionError(f"{what}: {differ[:6]} differ ({len(differ)} files)")
+    log(f"{what}: {len(a)} files byte-equal")
+
+
+def pooled_ba_problem(root: Path, dev, n_slots: int) -> dict:
+    """Phase M's pooled matches (matches_epionly.txt of the POOL_SEEDS
+    workdirs) as a BA problem at the pooled extrinsics, as autocalibrate
+    builds it: normalized observations, the points triangulated on the
+    card, those in front within the RANSAC threshold (Sampson distance)
+    kept, padded to a multiple of n_slots with masked rows at (0, 0, 1);
+    float32 numpy."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.calib.autocalibrate import AutocalConfig
+    from wass_tpu_torch.core.triangulate import triangulate_normalized
+    from wass_tpu_torch.io.workdir import frame_workdirs
+    from wass_tpu_torch.parallel.distba import pad_points_for_mesh
+
+    wds = frame_workdirs(root / "smoke_pool")
+    K0, K1 = wds[0].load_intrinsics(0), wds[0].load_intrinsics(1)
+    R, T = wds[0].load_extrinsics()
+    R, T = np.asarray(R, np.float64), np.asarray(T, np.float64).reshape(3)
+    uv = [wd.load_matches("matches_epionly.txt") for wd in wds]
+    uv0, uv1 = np.concatenate([u[0] for u in uv]), np.concatenate([u[1] for u in uv])
+    x0 = np.c_[uv0, np.ones(len(uv0))] @ np.linalg.inv(K0).T
+    x1 = np.c_[uv1, np.ones(len(uv1))] @ np.linalg.inv(K1).T
+    E = np.array([[0, -T[2], T[1]], [T[2], 0, -T[0]], [-T[1], T[0], 0]]) @ R
+    Ex0, Etx1 = x0 @ E.T, x1 @ E
+    sampson = np.abs(np.sum(x1 * Ex0, -1)) / np.sqrt(Ex0[:, 0] ** 2 + Ex0[:, 1] ** 2 + Etx1[:, 0] ** 2 + Etx1[:, 1] ** 2)
+    p0, p1 = x0[:, :2].astype(np.float32), x1[:, :2].astype(np.float32)
+    R32, T32 = R.astype(np.float32), T.astype(np.float32)
+    X = triangulate_normalized(*(torch.from_numpy(a).to(dev) for a in (p0, p1, R32, T32))).cpu().numpy()
+    keep = np.isfinite(X).all(1) & (X[:, 2] > 0) & (sampson * K0[0, 0] < AutocalConfig().ransac_threshold_px)
+    (X, p0, p1), mask = pad_points_for_mesh([X[keep], p0[keep], p1[keep]], np.ones(int(keep.sum()), bool), n_slots)
+    X[~mask] = (0.0, 0.0, 1.0)
+    return {"R": R32, "T": T32, "X": X, "p0": p0, "p1": p1, "mask": mask}
+
+
+def ba_agrees(a, b, what: str, dtype: str = "float32") -> str:
+    """R, T's direction and T of two BA results (R, T) within BA_TOL[dtype],
+    or raise."""
+    import numpy as np
+
+    Ra, Ta, Rb, Tb = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64) for x in (a[0], a[1], b[0], b[1]))
+    dr = np.abs(Ra - Rb).max()
+    dd = np.abs(Ta / np.linalg.norm(Ta) - Tb / np.linalg.norm(Tb)).max()
+    dt = np.abs(Ta - Tb).max()
+    tol_r, tol_d, tol_t = BA_TOL[dtype]
+    if not (dr <= tol_r and dd <= tol_d and dt <= tol_t):
+        raise AssertionError(f"{what} ({dtype}): |dR| {dr}, |d T/|T|| {dd}, |dT| {dt} (limits {BA_TOL[dtype]})")
+    bits = "bit-equal" if np.array_equal(Ra, Rb) and np.array_equal(Ta, Tb) else "not bit-equal"
+    return (f"{dtype} max |dR| {dr:.3g}, |d T/|T|| {dd:.3g}, |dT| {dt:.3g} (limits {tol_r:g}, {tol_d:g}, "
+            f"{tol_t:g}; {bits})")
+
+
+def sharded_k6_ms(img0, img1, rig, cfg, dev) -> tuple:
+    """K6 on frame 0's windowed cost volume as a sharded frame builds it
+    (CUDA events, 5 calls): (ms, the volume's shape)."""
+    import numpy as np
+    import torch
+
+    from wass_tpu_torch.stereo import dense
+    from wass_tpu_torch.stereo import sgm_kernels as sk
+    from wass_tpu_torch.stereo.c2f import coarse_disparity, compute_row_windows
+    from wass_tpu_torch.stereo.cost import census_transform
+
+    H, W = img0.shape
+    geom = dense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
+    b8, m8 = (np.clip(np.asarray(x), 0, 255).astype(np.uint8) for x in
+              ((img0, img1) if geom.base_is_cam0 else (img1, img0)))
+    br = dense.rectify_on_device(torch.as_tensor(b8).to(dev).float(), geom.H_base, (H, W))
+    mr = dense.rectify_on_device(torch.as_tensor(m8).to(dev).float(), geom.H_match, (H, W))
+    disp_c = coarse_disparity(br, mr, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions, cfg.census_win,
+                              cfg.uniqueness_ratio, cfg.c2f_factor)
+    ws, _, _ = compute_row_windows(disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window)
+    cost = sk.census_cost_volume_windowed(census_transform(br, cfg.census_win, cfg.input_smooth_sigma),
+                                          census_transform(mr, cfg.census_win, cfg.input_smooth_sigma), ws,
+                                          cfg.c2f_window)
+    return cuda_ms(lambda: sk.sgm_aggregate_windowed(cost, ws, cfg.p1, cfg.p2, cfg.directions), reps=5), \
+        tuple(cost.shape)
+
+
+def run_sharded_one_process(root: Path, scene, dev, card: str) -> dict:
+    """Phase D (a): one process in an NCCL group of world size 1, a frame
+    mesh of SHARDED_SLOTS slots on cuda:0.  Returns the launches."""
+    import numpy as np
+    import torch.distributed as dist
+
+    import wass_tpu_torch
+    from wass_tpu_torch.calib.ba import lm_refine_two_view
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.parallel import runner as prun
+    from wass_tpu_torch.parallel.distba import lm_refine_two_view_sharded
+    from wass_tpu_torch.parallel.mesh import make_frame_mesh
+    from wass_tpu_torch.testing import write_sequence
+
+    rig = scene.rig
+    totals: dict = {}
+    prun.initialize_multihost(f"localhost:{free_port()}", 1, 0, backend=ONE_PROCESS_BACKEND)
+    try:
+        seq = root / "smoke_sharded"
+        write_sequence(seq, scene.img0, scene.img1, rig, LOOP_FRAMES)
+        pipe = load_pipeline(seq)
+        pipe._frame_mesh = lambda: make_frame_mesh(devices=[SHARDED_DEVICE] * SHARDED_SLOTS)
+        pipe.cfg.wire_delta = False
+        rates = []
+        for rep in range(2):
+            wass_tpu_torch.reset_launch_counts()
+            t0 = time.time()
+            pipe.stereo(progress_stream=io.StringIO())
+            rates.append(LOOP_FRAMES / (time.time() - t0))
+            if rep == 0:
+                add_counts(totals, wass_tpu_torch.launch_counts())
+        log(f"phase D (a) on {card}: SequencePipeline.stereo through the sharded loop, {SHARDED_SLOTS} slots on cuda:0 "
+            f"in an NCCL group of world size 1, {LOOP_FRAMES} frames a pass (renders on): frames/s "
+            f"{' '.join(f'{r:.4f}' for r in rates)} (the first pass includes the warm-up; slots sharing one card: "
+            f"a record of overlap on one device, not a scaling number); launches {totals}")
+        for i, wd in enumerate(sorted(seq.glob("*_wd"))):
+            per_frame = check_frame(f"sharded {i}", wd, scene, SHARDED_PATH, gate=True)
+            if per_frame.get("sgm_wta_fused_windowed", 0) or not c2f_line(wd).endswith("windowed"):
+                raise AssertionError(f"sharded frame {i}: launches {per_frame}, {c2f_line(wd)!r}")
+        same_files(seq_files(seq), seq_files(root / "smoke_loop"), "phase D (a): the sharded frames against phase 5's "
+                   "pipelined frames (K6 + the windowed WTA against K4)")
+
+        # One frame of a 2-frame batch forced to the full-range fallback.
+        fb = root / "smoke_sharded_fallback"
+        write_sequence(fb, scene.img0, scene.img1, rig, 2)
+        made = []
+        select = prun.ShardedDenseRunner._select_fallback
+        prun.ShardedDenseRunner._select_fallback = lambda self, cov, offb, shape: made.append(self) or [1]
+        try:
+            pipe = load_pipeline(fb)
+            pipe._frame_mesh = lambda: make_frame_mesh(devices=[SHARDED_DEVICE] * SHARDED_SLOTS)
+            pipe.cfg.wire_delta = False
+            wass_tpu_torch.reset_launch_counts()
+            pipe.stereo(progress_stream=io.StringIO())
+            add_counts(totals, wass_tpu_torch.launch_counts())
+        finally:
+            prun.ShardedDenseRunner._select_fallback = select
+        per_frame = check_frame("sharded fallback 1", fb / "000001_wd", scene, SHARDED_PATH, gate=True)
+        if not c2f_line(fb / "000001_wd").endswith("FALLBACK to full-range SGM") or per_frame["label_propagate"] != 2:
+            raise AssertionError(f"forced fallback frame: {c2f_line(fb / '000001_wd')!r}, launches {per_frame}")
+        files = seq_files(fb)
+        same_files({k: v for k, v in files.items() if k.startswith("000001_wd/")},
+                   {f"000001_wd/{f}": (root / "smoke_full_range" / "000000_wd" / f).read_bytes()
+                    for f in ("mesh_cam.xyzC", "plane.txt")}, "phase D (a): the forced fallback frame against "
+                   "phase 4b's c2f_window = 0 frame")
+        same_files({k: v for k, v in files.items() if k.startswith("000000_wd/")},
+                   {k: v for k, v in seq_files(root / "smoke_loop").items() if k.startswith("000000_wd/")},
+                   "phase D (a): the batch's other frame against phase 5's frame 0")
+        log(f"phase D (a): forced fallback of slot 1 through _select_fallback: n_fallback_reruns "
+            f"{made[-1].n_fallback_reruns} (the runner of that batch), frame 1 launches {per_frame}")
+
+        # The sharded BA on phase M's pooled matches.
+        prob = pooled_ba_problem(root, dev, SHARDED_SLOTS)
+        np.savez(root / "smoke_sharded_ba.npz", **prob)
+        mesh = make_frame_mesh(devices=[SHARDED_DEVICE] * SHARDED_SLOTS)
+        for dtype in ("float32", "float64"):
+            cast = {k: (v.astype(dtype) if v.dtype.kind == "f" else v) for k, v in prob.items()}
+            t0 = time.perf_counter()
+            single = lm_refine_two_view(*(torch_on(cast[k], dev) for k in ("R", "T", "X", "p0", "p1", "mask")),
+                                        max_iters=50)
+            t_single = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            shard = lm_refine_two_view_sharded(mesh, cast["R"], cast["T"], cast["X"], cast["p0"], cast["p1"],
+                                               cast["mask"], max_iters=50)
+            t_shard = time.perf_counter() - t0
+            agree = ba_agrees((shard.R, shard.T), (single.R, single.T), "phase D (a) sharded BA", dtype)
+            log(f"phase D (a) BA on phase M's {int(prob['mask'].sum())} pooled points: {SHARDED_SLOTS} shards "
+                f"{shard.n_iters} LM steps {t_shard:.3f} s, unsharded {single.n_iters} steps {t_single:.3f} s; {agree}")
+            if dtype == "float32":
+                ba_ref = (shard.R.cpu().numpy(), shard.T.cpu().numpy())
+        k6_ms, shape = sharded_k6_ms(scene.img0, scene.img1, rig, pipe.cfg.stereo, dev)
+        log(f"phase D K6 on {card}: {k6_ms:.3f} ms on frame 0's windowed volume {shape}, "
+            f"{pipe.cfg.stereo.directions} paths (CUDA events, 5 calls)")
+        return totals, ba_ref
+    finally:
+        dist.destroy_process_group()
+
+
+def torch_on(a, dev):
+    import torch
+
+    return torch.from_numpy(a).to(dev)
+
+
+def run_sharded_ranks(root: Path, scene, ba_ref, card: str) -> None:
+    """Phase D (b): two processes on the one card, one slot each, under
+    gloo (NCCL refuses two ranks on one device), through a localhost TCP
+    store: the same frames as (a) through stereo(), then the distributed
+    BA across the two ranks."""
+    import numpy as np
+
+    from wass_tpu_torch.testing import write_sequence
+
+    seq = root / "smoke_sharded_ranks"
+    write_sequence(seq, scene.img0, scene.img1, scene.rig, LOOP_FRAMES)
+    port = free_port()
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--sharded-rank", str(r), str(port),
+                               str(seq), str(root / "smoke_sharded_ba.npz"), SHARDED_DEVICE], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=RANKS_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"RANK-OK {r}" not in out:
+            raise AssertionError(f"phase D (b) rank {r} failed ({p.returncode}):\n{out[-3000:]}")
+        for line in out.splitlines():
+            if line.startswith(f"RANK-OK {r}"):
+                log(f"phase D (b) rank {r}: {line[len(f'RANK-OK {r} '):]}")
+    log(f"phase D (b) on {card}: two ranks (gloo, one slot each on cuda:0), {LOOP_FRAMES} frames, "
+        f"{time.time() - t0:.1f} s wall with both processes' start (a record of two processes on one device, not a "
+        f"scaling number)")
+    for i, wd in enumerate(sorted(seq.glob("*_wd"))):
+        per_frame = check_frame(f"rank-sharded {i}", wd, scene, SHARDED_PATH, gate=True)
+        if per_frame.get("sgm_wta_fused_windowed", 0):
+            raise AssertionError(f"rank-sharded frame {i}: launches {per_frame}")
+    same_files(seq_files(seq), seq_files(root / "smoke_sharded"), "phase D (b): the two ranks' files (each rank its "
+               "own frames, rank 0 planes.txt) against (a)'s")
+    for r in range(2):
+        got = np.load(seq / f"ba_rank{r}.npz")
+        log(f"phase D (b) BA rank {r} ({int(got['n_iters'])} LM steps) against (a)'s sharded BA: "
+            + ba_agrees((got["R"], got["T"]), ba_ref, f"phase D (b) rank {r} BA"))
+
+
+def sharded_rank(rank: int, port: int, seq: Path, ba_path: Path, device: str) -> int:
+    """One rank of phase D (b) (chip_smoke.py --sharded-rank RANK PORT SEQ BA DEVICE)."""
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    import torch.distributed as dist
+
+    import wass_tpu_torch
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.parallel.distba import lm_refine_two_view_sharded
+    from wass_tpu_torch.parallel.mesh import make_frame_mesh
+    from wass_tpu_torch.parallel.runner import initialize_multihost
+
+    # NCCL refuses two ranks on one device: the two ranks share cuda:0 under gloo.
+    initialize_multihost(f"localhost:{port}", 2, rank, backend="gloo")
+    try:
+        pipe = load_pipeline(seq)  # default_devices(): each rank's card is cuda:0 (rank % 1)
+        pipe.cfg.wire_delta = False
+        wass_tpu_torch.reset_launch_counts()
+        t0 = time.time()
+        pipe.stereo(progress_stream=io.StringIO())
+        wall = time.time() - t0
+        launches = {k: v for k, v in wass_tpu_torch.launch_counts().items() if v}
+        prob = np.load(ba_path)
+        rows = len(prob["mask"]) // 2
+        part = {k: prob[k][rank * rows:(rank + 1) * rows] for k in ("X", "p0", "p1", "mask")}
+        ba = lm_refine_two_view_sharded(make_frame_mesh(devices=[device]), prob["R"], prob["T"], part["X"],
+                                        part["p0"], part["p1"], part["mask"], max_iters=50)
+        np.savez(seq / f"ba_rank{rank}.npz", R=ba.R.cpu().numpy(), T=ba.T.cpu().numpy(), n_iters=ba.n_iters)
+    finally:
+        dist.destroy_process_group()
+    print(f"RANK-OK {rank} stereo {wall:.2f} s for its {LOOP_FRAMES // 2} frames (with the other rank's on the same "
+          f"card), launches {launches}", flush=True)
+    return 0
+
+
+def check_wire(root: Path, scene, dev, card: str) -> dict:
+    """Phase D (c): the wire probe and its AUTO decision; phase 5's frame 0
+    with wire_delta=True, its .xyzC byte-equal to the direct one; n_exc and
+    the host ms of the delta and direct fetches of that frame.  Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    import wass_tpu_torch
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.cli.pipeline import SequencePipeline
+    from wass_tpu_torch.io.xyzc import decode_delta_payload
+    from wass_tpu_torch.stereo import dense
+    from wass_tpu_torch.testing import write_sequence
+
+    down, decode = SequencePipeline._probe_wire_rates(dev)
+    auto = SequencePipeline._wire_delta_decision(down, decode)
+    log(f"phase D (c) wire probe on {card}: card to host {down:.1f} MB/s, host delta decode {decode * 1e9:.2f} ns a "
+        f"point; AUTO picks {'delta' if auto else 'direct'}")
+    seq = root / "smoke_wire"
+    write_sequence(seq, scene.img0, scene.img1, scene.rig, 1)
+    pipe = load_pipeline(seq)
+    pipe.cfg.wire_delta = True
+    wass_tpu_torch.reset_launch_counts()
+    pipe.stereo(progress_stream=io.StringIO())
+    launches = wass_tpu_torch.launch_counts()
+    wire = [ln.split("] ", 1)[-1] for ln in (seq / "000000_wd" / "wass_stereo_log.txt").read_text().splitlines()
+            if "wire:" in ln]
+    same_files({k: v for k, v in seq_files(seq).items() if k.startswith("000000_wd/")},
+               {k: v for k, v in seq_files(root / "smoke_loop").items() if k.startswith("000000_wd/")},
+               f"phase D (c): frame 0 with wire_delta=True ({wire[0]}) against phase 5's direct frame 0")
+
+    cfg = pipe.cfg.stereo
+    H, W = scene.img0.shape
+    rig = scene.rig
+    geom = dense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
+    gp = dense.build_geom_pack(geom, (H, W), dev)
+    b8, m8 = (np.clip(np.asarray(x), 0, 255).astype(np.uint8) for x in
+              ((scene.img0, scene.img1) if geom.base_is_cam0 else (scene.img1, scene.img0)))
+    res = dense.DenseStereoPipeline(cfg)(dense.rectify_on_device(torch.as_tensor(b8).to(dev).float(), gp["H_base"],
+                                                                 (H, W)),
+                                         dense.rectify_on_device(torch.as_tensor(m8).to(dev).float(), gp["H_match"],
+                                                                 (H, W)), gp)
+    n = int(res.n_points)
+    plane = res.plane
+
+    def wire():  # the finalizer's wire_delta=True path: the 25% rule, then delta or direct
+        return SequencePipeline._fetch_delta(res, plane, n)
+
+    def delta():  # the delta stream whatever the rule says
+        delta_b, exc_vals, _q, n_exc, _mins, _scales = dense.export_delta(res.points, res.valid, plane, n)
+        n_exc = int(n_exc)
+        return decode_delta_payload(delta_b.cpu().numpy(), dense.fetch_u16(exc_vals[:n_exc])), n_exc
+
+    def direct():
+        q, mins, scales = dense.export_u16(res.points, res.valid, plane, n)
+        return dense.fetch_u16(q), mins.cpu(), scales.cpu()
+
+    def host_ms_min(fn, reps=5):
+        best = None
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            best = ms if best is None else min(best, ms)
+        return best, out
+
+    w_ms, w_out = host_ms_min(wire)
+    d_ms, (d_rows, n_exc) = host_ms_min(delta)
+    q_ms, q_out = host_ms_min(direct)
+    if not (np.array_equal(d_rows, q_out[0]) and np.array_equal(w_out[0], q_out[0])):
+        raise AssertionError("phase D (c): the delta stream's decoded rows differ from the direct rows")
+    log(f"phase D (c) on {card}: frame 0, {n} points, n_exc {n_exc} ({100 * n_exc / max(n, 1):.2f}%); export + "
+        f"fetch (+ decode), host clock, min of 5, synchronized: the finalizer's wire_delta=True path {w_ms:.3f} ms "
+        f"({w_out[3]}), the delta stream forced {d_ms:.3f} ms ({3 * n + 6 * n_exc} wire bytes; its decoded rows "
+        f"equal the direct rows), direct {q_ms:.3f} ms ({6 * n} wire bytes)")
+    return launches
+
+
+def check_other_card(scene, card: str) -> None:
+    """Phase D (d): with more than one card, a frame on the last card
+    bit-equal to the frame on cuda:0."""
+    import torch
+
+    from wass_tpu_torch.stereo.dense import DenseStereoConfig, dense_stereo_frame
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"phase D (d): {n} card here; holding a frame on another card against cuda:0 needs two cards "
+            "(this line is not a caught failure)")
+        return
+    rig = scene.rig
+    out = [dense_stereo_frame(scene.img0, scene.img1, rig.K0, rig.K1, rig.R, rig.T, DenseStereoConfig(),
+                              device=f"cuda:{k}")[0] for k in (0, n - 1)]
+    for name, a, b in zip(out[0]._fields, *out):
+        if isinstance(a, torch.Tensor) and not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"phase D (d): {name} of the frame on cuda:{n - 1} differs from cuda:0's")
+    log(f"phase D (d): the frame on cuda:{n - 1} bit-equal to cuda:0's ({card})")
+
+
+def run_sharded_phase(root: Path, scene, dev, card: str) -> dict:
+    """Phase D: (a) the sharded loop and BA in one process, (b) two ranks,
+    (c) the wire, (d) another card.  Returns the launches of (a) and (c)."""
+    t0 = time.time()
+    launches, ba_ref = run_sharded_one_process(root, scene, dev, card)
+    run_sharded_ranks(root, scene, ba_ref, card)
+    add_counts(launches, check_wire(root, scene, dev, card))
+    check_other_card(scene, card)
+    log(f"phase D: {time.time() - t0:.1f} s wall")
+    return launches
+
+
+
 def main() -> int:
     t_start = time.time()
     if not (ROOT / "wass_tpu_torch").is_dir():
@@ -3031,6 +3471,8 @@ def main() -> int:
     add_counts(launches, check_raw_forms(_build.BUILD_DIR, rig, scene))
     check_stokes(_build.BUILD_DIR, rig, dev)
     log(f"phase I: {time.time() - t0:.1f} s wall")
+    # Phase D: the frame-sharded path, the two-rank run and the wire.
+    add_counts(launches, run_sharded_phase(_build.BUILD_DIR, scene, dev, smi))
     unused = [k for k in KERNELS if launches[k] < 1]
     if unused:
         raise AssertionError(f"kernels no main-path run launched: {unused}")
@@ -3058,4 +3500,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sharded-rank"]:  # one rank of phase D (b), started by phase D
+        sys.exit(sharded_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), Path(sys.argv[5]), sys.argv[6]))
     sys.exit(main())

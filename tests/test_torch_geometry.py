@@ -71,6 +71,44 @@ def test_rectify_homographies_identical():
     assert a.roi == b.roi and a.angle_deg == b.angle_deg
 
 
+# Three rigs for the Bouguet route: the synthetic rig, a vertical baseline
+# with a rolled camera, and a wide toe-in with unequal focal lengths.
+BOUGUET_RIGS = {
+    "synthetic": lambda: (lambda r: (r.K0, r.K1, r.R, r.T, (320, 240)))(make_rig(width=320, height=240)),
+    "vertical": lambda: (np.array([[900.0, 0, 330], [0, 905, 250], [0, 0, 1]]),
+                         np.array([[880.0, 0, 318], [0, 884, 236], [0, 0, 1]]),
+                         _rotation([0.05, -0.01, 0.2]), np.array([0.1, -1.0, 0.05]), (640, 480)),
+    "toe_in": lambda: (np.array([[1200.0, 0, 1020], [0, 1190, 770], [0, 0, 1]]),
+                       np.array([[1150.0, 0, 1010], [0, 1160, 780], [0, 0, 1]]),
+                       _rotation([0.01, -0.3, 0.02]), np.array([-2.5, 0.03, 0.4]), (2048, 1536)),
+}
+
+
+def _rotation(w):
+    import cv2
+
+    return cv2.Rodrigues(np.asarray(w, np.float64))[0]
+
+
+@pytest.mark.parametrize("rig", sorted(BOUGUET_RIGS))
+def test_bouguet_rectification_matches_jax(rig):
+    """The Bouguet route (rotations, projections, Q and the plain
+    homographies) and its Rodrigues helpers against the JAX package's
+    within 1e-12."""
+    K0, K1, R, T, size = BOUGUET_RIGS[rig]()
+    a, b = jrect.stereo_rectify_bouguet(K0, K1, R, T, size), trect.stereo_rectify_bouguet(K0, K1, R, T, size)
+    assert type(b).__name__ == "BouguetResult" and b._fields == a._fields
+    for name, x, y in zip(a._fields, a, b):
+        np.testing.assert_allclose(y, x, rtol=0, atol=1e-12 * max(1.0, np.abs(x).max()), err_msg=name)
+    for K, Rr, P in ((K0, b.R1, b.P1), (K1, b.R2, b.P2)):
+        np.testing.assert_allclose(trect.bouguet_rectification_homography(K, Rr, P),
+                                   jrect.bouguet_rectification_homography(K, Rr, P), rtol=0, atol=1e-12 * 1e4)
+    w = trect._inv_rodrigues_np(R)
+    np.testing.assert_allclose(w, jrect._inv_rodrigues_np(R), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(trect._rodrigues_np(w), jrect._rodrigues_np(w), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(trect._rodrigues_np(w), R, rtol=0, atol=1e-12)
+
+
 def test_frame_geometry_and_pack():
     rig = make_rig(width=192, height=144)
     gj = jdense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (192, 144))

@@ -7,6 +7,15 @@ loaded with `ctypes` (no PyTorch headers, so a build takes seconds).
 The library lands in `wass_tpu_torch/_build/`.  Every C entry point returns
 `cudaGetLastError()`; `check` turns a non-zero code into an exception.
 
+Every kernel wrapper launches through `launch`, which makes the tensors'
+card the CUDA runtime's current device for the call.  A ctypes call
+reaches the runtime outside PyTorch's device guards, so without it a
+launch for tensors on `cuda:1` would run on whatever device is current
+(`cuda:0`).  The per-device settings an entry point makes
+(`cudaFuncSetAttribute` for dynamic shared memory and cluster sizes, the
+occupancy and SM-count queries) are made on every call, so each applies
+to the device of that call; nothing is cached across devices.
+
 There is no fallback: a missing `nvcc` or a failed build raises.
 """
 
@@ -140,7 +149,15 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def stream_handle(device) -> int:
+def launch(entry: str, what: str, device, *args, accept=()) -> int:
+    """Call the C entry point `entry` with `args` and the current stream of
+    the CUDA device `device`, with `device` the runtime's current device;
+    raise on a non-zero code that is not in `accept`.  Returns the code."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    lib = load()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err not in accept:
+        check(err, what)
+    return err

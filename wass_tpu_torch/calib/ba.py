@@ -13,14 +13,17 @@ Counterpart of wass_tpu/calib/ba.py (the WASS sba_driver around libsba):
   removes the float32 floor near 1e-4 rad.
 
 The LM loops read their stop flag on the host once per step (at most
-max_iters reads, once per sequence).  The JAX package's point-sharded BA
-(axis_name, a psum over the camera-block sums) is multi-device work and
-not ported here.
+max_iters reads, once per sequence).  lm_refine_two_view also runs
+point-sharded, the JAX package's axis_name hook (a psum of the
+camera-block sums): given per-shard point tensors, each on its own
+device, it keeps every per-point quantity on its shard's device and adds
+the camera-block sums across the shards (parallel/distba.py drives it
+over a frame mesh and across ranks).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,7 +35,7 @@ from wass_tpu_torch.core.geometry import rodrigues, skew
 class BAResult(NamedTuple):
     R: torch.Tensor  # (3, 3) refined cam0 -> cam1 rotation
     T: torch.Tensor  # (3,) refined translation (not renormalized)
-    X: torch.Tensor  # (N, 3) refined points
+    X: torch.Tensor  # (N, 3) refined points (a list of the shards' when point-sharded)
     initial_cost: torch.Tensor
     final_cost: torch.Tensor
     n_iters: int
@@ -52,29 +55,51 @@ _res_fn = vmap(_point_residual, in_dims=(None, None, 0, 0, 0))
 _jac_fn = vmap(jacfwd(_point_residual, argnums=(0, 2)), in_dims=(None, None, 0, 0, 0))
 
 
-def lm_refine_two_view(R_init: torch.Tensor, T_init: torch.Tensor, X_init: torch.Tensor, p0: torch.Tensor,
-                       p1: torch.Tensor, mask: torch.Tensor, max_iters: int = 50, lam0: float = 1e-3) -> BAResult:
+def _sum_shards(terms, dev, reduce):
+    """The shards' terms added in shard order on `dev`, then `reduce`d."""
+    acc = terms[0].to(dev)
+    for t in terms[1:]:
+        acc = acc + t.to(dev)
+    return acc if reduce is None else reduce(acc)
+
+
+def lm_refine_two_view(R_init: torch.Tensor, T_init: torch.Tensor, X_init, p0, p1, mask, max_iters: int = 50,
+                       lam0: float = 1e-3, reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> BAResult:
     """LM refinement of (R, T, X) minimizing the masked reprojection error.
 
     X_init: (N, 3) points in the cam0 frame; p0, p1: (N, 2) normalized
-    observations; mask: (N,) bool, False on padded slots."""
-    m = mask.to(X_init.dtype)
-    dev, dtype = X_init.device, X_init.dtype
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
+    observations; mask: (N,) bool, False on padded slots.
 
-    def cost(cam, X):
-        r = _res_fn(cam, R_init, X, p0, p1)
+    Point-sharded (the JAX function's axis_name): X_init, p0, p1 and mask
+    are equally long sequences of per-shard tensors, shard k's four on one
+    device.  Each shard's residuals, Jacobians, 3x3 point blocks and Schur
+    terms are computed on its device; the camera-block sums (the Schur
+    complement, its right-hand side, the cost) add across the shards in
+    shard order on the first shard's device, the device of R_init and
+    T_init, and then go through `reduce` (a sum across ranks), so every
+    rank takes the same steps.  The result's X is then the list of the
+    shards' points."""
+    sharded = isinstance(X_init, (list, tuple))
+    Xs = list(X_init) if sharded else [X_init]
+    p0s, p1s = (list(p0), list(p1)) if sharded else ([p0], [p1])
+    ms = [mk.to(x.dtype) for mk, x in zip(mask if sharded else [mask], Xs)]
+    dev, dtype = R_init.device, Xs[0].dtype
+    R0s = [R_init.to(x.device) for x in Xs]
+    eyes = [torch.eye(3, dtype=dtype, device=x.device) for x in Xs]
+
+    def shard_cost(cam, X, R0, a, b, m):
+        r = _res_fn(cam.to(X.device), R0, X, a, b)
         return (r * r * m[:, None]).sum()
 
-    cam = torch.cat([torch.zeros(3, dtype=dtype, device=dev), T_init.reshape(3)])
-    X = X_init
-    c0 = cost(cam, X)
-    c_prev = c0
-    lam = torch.tensor(lam0, dtype=dtype, device=dev)
-    it = 0
-    while it < max_iters:
-        r = _res_fn(cam, R_init, X, p0, p1)  # (N, 4)
-        Jc, Jp = _jac_fn(cam, R_init, X, p0, p1)  # (N, 4, 6), (N, 4, 3)
+    def cost(cam, Xs):
+        return _sum_shards([shard_cost(cam, *t) for t in zip(Xs, R0s, p0s, p1s, ms)], dev, reduce)
+
+    def shard_system(cam, lam, X, R0, a, b, m, eye3):
+        """Shard terms of the damped normal equations: (S_k, rhs_k) and the
+        point blocks' (Ci, B, g_p) for the back-substitution."""
+        cam, lam = cam.to(X.device), lam.to(X.device)
+        r = _res_fn(cam, R0, X, a, b)  # (N, 4)
+        Jc, Jp = _jac_fn(cam, R0, X, a, b)  # (N, 4, 6), (N, 4, 3)
         w = m[:, None, None]
         JcT = Jc.transpose(1, 2) * w.transpose(1, 2)
         Jp_w = Jp * w
@@ -92,15 +117,28 @@ def lm_refine_two_view(R_init: torch.Tensor, T_init: torch.Tensor, X_init: torch
         BCi = torch.einsum("nij,njk->nik", B, Ci)
         S = A_d - torch.einsum("nik,njk->ij", BCi, B)
         rhs = g_c - torch.einsum("nik,nk->i", BCi, g_p)
+        return S, rhs, (Ci, B, g_p)
+
+    cam = torch.cat([torch.zeros(3, dtype=dtype, device=dev), T_init.reshape(3).to(dev)])
+    c0 = cost(cam, Xs)
+    c_prev = c0
+    lam = torch.tensor(lam0, dtype=dtype, device=dev)
+    it = 0
+    while it < max_iters:
+        systems = [shard_system(cam, lam, *t) for t in zip(Xs, R0s, p0s, p1s, ms, eyes)]
+        S = _sum_shards([sy[0] for sy in systems], dev, reduce)
+        rhs = _sum_shards([sy[1] for sy in systems], dev, reduce)
         dc = torch.linalg.solve(S, rhs)
-        dX = torch.einsum("nij,nj->ni", Ci, g_p - torch.einsum("nji,j->ni", B, dc))
+        X_new = []
+        for X, (_, _, (Ci, B, g_p)) in zip(Xs, systems):
+            dck = dc.to(X.device)
+            X_new.append(X + torch.einsum("nij,nj->ni", Ci, g_p - torch.einsum("nji,j->ni", B, dck)))
 
         cam_new = cam + dc
-        X_new = X + dX
         c_new = cost(cam_new, X_new)
         accept = c_new < c_prev
         cam = torch.where(accept, cam_new, cam)
-        X = torch.where(accept, X_new, X)
+        Xs = [torch.where(accept.to(X.device), Xn, X) for X, Xn in zip(Xs, X_new)]
         lam = torch.where(accept, torch.clamp_min(lam * 0.3, 1e-9), torch.clamp_max(lam * 5.0, 1e6))
         c_next = torch.where(accept, c_new, c_prev)
         rel = (c_prev - c_next).abs() / torch.clamp_min(c_prev, 1e-20)
@@ -110,7 +148,7 @@ def lm_refine_two_view(R_init: torch.Tensor, T_init: torch.Tensor, X_init: torch
         if bool(done):
             break
     R = rodrigues(cam[:3]) @ R_init
-    return BAResult(R=R, T=cam[3:], X=X, initial_cost=c0, final_cost=c_prev, n_iters=it)
+    return BAResult(R=R, T=cam[3:], X=Xs if sharded else Xs[0], initial_cost=c0, final_cost=c_prev, n_iters=it)
 
 
 def _tangent_basis(T: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,13 @@ default prepare options and reads no prepare_config.txt.  Raw frames are
 any image OpenCV decodes, read as the JAX command reads them
 (io/image.py:read_raw_frame).  measure's --interactive picker is refused:
 it needs matplotlib, which the port does without.
+
+stereo spreads the frames over every local card (one frame a card a
+batch).  Started by torchrun (WORLD_SIZE > 1 in the environment), it
+joins the torchrun group first ("nccl", one card a rank; "gloo" with
+--device cpu) and each rank runs the frames of its own card:
+
+  torchrun --nproc_per_node=4 -m wass_tpu_torch.cli.main stereo OUTDIR
 """
 
 from __future__ import annotations
@@ -209,6 +216,12 @@ def main(argv=None) -> int:
         print(f"epipolar error {res.epi_med_before:.4f} -> {res.epi_med_after:.4f} px "
               f"({res.n_inliers} inliers, {'accepted' if res.improved else 'kept RANSAC pose'})")
     else:
+        import os
+
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            from wass_tpu_torch.parallel.runner import initialize_multihost
+
+            initialize_multihost("env://", backend="gloo" if args.device == "cpu" else "nccl")
         print(f"reconstructed {len(pipe.stereo())} frames")
     return 0
 

@@ -30,9 +30,21 @@ the dispatching stream would wait for every frame dispatched since.  The
 one host read left on the dispatching thread is the plane refinement's
 3x3 eigenproblem (stereo/plane.py).
 
-Not ported yet: the frame-sharded multi-device runner and the
-delta-coded wire format (the .xyzC payload is always the
-direct u16 export).
+With more than one frame slot (more than one card, or a torch.distributed
+group of several ranks; parallel/mesh.py) and more than one frame,
+stereo() takes the JAX package's _stereo_sharded loop instead:
+batches of one frame a slot through parallel/runner.ShardedDenseRunner,
+each slot's frame uploaded and rectified on its slot's device, the
+fallback resolved in the runner, the same writers (a CUDA stream per
+writer and device), a ragged tail padded with the last frame.  Under a
+process group each rank writes its own frames' files, and rank 0 writes
+output/planes.txt and workspaces.txt from the gathered planes.
+
+The .xyzC payload crosses the link as u16 rows (6 bytes a point), or
+delta-coded (SequenceConfig.wire_delta: 3 bytes a point and 6 an
+exception, decoded on the host into the same rows, so the file is
+byte-identical); by default a probe of the link's and the host decode's
+rates decides once a sequence.
 """
 
 from __future__ import annotations
@@ -55,17 +67,21 @@ from wass_tpu_torch.io.ply import save_ply_points
 from wass_tpu_torch.io.png import read_gray
 from wass_tpu_torch.io.prefetch import Prefetcher
 from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
-from wass_tpu_torch.io.xyzc import save_xyz_quantized
+from wass_tpu_torch.io.xyzc import decode_delta_payload, save_xyz_quantized
 from wass_tpu_torch.launches import frame_scope
 from wass_tpu_torch.match.pipeline import MatchConfig, match_frame
 from wass_tpu_torch.ops import components_kernels
+from wass_tpu_torch.parallel.mesh import make_frame_mesh, rank, world_size
+from wass_tpu_torch.parallel.runner import ShardedDenseRunner
 from wass_tpu_torch.prepare.prepare import PrepareConfig, prepare_frame
 from wass_tpu_torch.stereo import flow_kernels, sgm_kernels
 from wass_tpu_torch.stereo.dense import (
     DenseStereoConfig,
     DenseStereoPipeline,
     build_geom_pack,
+    export_delta,
     export_u16,
+    fetch_u16,
     prepare_frame_geometry,
     rectify_on_device,
 )
@@ -96,6 +112,16 @@ class SequenceConfig:
     # The optical-flow reconstruction (ENABLE_OPTICAL_FLOW; None: off, as in
     # the reference).
     flow: Optional[FlowConfig] = None
+    # Delta-code the .xyzC wire payload (3 bytes a point + 6 an exception
+    # row instead of 6 a point; the same file after the host decode).  It
+    # wins only where the host decodes a point faster than the link ships
+    # the ~1.5 bytes a point it saves.  None = AUTO: probe the link's
+    # download rate and the host decode rate once a sequence and take the
+    # faster path; True / False force it.  AUTO is resolved at the start of
+    # each stereo() call, on the CPU as on a card and by each rank for
+    # itself (a ~4 MB copy to the host and a 500k-point decode, ~20 ms),
+    # and the decision is stored here.
+    wire_delta: Optional[bool] = None
 
 
 class SequencePipeline:
@@ -190,7 +216,7 @@ class SequencePipeline:
     # -- stage 4: dense stereo --------------------------------------------
     def _frame_geometry(self, cache: dict, K0, K1, R, T, shape, device):
         """Geometry + device pack, cached by rig parameters."""
-        key = (K0.tobytes(), K1.tobytes(), np.asarray(R).tobytes(), np.asarray(T).tobytes(), shape)
+        key = (K0.tobytes(), K1.tobytes(), np.asarray(R).tobytes(), np.asarray(T).tobytes(), shape, str(device))
         hit = cache.get(key)
         if hit is None:
             H, W = shape
@@ -209,7 +235,7 @@ class SequencePipeline:
         its launches too."""
         t0 = time.time()
         c2f = extras.get("c2f")
-        if c2f is not None:
+        if c2f is not None and c2f["fallback"] is None:
             # Deferred c2f fallback: read the coverage scalars, re-run the
             # frame at full range if the guard trips; its launches count
             # for this frame.
@@ -251,10 +277,16 @@ class SequencePipeline:
             # device; the host fetches exactly the n_points payload rows.
             plane32 = torch.as_tensor(plane, dtype=torch.float32)
             _Rp, _Tp, Rinv, Tinv = (a.numpy().astype(np.float64) for a in rt_from_plane(plane32))
-            q, mins, scales = export_u16(res.points, res.valid, plane32.to(res.points.device), n_points)
+            plane_dev = plane32.to(res.points.device)
+            if self.cfg.wire_delta:
+                quant, mins, scales, wire = self._fetch_delta(res, plane_dev, n_points)
+                log_lines.append(wire)
+            else:
+                q, mins, scales = export_u16(res.points, res.valid, plane_dev, n_points)
+                quant = fetch_u16(q)
             save_xyz_quantized(
                 wd.path / "mesh_cam.xyzC",
-                q.cpu().numpy().astype(np.uint16),
+                quant,
                 scales.cpu().numpy().astype(np.float64),
                 mins.cpu().numpy().astype(np.float64),
                 Rinv, Tinv,
@@ -282,6 +314,19 @@ class SequencePipeline:
 
         self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, t0)
         return plane
+
+    @staticmethod
+    def _fetch_delta(res, plane_dev, n_points: int):
+        """The delta-coded wire: the exception count is read first, and a
+        frame whose delta stream would not save 25% of the direct 6n bytes
+        (a narrow or speckled frame: mostly exceptions) takes the direct
+        fetch.  Returns (u16 rows, mins, scales, the log line)."""
+        delta_b, exc_vals, q, n_exc, mins, scales = export_delta(res.points, res.valid, plane_dev, n_points)
+        n_exc = int(n_exc)
+        if 3 * n_points + 6 * n_exc < 0.75 * 6 * n_points:
+            quant = decode_delta_payload(delta_b.cpu().numpy(), fetch_u16(exc_vals[:n_exc]))
+            return quant, mins, scales, f"wire: delta-coded, {n_exc} exception rows of {n_points}"
+        return fetch_u16(q), mins, scales, f"wire: direct ({n_exc} exception rows of {n_points})"
 
     def _launch_line(self, launches: dict) -> str:
         names = {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES}
@@ -330,9 +375,97 @@ class SequencePipeline:
                 self.cfg.stereo,
                 input_smooth_sigma=resolve_smooth_sigma(-1.0, read_gray(wds[0].undistorted_path(0)).astype(np.float32), "dense"),
             )
-        planes = self._stereo_pipelined(wds, progress_stream)
-        self._write_sequence_outputs(wds, planes)
+        if self.cfg.wire_delta is None:
+            self.cfg.wire_delta = self._probe_wire_delta(self._device())
+        mesh = self._frame_mesh()
+        if len(mesh) > 1 and len(wds) > 1:
+            planes = self._stereo_sharded(wds, mesh, progress_stream)
+        else:
+            planes = self._stereo_pipelined(wds, progress_stream)
+        # Under a process group every rank holds every plane (its own from
+        # its writers, the others' from the gather); rank 0 writes them.
+        if rank() == 0:
+            self._write_sequence_outputs(wds, planes)
         return planes
+
+    def _frame_mesh(self):
+        """The frame slots of the stereo loop (parallel/mesh.py)."""
+        device = self._device()
+        if device.type == "cuda" and torch.device(self.cfg.device).index is None:
+            return make_frame_mesh()
+        return make_frame_mesh(devices=[device])
+
+    @staticmethod
+    def _wire_delta_decision(link_MBps: float, decode_s_per_pt: float) -> bool:
+        """The break-even: the delta codec iff the host decodes a point
+        faster than the link ships the ~1.5 bytes a point the codec saves
+        (6n direct against 3n + 6 x ~0.25n delta at the typical exception
+        share).  Both rates are per point, so the frame size cancels."""
+        link_s_per_pt = 1.5 / max(link_MBps * 1024 * 1024, 1e-9)
+        return bool(link_s_per_pt > decode_s_per_pt)
+
+    @staticmethod
+    def _probe_wire_rates(device) -> tuple:
+        """(device-to-host MB/s, host delta decode s a point): a copy of a
+        uint8 tensor on `device` to the host, timed between two
+        synchronizations (0.25 MB, then 4 MB when that took under 0.1 s),
+        and the decode of a synthetic 500k-point payload with 25%
+        exception rows, as real frames carry."""
+        device = torch.device(device)
+
+        def sync():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+        mb, down = 0.25, 0.0
+        for _ in range(2):
+            x = torch.ones(int(mb * 1024 * 1024), dtype=torch.uint8, device=device)
+            sync()
+            t0 = time.perf_counter()
+            x.cpu()
+            sync()
+            dt = max(time.perf_counter() - t0, 1e-9)
+            down = mb / dt
+            if dt > 0.1:
+                break
+            mb = 4.0
+        npts = 500_000
+        rng = np.random.default_rng(0)
+        db = rng.integers(1, 256, (npts, 3)).astype(np.uint8)
+        exc = rng.random(npts) < 0.25
+        db[exc, 0] = 0
+        ev = rng.integers(0, 65535, (int(exc.sum()), 3)).astype(np.uint16)
+        t0 = time.perf_counter()
+        decode_delta_payload(db, ev)
+        return down, max(time.perf_counter() - t0, 1e-9) / npts
+
+    @classmethod
+    def _probe_wire_delta(cls, device) -> bool:
+        return cls._wire_delta_decision(*cls._probe_wire_rates(device))
+
+    def _writer_finalizer(self, on_card: bool):
+        """The writers' finalize: on a card each writer thread reads its
+        frames on a CUDA stream of its own for each device, after the
+        frame's `ready` event."""
+        writer_local = threading.local()
+
+        def finalize(wd, geom, res, K0, K1, extras):
+            if not on_card:
+                return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras)
+            dev = res.points.device
+            streams = writer_local.__dict__.setdefault("streams", {})
+            stream = streams.get(dev)
+            if stream is None:
+                stream = streams[dev] = torch.cuda.Stream(dev)
+            stream.wait_event(extras["ready"])
+            c2f = extras["c2f"] or {}
+            for t in (*res, *extras["rect"], *extras["imgs"], c2f.get("coverage"), c2f.get("offband")):
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(stream)
+            with torch.cuda.stream(stream):
+                return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras)
+
+        return finalize
 
     def _stereo_pipelined(self, wds, progress_stream=None) -> List[np.ndarray]:
         device = self._device()
@@ -345,21 +478,7 @@ class SequencePipeline:
         planes: List[np.ndarray] = [None] * len(wds)
         inflight: deque = deque()
         dispatch_s: List[float] = []
-        writer_local = threading.local()
-
-        def finalize(wd, geom, res, K0, K1, extras):
-            if not on_card:
-                return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras)
-            stream = getattr(writer_local, "stream", None)
-            if stream is None:
-                stream = writer_local.stream = torch.cuda.Stream(device)
-            stream.wait_event(extras["ready"])
-            c2f = extras["c2f"] or {}
-            for t in (*res, *extras["rect"], *extras["imgs"], c2f.get("coverage"), c2f.get("offband")):
-                if isinstance(t, torch.Tensor):
-                    t.record_stream(stream)
-            with torch.cuda.stream(stream):
-                return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras)
+        finalize = self._writer_finalizer(on_card)
 
         def pop_oldest():
             j, fut = inflight.popleft()
@@ -414,6 +533,111 @@ class SequencePipeline:
             prefetcher.close()
             self.loop_stats = {"decode_s": list(prefetcher.decode_s), "dispatch_s": dispatch_s,
                                "render_s": list(self._render_s)}
+        return planes
+
+    def _stereo_sharded(self, wds, mesh, progress_stream=None) -> List[np.ndarray]:
+        """Batches of one frame a slot of `mesh` (the JAX package's
+        _stereo_sharded).  Frames decode on 2 x (local slots) prefetch
+        threads, a batch ahead; each local slot's frame is uploaded as
+        uint8, cast and rectified on its slot's device and runs there
+        (parallel/runner.py, which also re-runs a frame whose c2f windows
+        missed); the writers finalize the frames while the next batch
+        computes.  A ragged tail repeats the last frame in the slots past
+        the end, whose results are dropped.  Under a process group each rank
+        loads, runs and writes only its own slots' frames, and records the
+        other frames' planes from the runner's gather; the loop ends with a
+        barrier, so every rank's files are written when stereo() returns."""
+        runner = ShardedDenseRunner(mesh, self.cfg.stereo)
+        local_slots = runner.local
+        n_slots = len(mesh)
+        on_card = mesh[local_slots[0]].device.type == "cuda"
+        me = rank()
+        geom_cache: dict = {}
+        planes: List[np.ndarray] = [None] * len(wds)
+        inflight: deque = deque()
+        dispatch_s: List[float] = []
+        finalize = self._writer_finalizer(on_card)
+        self._render_s = []
+        prefetcher = Prefetcher(2 * len(local_slots))
+        tickets: dict = {}
+
+        def submit(i):
+            if 0 <= i < len(wds) and i not in tickets:
+                tickets[i] = (prefetcher.submit(wds[i].undistorted_path(0)), prefetcher.submit(wds[i].undistorted_path(1)))
+
+        def pop_oldest():
+            j, fut = inflight.popleft()
+            planes[j] = fut.result()
+            progress(j + 1, len(wds), stream=progress_stream)
+
+        def batch_frame(s, slot, group_n):
+            """The frame of slot `slot` in the batch from frame s (past the
+            end: the last frame)."""
+            return s + min(slot, group_n - 1)
+
+        writers = ThreadPoolExecutor(max_workers=max(1, self.cfg.writer_threads), thread_name_prefix="stereo-writer")
+        try:
+            for slot in local_slots:
+                submit(batch_frame(0, slot, min(n_slots, len(wds))))
+                submit(n_slots + slot)
+            for s in range(0, len(wds), n_slots):
+                group_n = min(n_slots, len(wds) - s)
+                t0 = time.perf_counter()
+                host: dict = {}
+                batch = []
+                for slot in local_slots:
+                    fi = batch_frame(s, slot, group_n)
+                    if fi not in host:
+                        if fi in tickets:
+                            ticket0, ticket1 = tickets.pop(fi)
+                            img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
+                        else:
+                            img0, img1 = read_gray(wds[fi].undistorted_path(0)), read_gray(wds[fi].undistorted_path(1))
+                        submit(fi + n_slots)
+                        wd = wds[fi]
+                        K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
+                        host[fi] = (img0, img1, K0, K1, wd.load_extrinsics())
+                    img0, img1, K0, K1, (R, T) = host[fi]
+                    dev = mesh[slot].device
+                    geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, dev)
+                    b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
+                    # uint8 upload from pinned memory, cast on the device.
+                    b8, m8 = (to_device(torch.from_numpy(x), dev) for x in (b_img, m_img))
+                    batch.append((fi, geom, gp, K0, K1, b8, m8))
+                results, rects, info, _mean_plane = runner.run_batch(
+                    [b[5].to(torch.float32) for b in batch], [b[6].to(torch.float32) for b in batch],
+                    [b[2] for b in batch])
+                for j, slot in enumerate(local_slots):
+                    if slot >= group_n:
+                        continue  # a padded tail slot: no frame of its own
+                    fi, geom, gp, K0, K1, b8, m8 = batch[j]
+                    extras = {"launches": info["launches"][j], "c2f": None, "rect": rects[j], "imgs": (b8, m8)}
+                    if info["coverage"] is not None:
+                        extras["c2f"] = {"coverage": float(info["coverage"][slot]),
+                                         "offband": float(info["offband"][slot]),
+                                         "fallback": slot in info["fallback_frames"]}
+                    if on_card:
+                        extras["ready"] = torch.cuda.Event()
+                        extras["ready"].record(torch.cuda.current_stream(b8.device))
+                    inflight.append((fi, writers.submit(finalize, wds[fi], geom, results[j], K0, K1, extras)))
+                for slot in range(group_n):
+                    if mesh[slot].rank != me:
+                        # Another rank's frame: its plane from the gather,
+                        # gated as the finalizer gates it.
+                        good = bool(info["plane_ok"][slot]) and int(info["n_points"][slot]) >= self.cfg.stereo.min_triangulated
+                        planes[s + slot] = info["planes"][slot] if good else np.full(4, np.nan)
+                dispatch_s.append(time.perf_counter() - t0)
+                while len(inflight) > len(local_slots):
+                    pop_oldest()
+            while inflight:
+                pop_oldest()
+        finally:
+            writers.shutdown(wait=True)
+            prefetcher.close()
+            self.loop_stats = {"decode_s": list(prefetcher.decode_s), "dispatch_s": dispatch_s,
+                               "render_s": list(self._render_s)}
+        if world_size() > 1:
+            torch.distributed.barrier()
         return planes
 
     def _write_sequence_outputs(self, wds, planes) -> None:

@@ -1,8 +1,10 @@
 """Stereo rectification homographies (host, float64 numpy).
 
-Copied from wass_tpu/core/rectify.py (the WASS custom method,
-stereorectify.cpp:57-244): that package's __init__ imports jax, and the
-port imports no jax.  Only the route the dense path uses is copied.
+Copied from wass_tpu/core/rectify.py: that package's __init__ imports
+jax, and the port imports no jax.  Both of its routes: the WASS custom
+method (stereorectify.cpp:57-244) that the dense path uses, and the
+cv::stereoRectify (Bouguet) route (wass_stereo.cpp:530-610) as rotation
+and projection pairs, or as one plain homography each.
 """
 
 from __future__ import annotations
@@ -155,3 +157,98 @@ def stereo_rectify_homographies(
     ys = np.sort(np.concatenate([q0[1], q1[1]]))
     roi = (int(xs[3]), int(ys[3]), int(xs[4] - int(xs[3])), int(ys[4] - int(ys[3])))
     return RectifyResult(H0, H1, roi, best_angle)
+
+
+class BouguetResult(NamedTuple):
+    R1: np.ndarray
+    R2: np.ndarray
+    P1: np.ndarray
+    P2: np.ndarray
+    Q: np.ndarray
+
+
+def _rodrigues_np(r: np.ndarray) -> np.ndarray:
+    theta = np.linalg.norm(r)
+    if theta < 1e-15:
+        return np.eye(3)
+    k = r / theta
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(theta) * K + (1 - np.cos(theta)) * (K @ K)
+
+
+def _inv_rodrigues_np(R: np.ndarray) -> np.ndarray:
+    A = (R - R.T) / 2
+    rho = np.array([A[2, 1], A[0, 2], A[1, 0]])
+    s = np.linalg.norm(rho)
+    c = (np.trace(R) - 1) / 2
+    if s < 1e-15:
+        return np.zeros(3)
+    theta = np.arctan2(s, c)
+    return rho / s * theta
+
+
+def stereo_rectify_bouguet(
+    K0: np.ndarray, K1: np.ndarray, R: np.ndarray, T: np.ndarray, image_size: Tuple[int, int]
+) -> BouguetResult:
+    """Bouguet-style rectification (cv::stereoRectify semantics with
+    alpha-free focal choice): split the relative rotation between the two
+    cameras, align x with the baseline, equalize vertical principal points.
+    """
+    w, h = image_size
+    K0 = np.asarray(K0, dtype=np.float64)
+    K1 = np.asarray(K1, dtype=np.float64)
+    R = np.asarray(R, dtype=np.float64)
+    t = np.asarray(T, dtype=np.float64).reshape(3)
+
+    om = _inv_rodrigues_np(R)
+    r_r = _rodrigues_np(-om * 0.5)
+    t_half = r_r @ t
+
+    idx = 0 if abs(t_half[0]) > abs(t_half[1]) else 1
+    uu = np.zeros(3)
+    uu[idx] = 1.0 if t_half[idx] > 0 else -1.0
+    ww = np.cross(t_half, uu)
+    nw = np.linalg.norm(ww)
+    if nw > 1e-15:
+        ww = ww * (np.arccos(abs(t_half[idx]) / np.linalg.norm(t_half)) / nw)
+    wR = _rodrigues_np(ww)
+    R1 = wR @ r_r
+    R2 = wR @ r_r @ R.T
+    t_new = R2 @ t
+
+    f_new = min(K0[1, 1], K1[1, 1])
+    # New principal points: keep each camera's rotated center centered.
+    cc = []
+    for K, Rr in ((K0, R1), (K1, R2)):
+        pts = _corners(w, h)
+        rays = np.linalg.inv(K) @ pts
+        rays = Rr @ rays
+        proj = rays[:2] / rays[2]
+        avg = proj.mean(axis=1)
+        cc.append(np.array([(w - 1) / 2, (h - 1) / 2]) - avg * f_new)
+    # Horizontal stereo: equalize cy only (reference passes flags=0,
+    # wass_stereo.cpp:546).
+    cy = (cc[0][1] + cc[1][1]) / 2
+    cc[0][1] = cc[1][1] = cy
+
+    P1 = np.array([[f_new, 0, cc[0][0], 0], [0, f_new, cy, 0], [0, 0, 1, 0]])
+    P2 = np.array(
+        [[f_new, 0, cc[1][0], t_new[idx] * f_new], [0, f_new, cy, 0], [0, 0, 1, 0]]
+    )
+    Q = np.array(
+        [
+            [1, 0, 0, -cc[0][0]],
+            [0, 1, 0, -cy],
+            [0, 0, 0, f_new],
+            [0, 0, -1.0 / t_new[idx], (cc[0][0] - cc[1][0]) / t_new[idx]],
+        ]
+    )
+    return BouguetResult(R1, R2, P1, P2, Q)
+
+
+def bouguet_rectification_homography(K: np.ndarray, Rrect: np.ndarray, Pnew: np.ndarray) -> np.ndarray:
+    """The Bouguet route as a plain homography H = Knew @ Rrect @ K^-1, so the
+    device-side warp and unrectify share one code path with the custom route
+    (valid because inputs are already undistorted)."""
+    Knew = np.asarray(Pnew, dtype=np.float64)[:, :3]
+    return Knew @ np.asarray(Rrect, dtype=np.float64) @ np.linalg.inv(np.asarray(K, dtype=np.float64))

@@ -182,18 +182,17 @@ def iidyn(A: torch.Tensor, x0: torch.Tensor, mask: Optional[torch.Tensor] = None
         raise ValueError("A must be a contiguous (C, C) float32 tensor")
     if x0.shape != (C,) or x0.dtype != torch.float32 or (mask is not None and (mask.shape != (C,) or mask.dtype != torch.bool)):
         raise ValueError("x0 must be (C,) float32 and mask (C,) bool")
-    lib = _build.load()
     live, x, Ax = _start(A, x0, mask)
     x, Ax = x.contiguous(), Ax.contiguous()
     live8 = live.to(torch.uint8).contiguous()
     it = torch.empty((), dtype=torch.int32, device=A.device)
     err = torch.empty((), dtype=torch.float32, device=A.device)
-    code = lib.wass_iidyn(A.data_ptr(), x.data_ptr(), Ax.data_ptr(), live8.data_ptr(), it.data_ptr(), err.data_ptr(),
-                          C, float(toll) * float(toll), int(max_iters), _build.stream_handle(A.device))
+    code = _build.launch("wass_iidyn", "iidyn kernel", A.device,
+                         A.data_ptr(), x.data_ptr(), Ax.data_ptr(), live8.data_ptr(), it.data_ptr(), err.data_ptr(),
+                         C, float(toll) * float(toll), int(max_iters), accept=(_NO_CLUSTER,))
     if code == _NO_CLUSTER:
         raise RuntimeError(f"iidyn kernel: no cluster of {GROUPS} CTAs x {THREADS} threads fits this card "
                            "(cudaOccupancyMaxActiveClusters is 0)")
-    _build.check(code, "iidyn kernel")
     LAUNCHES.add("iidyn")
     return x, it, err
 

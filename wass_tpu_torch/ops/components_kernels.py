@@ -79,12 +79,9 @@ def propagate_labels(
     H, W = labels.shape
     out = labels.contiguous().clone()
     changed = torch.zeros(max(rounds, 1), dtype=torch.int32, device=labels.device)
-    lib = _build.load()
-    err = lib.wass_label_propagate(
-        out.data_ptr(), conn_v.data_ptr(), conn_h.data_ptr(), changed.data_ptr(),
-        H, W, rounds, _build.stream_handle(labels.device),
-    )
-    _build.check(err, "label_propagate kernel")
+    _build.launch("wass_label_propagate", "label_propagate kernel", labels.device,
+                  out.data_ptr(), conn_v.data_ptr(), conn_h.data_ptr(), changed.data_ptr(),
+                  H, W, rounds)
     LAUNCHES.add("label_propagate")
     LAST_CHANGED = changed[:rounds]
     return out

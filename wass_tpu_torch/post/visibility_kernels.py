@@ -117,11 +117,9 @@ def march(Z: torch.Tensor, d: torch.Tensor, maxz: torch.Tensor, max_steps: int) 
     B, H, W = Z.shape
     occ = torch.empty((B, H, W), dtype=torch.uint8, device=Z.device)
     counter = torch.empty(1, dtype=torch.int64, device=Z.device)  # the ray queue
-    err = _build.load().wass_visibility_march(
-        Z.data_ptr(), d.data_ptr(), maxz.data_ptr(), occ.data_ptr(), counter.data_ptr(), B, H, W, int(max_steps),
-        _build.stream_handle(Z.device),
-    )
-    _build.check(err, "visibility_march kernel")
+    _build.launch("wass_visibility_march", "visibility_march kernel", Z.device,
+                  Z.data_ptr(), d.data_ptr(), maxz.data_ptr(), occ.data_ptr(), counter.data_ptr(),
+                  B, H, W, int(max_steps))
     LAUNCHES.add("visibility_march")
     return occ
 
@@ -161,10 +159,8 @@ def visibility_batch(Z: torch.Tensor, cam: torch.Tensor, XX: torch.Tensor, YY: t
     inc = torch.empty((B, H, W), dtype=torch.float32, device=Z.device)
     maxz = torch.empty(B, dtype=torch.float32, device=Z.device)  # each frame's max z
     counter = torch.empty(1, dtype=torch.int32, device=Z.device)  # the tile queue
-    err = _build.load().wass_visibility_batch(
-        Z.data_ptr(), cam.data_ptr(), XX.data_ptr(), YY.data_ptr(), occ.data_ptr(), inc.data_ptr(), maxz.data_ptr(),
-        counter.data_ptr(), B, H, W, int(max_steps), _build.stream_handle(Z.device),
-    )
-    _build.check(err, "visibility_batch kernel")
+    _build.launch("wass_visibility_batch", "visibility_batch kernel", Z.device,
+                  Z.data_ptr(), cam.data_ptr(), XX.data_ptr(), YY.data_ptr(), occ.data_ptr(), inc.data_ptr(),
+                  maxz.data_ptr(), counter.data_ptr(), B, H, W, int(max_steps))
     LAUNCHES.add("visibility_batch")
     return occ.view(torch.bool), inc

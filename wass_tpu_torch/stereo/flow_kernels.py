@@ -69,11 +69,9 @@ def flow_linearize(I0, I1, g1x, g1y, u, v):
         return flow_linearize_plain(I0, I1, g1x, g1y, u, v)
     H, W = I0.shape
     out = torch.empty((4, H, W), dtype=torch.float32, device=I0.device)
-    err = _build.load().wass_flow_linearize(
-        I0.data_ptr(), I1.data_ptr(), g1x.data_ptr(), g1y.data_ptr(), u.data_ptr(), v.data_ptr(),
-        *(o.data_ptr() for o in out), H, W, _build.stream_handle(I0.device),
-    )
-    _build.check(err, "flow_linearize kernel")
+    _build.launch("wass_flow_linearize", "flow_linearize kernel", I0.device,
+                  I0.data_ptr(), I1.data_ptr(), g1x.data_ptr(), g1y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                  *(o.data_ptr() for o in out), H, W)
     LAUNCHES.add("flow_linearize")
     return tuple(out.unbind(0))
 
@@ -115,10 +113,8 @@ def flow_jacobi(u, v, u0, v0, It, Ix, Iy, wdata, lam: float, out=None):
     _check("flow_jacobi out", u, un, vn)
     if any(o.data_ptr() == t.data_ptr() for o in out for t in (u, v, u0, v0, It, Ix, Iy, wdata)):
         raise ValueError("flow_jacobi: out aliases an input")
-    err = _build.load().wass_flow_jacobi(
-        u.data_ptr(), v.data_ptr(), u0.data_ptr(), v0.data_ptr(), It.data_ptr(), Ix.data_ptr(), Iy.data_ptr(),
-        wdata.data_ptr(), un.data_ptr(), vn.data_ptr(), H, W, ctypes.c_float(lam), _build.stream_handle(u.device),
-    )
-    _build.check(err, "flow_jacobi kernel")
+    _build.launch("wass_flow_jacobi", "flow_jacobi kernel", u.device,
+                  u.data_ptr(), v.data_ptr(), u0.data_ptr(), v0.data_ptr(), It.data_ptr(), Ix.data_ptr(), Iy.data_ptr(),
+                  wdata.data_ptr(), un.data_ptr(), vn.data_ptr(), H, W, ctypes.c_float(lam))
     LAUNCHES.add("flow_jacobi")
     return un, vn

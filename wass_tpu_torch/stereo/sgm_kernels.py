@@ -120,12 +120,9 @@ def census_cost_volume(
     _require(num_disp >= 1 and min_disp >= 0, f"bad disparity range: num_disp={num_disp}, min_disp={min_disp}")
     H, W, nw = census_base.shape
     out = torch.empty((H, W, num_disp), dtype=torch.uint8, device=census_base.device)
-    lib = _build.load()
-    err = lib.wass_census_cost(
-        census_base.data_ptr(), census_match.data_ptr(), out.data_ptr(),
-        H, W, nw, num_disp, min_disp, _build.stream_handle(census_base.device),
-    )
-    _build.check(err, "census_cost kernel")
+    _build.launch("wass_census_cost", "census_cost kernel", census_base.device,
+                  census_base.data_ptr(), census_match.data_ptr(), out.data_ptr(),
+                  H, W, nw, num_disp, min_disp)
     LAUNCHES.add("census_cost")
     return out
 
@@ -142,12 +139,9 @@ def census_cost_volume_windowed(
     _check_windows(wstart, H)
     _require(win_disp >= 1 and win_disp % 4 == 0, f"win_disp must be a positive multiple of 4, got {win_disp}")
     out = torch.empty((H, W, win_disp), dtype=torch.uint8, device=census_base.device)
-    lib = _build.load()
-    err = lib.wass_census_cost_windowed(
-        census_base.data_ptr(), census_match.data_ptr(), wstart.data_ptr(), out.data_ptr(),
-        H, W, nw, win_disp, _build.stream_handle(census_base.device),
-    )
-    _build.check(err, "census_cost_windowed kernel")
+    _build.launch("wass_census_cost_windowed", "census_cost_windowed kernel", census_base.device,
+                  census_base.data_ptr(), census_match.data_ptr(), wstart.data_ptr(), out.data_ptr(),
+                  H, W, nw, win_disp)
     LAUNCHES.add("census_cost_windowed")
     return out
 
@@ -179,12 +173,9 @@ def sgm_wta_fused(
     _lane_width_ok(lib, D)
     acc = torch.empty((H, W, D), dtype=torch.int16, device=cost.device)
     disp = torch.empty((H, W), dtype=torch.float32, device=cost.device)
-    err = lib.wass_sgm_wta_fused(
-        cost.data_ptr(), acc.data_ptr(), disp.data_ptr(),
-        H, W, D, P1, P2, directions, min_disp, uniqueness_ratio,
-        _build.stream_handle(cost.device),
-    )
-    _build.check(err, "sgm_wta_fused kernel")
+    _build.launch("wass_sgm_wta_fused", "sgm_wta_fused kernel", cost.device,
+                  cost.data_ptr(), acc.data_ptr(), disp.data_ptr(),
+                  H, W, D, P1, P2, directions, min_disp, uniqueness_ratio)
     LAUNCHES.add("sgm_wta_fused")
     return disp
 
@@ -217,11 +208,9 @@ def sgm_wta_fused_windowed(
     _lane_width_ok(lib, D)
     acc = torch.empty((H, W, D), dtype=torch.int16, device=cost.device)
     disp = torch.empty((H, W), dtype=torch.float32, device=cost.device)
-    err = lib.wass_sgm_wta_fused_windowed(
-        cost.data_ptr(), wstart.data_ptr(), acc.data_ptr(), disp.data_ptr(),
-        H, W, D, P1, P2, directions, uniqueness_ratio, _build.stream_handle(cost.device),
-    )
-    _build.check(err, "sgm_wta_fused_windowed kernel")
+    _build.launch("wass_sgm_wta_fused_windowed", "sgm_wta_fused_windowed kernel", cost.device,
+                  cost.data_ptr(), wstart.data_ptr(), acc.data_ptr(), disp.data_ptr(),
+                  H, W, D, P1, P2, directions, uniqueness_ratio)
     LAUNCHES.add("sgm_wta_fused_windowed")
     return disp
 
@@ -240,10 +229,8 @@ def sgm_aggregate(cost: torch.Tensor, P1: int, P2: int, directions: int = 8) -> 
     lib = _build.load()
     _lane_width_ok(lib, D)
     acc = torch.empty((H, W, D), dtype=torch.int16, device=cost.device)
-    err = lib.wass_sgm_aggregate(
-        cost.data_ptr(), acc.data_ptr(), H, W, D, P1, P2, directions, _build.stream_handle(cost.device),
-    )
-    _build.check(err, "sgm_aggregate kernel")
+    _build.launch("wass_sgm_aggregate", "sgm_aggregate kernel", cost.device,
+                  cost.data_ptr(), acc.data_ptr(), H, W, D, P1, P2, directions)
     LAUNCHES.add("sgm_aggregate")
     return acc
 
@@ -265,11 +252,8 @@ def sgm_aggregate_windowed(
     lib = _build.load()
     _lane_width_ok(lib, D)
     acc = torch.empty((H, W, D), dtype=torch.int16, device=cost.device)
-    err = lib.wass_sgm_aggregate_windowed(
-        cost.data_ptr(), wstart.data_ptr(), acc.data_ptr(), H, W, D, P1, P2, directions,
-        _build.stream_handle(cost.device),
-    )
-    _build.check(err, "sgm_aggregate_windowed kernel")
+    _build.launch("wass_sgm_aggregate_windowed", "sgm_aggregate_windowed kernel", cost.device,
+                  cost.data_ptr(), wstart.data_ptr(), acc.data_ptr(), H, W, D, P1, P2, directions)
     LAUNCHES.add("sgm_aggregate_windowed")
     return acc
 
@@ -324,11 +308,9 @@ def _launch_walk(key, cost, acc, walk, P1, P2, wstart=None, hf=None, hb=None, wt
     lib = _build.load()
     _lane_width_ok(lib, D)
     disp = torch.empty((H, W), dtype=torch.float32, device=cost.device) if wta else None
-    err = lib.wass_sgm_walk(
-        cost.data_ptr(), _ptr(wstart), _ptr(hf), _ptr(hb), acc.data_ptr(), _ptr(disp),
-        H, W, D, P1, P2, _WALK_CODES[walk], int(wta), min_disp, uniq, _build.stream_handle(cost.device),
-    )
-    _build.check(err, f"{key} kernel")
+    _build.launch("wass_sgm_walk", f"{key} kernel", cost.device,
+                  cost.data_ptr(), _ptr(wstart), _ptr(hf), _ptr(hb), acc.data_ptr(), _ptr(disp),
+                  H, W, D, P1, P2, _WALK_CODES[walk], int(wta), min_disp, uniq)
     LAUNCHES.add(key)
     return disp if wta else acc
 
@@ -343,9 +325,8 @@ def sgm_pair_img(cost: torch.Tensor, P1: int, P2: int):
     lib = _build.load()
     _lane_width_ok(lib, D)
     hf, hb = torch.empty_like(cost), torch.empty_like(cost)
-    err = lib.wass_sgm_pair_img(cost.data_ptr(), hf.data_ptr(), hb.data_ptr(), H, W, D, P1, P2,
-                                _build.stream_handle(cost.device))
-    _build.check(err, "sgm_pair_img kernel")
+    _build.launch("wass_sgm_pair_img", "sgm_pair_img kernel", cost.device,
+                  cost.data_ptr(), hf.data_ptr(), hb.data_ptr(), H, W, D, P1, P2)
     LAUNCHES.add("sgm_pair_img")
     return hf, hb
 
