@@ -2,31 +2,28 @@
 and its host pieces, on the CPU: frame outputs independent of the dispatch
 depth and the writer count, progress lines, the deferred c2f fallback,
 decode errors, the thread-safe per-frame launch counts, the device-side
-modal label, the PNG prefetcher, and the progress and timer text against
-the JAX package's."""
+modal label, the PNG prefetcher, and the progress text against the JAX
+package's."""
 
 import dataclasses
 import io
 import shutil
 import sys
 import threading
-import time
 
 import numpy as np
 import pytest
 import torch
 
 from wass_tpu.utils.progress import progress as jax_progress
-from wass_tpu.utils.timer import StageTimer as JaxStageTimer
 from wass_tpu_torch.cli.main import load_pipeline
 from wass_tpu_torch.io import png
 from wass_tpu_torch.io.prefetch import Prefetcher
-from wass_tpu_torch.launches import LaunchCounts, frame_scope
+from wass_tpu_torch.instrument import LaunchCounts, Recorder, frame_scope
 from wass_tpu_torch.ops.components import INT32_MAX, _modal_label
 from wass_tpu_torch.testing import write_sequence
 from wass_tpu_torch.testing.synthetic import make_rig, make_scene
 from wass_tpu_torch.utils.progress import progress
-from wass_tpu_torch.utils.timer import StageTimer
 from torch_registries import reset_registries  # noqa: F401  (autouse)
 
 N_FRAMES = 4
@@ -140,16 +137,18 @@ def test_prefetcher_takes_any_order_and_raises_in_take(tmp_path, rng):
     (tmp_path / "bad.png").write_bytes(b"not a png")
     good = png.encode_gray(imgs[0])
     (tmp_path / "cut.png").write_bytes(good[:-30] + good[-12:])  # IDAT cut short, IEND kept
-    with Prefetcher(3) as pf:
-        tickets = [pf.submit(tmp_path / f"{i}.png") for i in range(6)]
-        bad, cut = pf.submit(tmp_path / "bad.png"), pf.submit(tmp_path / "cut.png")
+    rec = Recorder(each={"prefetch.decode": "decode_s"})
+    with frame_scope({}, 0, rec), Prefetcher(3) as pf:
+        tickets = [pf.submit(tmp_path / f"{i}.png", frame=i) for i in range(6)]
+        bad, cut = pf.submit(tmp_path / "bad.png", frame=6), pf.submit(tmp_path / "cut.png", frame=7)
         for i in (5, 0, 3, 1, 4, 2):
             np.testing.assert_array_equal(pf.take(tickets[i]), imgs[i])
         with pytest.raises(ValueError, match="bad.png"):
             pf.take(bad)
         with pytest.raises(ValueError, match="cut.png: corrupt PNG image data"):
             pf.take(cut)
-    assert len(pf.decode_s) == 6
+    stats = rec.stats()
+    assert len(stats["decode_s"]) == 8 and len(stats["prefetch.decode"]) == 8 and min(stats["decode_s"]) > 0
 
 
 def _png_with_filters(img, ftypes):
@@ -255,22 +254,9 @@ def test_modal_label_matches_sort(rng, shape):
     assert int(_modal_label(labels, empty)) == INT32_MAX == _modal_label_by_sort(labels, empty)
 
 
-def test_progress_and_timer_text_match_jax(monkeypatch):
+def test_progress_and_timer_text_match_jax():
     a, b = io.StringIO(), io.StringIO()
     for cur, tot in ((1, 4), (4, 4), (0, 100)):
         progress(cur, tot, stream=a)
         jax_progress(cur, tot, stream=b)
     assert a.getvalue() == b.getvalue() == "[P|1|4]\n[P|4|4]\n[P|0|100]\n"
-    monkeypatch.setattr(time, "perf_counter", lambda: 1012.5)
-    events = [("Dense Stereo", 1.25), ("a much longer task name than ten", 0.0004), ("x", 12345.678)]
-    timers = []
-    for cls in (StageTimer, JaxStageTimer):
-        t = cls()
-        t.start_time = 1000.0
-        t.events = list(events)
-        timers.append(t)
-    assert timers[0].table() == timers[1].table()
-    assert timers[0].table().splitlines()[-2] == f"| {'Total':<32} | {12.5:>10.3f} |"
-    t = StageTimer()
-    t << "one" << "two"
-    assert [n for n, _ in t.events] == ["one", "two"] and all(dt >= 0 for _, dt in t.events)

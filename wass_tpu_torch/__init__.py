@@ -29,10 +29,11 @@ full-range fallback included), gridding and post stages on an NVIDIA H100:
   prepare/   the prepare stage (CLAHE, undistortion, the polarimetric
              path) and the input-degradation estimate (AUTO smoothing)
   config.py  the self-registering option registry
-  launches.py  thread-safe kernel launch counts, per frame
+  instrument.py  kernel launch counts, spans and counters of the stereo
+             loop, safe under threads and summed per frame
   io/        stdlib PNG codec and its prefetcher, workdirs, .xyzC, PLY, matrices,
              a minimal HDF5 writer, reader and editor (the cube without h5py)
-  utils/     the [P|cur|tot] progress line, the stage timer
+  utils/     the [P|cur|tot] progress line
   testing/   synthetic wave-field scenes and smoke-run helpers
   csrc/      the hand-written CUDA kernels (K1/K2 cost volumes, K3/K4 SGM+WTA,
              K5/K6 SGM sums, the H2 pair and folding walks, K7 labels,

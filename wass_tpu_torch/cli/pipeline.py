@@ -45,10 +45,23 @@ delta-coded (SequenceConfig.wire_delta: 3 bytes a point and 6 an
 exception, decoded on the host into the same rows, so the file is
 byte-identical); by default a probe of the link's and the host decode's
 rates decides once a sequence.
+
+Each stereo() call leaves its spans and counters (instrument.py), summed
+per frame, in loop_stats.  The dispatching thread is always inside one of
+its top-level spans: loop.start (the AUTO smoothing, the wire probe, the
+pools), then a frame's loop.take (its prefetched pair), loop.dispatch
+(loop.rig, loop.upload, loop.rectify, the dense frame's dense.* spans with
+plane.read, the frame's one counted host read, and loop.submit) and
+loop.writer_wait (the oldest frame's writer), and loop.drain.  A writer's
+writer.finalize holds writer.device_wait (the first read that waits for
+the frame's device work), writer.rerun, writer.fetch (the export and its
+reads), writer.write (every file), writer.render and writer.flow; a
+prefetch thread's decode is prefetch.decode.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -63,12 +76,12 @@ import torch
 from wass_tpu_torch.calib.autocalibrate import AutocalConfig, autocalibrate_sequence
 from wass_tpu_torch.core.geometry import rt_from_plane
 from wass_tpu_torch.device import resolve_device, to_device
+from wass_tpu_torch.instrument import Recorder, current, frame_scope, span
 from wass_tpu_torch.io.ply import save_ply_points
 from wass_tpu_torch.io.png import read_gray
 from wass_tpu_torch.io.prefetch import Prefetcher
 from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
 from wass_tpu_torch.io.xyzc import decode_delta_payload, save_xyz_quantized
-from wass_tpu_torch.launches import frame_scope
 from wass_tpu_torch.match.pipeline import MatchConfig, match_frame
 from wass_tpu_torch.ops import components_kernels
 from wass_tpu_torch.parallel.mesh import make_frame_mesh, rank, world_size
@@ -79,6 +92,7 @@ from wass_tpu_torch.stereo.dense import (
     DenseStereoConfig,
     DenseStereoPipeline,
     build_geom_pack,
+    c2f_should_fallback,
     export_delta,
     export_u16,
     fetch_u16,
@@ -88,6 +102,12 @@ from wass_tpu_torch.stereo.dense import (
 from wass_tpu_torch.stereo.flow import FlowConfig, flow_reconstruct_frame
 from wass_tpu_torch.utils import render
 from wass_tpu_torch.utils.progress import progress
+
+
+# loop_stats keys that hold every duration of a span, in the order they end:
+# one an image, one a frame (a batch in the sharded loop), one a rendered
+# frame.
+LEGACY_KEYS = {"prefetch.decode": "decode_s", "loop.dispatch": "dispatch_s", "writer.render": "render_s"}
 
 
 @dataclasses.dataclass
@@ -129,11 +149,11 @@ class SequencePipeline:
         self.outdir = Path(outdir)
         self.cfg = cfg or SequenceConfig()
         self.outdir.mkdir(parents=True, exist_ok=True)
-        # The last stereo loop's host timings: seconds of each PNG decode on
-        # the prefetch threads, of each frame's dispatch on the main thread,
-        # and of each frame's debug renders on its writer thread.
+        # The last stereo() call's spans and counters (instrument.Recorder.
+        # stats): a list of seconds (or counts) a frame under each span's
+        # name, and under LEGACY_KEYS each PNG decode's, each dispatch's and
+        # each frame's debug renders' seconds.
         self.loop_stats: dict = {}
-        self._render_s: List[float] = []
 
     def _device(self) -> torch.device:
         return resolve_device(self.cfg.device)
@@ -225,22 +245,34 @@ class SequencePipeline:
             cache[key] = hit
         return hit
 
-    def _finalize_stereo_frame(self, wd: Workdir, geom, res, K0, K1, extras: dict) -> np.ndarray:
+    def _finalize_stereo_frame(self, wd: Workdir, geom, res, K0, K1, extras: dict, whole) -> np.ndarray:
         """Per-frame outputs, on a writer thread; the first host reads of the
         frame's results.  extras: the frame's kernel launches ("launches"),
         the uploaded uint8 base and match images ("imgs") and the rectified
         pair ("rect") for the renders, and, when c2f ran, its deferred
         diagnostics ("c2f"), the pipeline ("pipe") and the geometry pack
         ("gp") for a full-range re-run.  The frame's flow kernels count in
-        its launches too."""
-        t0 = time.time()
+        its launches too.  whole: the writer.finalize span, whose seconds so
+        far the log's wall time line gives."""
         c2f = extras.get("c2f")
-        if c2f is not None and c2f["fallback"] is None:
-            # Deferred c2f fallback: read the coverage scalars, re-run the
-            # frame at full range if the guard trips; its launches count
-            # for this frame.
-            with frame_scope(extras["launches"]):
-                res, c2f = extras["pipe"].resolve_fallback(res, c2f, *extras["rect"], extras["gp"])
+        pending = c2f is not None and c2f["fallback"] is None
+        n_points = None
+        with span("writer.device_wait"):
+            # The first host read waits for the frame's device work: the
+            # deferred c2f scalars, or the point count.
+            if pending:
+                c2f = {**c2f, "coverage": float(c2f["coverage"]), "offband": float(c2f["offband"])}
+            else:
+                n_points = int(res.n_points)
+        if pending:
+            # Deferred c2f fallback: re-run the frame at full range if the
+            # guard trips; its launches count for this frame.
+            pipe = extras["pipe"]
+            rerun = c2f_should_fallback(c2f["coverage"], c2f["offband"], pipe.cfg)
+            with span("writer.rerun") if rerun else contextlib.nullcontext():
+                res, c2f = pipe.resolve_fallback(res, c2f, *extras["rect"], extras["gp"])
+            with span("writer.device_wait"):
+                n_points = int(res.n_points)
         log_lines = []
         if c2f is not None:
             log_lines.append(
@@ -250,69 +282,70 @@ class SequencePipeline:
             )
         P0 = K0 @ np.hstack([np.eye(3), np.zeros((3, 1))])
         P1 = K1 @ np.hstack([geom.R, geom.T.reshape(3, 1)])
-        wd.save_projection_matrices(P0, P1)
-        wd.save_camera_poses(np.eye(3), np.zeros(3), geom.R, geom.T)
-        with open(wd.path / "stereo_config.txt", "w") as f:
-            for k, v in dataclasses.asdict(self.cfg.stereo).items():
-                f.write(f"{k.upper()}={v}\n")
+        with span("writer.write"):
+            wd.save_projection_matrices(P0, P1)
+            wd.save_camera_poses(np.eye(3), np.zeros(3), geom.R, geom.T)
+            with open(wd.path / "stereo_config.txt", "w") as f:
+                for k, v in dataclasses.asdict(self.cfg.stereo).items():
+                    f.write(f"{k.upper()}={v}\n")
 
-        n_points = int(res.n_points)
         log_lines.append(f"triangulated+filtered points: {n_points}")
         # MIN_TRIANGULATED_POINTS gate: mark the frame failed and go on.
         if n_points < self.cfg.stereo.min_triangulated:
-            wd.save_plane(None)
-            wd.save_mesh(np.zeros((0, 3)), np.eye(3), np.zeros(3))
             log_lines.append("FRAME FAILED: below MIN_TRIANGULATED_POINTS")
-            self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, t0)
+            with span("writer.write"):
+                wd.save_plane(None)
+                wd.save_mesh(np.zeros((0, 3)), np.eye(3), np.zeros(3))
+                self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, whole)
             return np.full(4, np.nan)
 
-        plane = res.plane.cpu().numpy().astype(np.float64)
-        if not bool(res.plane_ok):
-            plane = np.full(4, np.nan)
-        wd.save_plane(plane if np.all(np.isfinite(plane)) else None)
-        log_lines.append("plane: " + " ".join(f"{v:.6g}" for v in plane))
-
-        if np.all(np.isfinite(plane)):
-            # Sea-plane-frame u16 payload quantized and compacted on the
-            # device; the host fetches exactly the n_points payload rows.
-            plane32 = torch.as_tensor(plane, dtype=torch.float32)
-            _Rp, _Tp, Rinv, Tinv = (a.numpy().astype(np.float64) for a in rt_from_plane(plane32))
-            plane_dev = plane32.to(res.points.device)
-            if self.cfg.wire_delta:
-                quant, mins, scales, wire = self._fetch_delta(res, plane_dev, n_points)
-                log_lines.append(wire)
+        with span("writer.fetch"):
+            plane = res.plane.cpu().numpy().astype(np.float64)
+            if not bool(res.plane_ok):
+                plane = np.full(4, np.nan)
+            log_lines.append("plane: " + " ".join(f"{v:.6g}" for v in plane))
+            finite = bool(np.all(np.isfinite(plane)))
+            if finite:
+                # Sea-plane-frame u16 payload quantized and compacted on the
+                # device; the host fetches exactly the n_points payload rows.
+                plane32 = torch.as_tensor(plane, dtype=torch.float32)
+                _Rp, _Tp, Rinv, Tinv = (a.numpy().astype(np.float64) for a in rt_from_plane(plane32))
+                plane_dev = plane32.to(res.points.device)
+                if self.cfg.wire_delta:
+                    quant, mins, scales, wire = self._fetch_delta(res, plane_dev, n_points)
+                    log_lines.append(wire)
+                else:
+                    q, mins, scales = export_u16(res.points, res.valid, plane_dev, n_points)
+                    quant = fetch_u16(q)
+                scales = scales.cpu().numpy().astype(np.float64)
+                mins = mins.cpu().numpy().astype(np.float64)
             else:
-                q, mins, scales = export_u16(res.points, res.valid, plane_dev, n_points)
-                quant = fetch_u16(q)
-            save_xyz_quantized(
-                wd.path / "mesh_cam.xyzC",
-                quant,
-                scales.cpu().numpy().astype(np.float64),
-                mins.cpu().numpy().astype(np.float64),
-                Rinv, Tinv,
-            )
-        else:
-            valid = res.valid.cpu().numpy()
-            pts = res.points.cpu().numpy().astype(np.float64)[valid]
-            wd.save_mesh(pts, np.eye(3), np.zeros(3))
+                valid = res.valid.cpu().numpy()
+                pts = res.points.cpu().numpy().astype(np.float64)[valid]
+        with span("writer.write"):
+            wd.save_plane(plane if finite else None)
+            if finite:
+                save_xyz_quantized(wd.path / "mesh_cam.xyzC", quant, scales, mins, Rinv, Tinv)
+            else:
+                wd.save_mesh(pts, np.eye(3), np.zeros(3))
 
         if self.cfg.debug_renders:
-            t_render = time.perf_counter()
-            try:
-                self._write_renders(wd, geom, res, extras)
-            except Exception as e:  # debug imagery must never fail the stage
-                log_lines.append(f"debug renders failed: {e}")
-            self._render_s.append(time.perf_counter() - t_render)
+            with span("writer.render"):
+                try:
+                    self._write_renders(wd, geom, res, extras)
+                except Exception as e:  # debug imagery must never fail the stage
+                    log_lines.append(f"debug renders failed: {e}")
 
         if self.cfg.flow is not None:
             # The optical-flow reconstruction (refine_flow,
             # wass_stereo.cpp:1985-1990): a second, flow-based point cloud
             # beside the stereo mesh, and the flow renders.  Outside the
             # renders' handler: a failure fails the frame.
-            with frame_scope(extras["launches"]):
+            with span("writer.flow"):
                 self._write_flow(wd, geom, res, extras)
 
-        self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, t0)
+        with span("writer.write"):
+            self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, whole)
         return plane
 
     @staticmethod
@@ -356,36 +389,45 @@ class SequencePipeline:
             render.save(wd.path / name, img)
 
     @staticmethod
-    def _write_stereo_log(wd: Workdir, lines, t0) -> None:
+    def _write_stereo_log(wd: Workdir, lines, whole) -> None:
         with open(wd.path / "wass_stereo_log.txt", "w") as f:
             for ln in lines:
                 f.write(f"[INFO] {ln}\n")
-            f.write(f"[INFO] finalize wall time: {time.time()-t0:.3f}s\n")
+            f.write(f"[INFO] finalize wall time: {whole.elapsed():.3f}s\n")
 
     def stereo(self, wds: Optional[Sequence[Workdir]] = None, progress_stream=None) -> List[np.ndarray]:
         """Dense reconstruction of every frame; returns the planes (nan rows
         for failed frames) and writes output/planes.txt.  Progress lines go
         to progress_stream (stdout by default)."""
         wds = list(wds if wds is not None else self.workdirs())
-        if self.cfg.stereo.input_smooth_sigma < 0 and wds:
-            # AUTO pre-smoothing, resolved once per sequence from frame 0.
-            from wass_tpu_torch.prepare.degradation import resolve_smooth_sigma
+        recorder = Recorder(each=LEGACY_KEYS)
+        try:
+            with frame_scope({}, 0, recorder, dispatching=True):
+                with span("loop.start"):
+                    if self.cfg.stereo.input_smooth_sigma < 0 and wds:
+                        # AUTO pre-smoothing, resolved once per sequence from frame 0.
+                        from wass_tpu_torch.prepare.degradation import resolve_smooth_sigma
 
-            self.cfg.stereo = dataclasses.replace(
-                self.cfg.stereo,
-                input_smooth_sigma=resolve_smooth_sigma(-1.0, read_gray(wds[0].undistorted_path(0)).astype(np.float32), "dense"),
-            )
-        if self.cfg.wire_delta is None:
-            self.cfg.wire_delta = self._probe_wire_delta(self._device())
-        mesh = self._frame_mesh()
-        if len(mesh) > 1 and len(wds) > 1:
-            planes = self._stereo_sharded(wds, mesh, progress_stream)
-        else:
-            planes = self._stereo_pipelined(wds, progress_stream)
-        # Under a process group every rank holds every plane (its own from
-        # its writers, the others' from the gather); rank 0 writes them.
-        if rank() == 0:
-            self._write_sequence_outputs(wds, planes)
+                        self.cfg.stereo = dataclasses.replace(
+                            self.cfg.stereo,
+                            input_smooth_sigma=resolve_smooth_sigma(
+                                -1.0, read_gray(wds[0].undistorted_path(0)).astype(np.float32), "dense"),
+                        )
+                    if self.cfg.wire_delta is None:
+                        self.cfg.wire_delta = self._probe_wire_delta(self._device())
+                    mesh = self._frame_mesh()
+                if len(mesh) > 1 and len(wds) > 1:
+                    planes = self._stereo_sharded(wds, mesh, progress_stream)
+                else:
+                    planes = self._stereo_pipelined(wds, progress_stream)
+                # Under a process group every rank holds every plane (its own
+                # from its writers, the others' from the gather); rank 0
+                # writes them.
+                with span("loop.drain"):
+                    if rank() == 0:
+                        self._write_sequence_outputs(wds, planes)
+        finally:
+            self.loop_stats = recorder.stats()
         return planes
 
     def _frame_mesh(self):
@@ -450,89 +492,99 @@ class SequencePipeline:
         writer_local = threading.local()
 
         def finalize(wd, geom, res, K0, K1, extras):
-            if not on_card:
-                return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras)
-            dev = res.points.device
-            streams = writer_local.__dict__.setdefault("streams", {})
-            stream = streams.get(dev)
-            if stream is None:
-                stream = streams[dev] = torch.cuda.Stream(dev)
-            stream.wait_event(extras["ready"])
-            c2f = extras["c2f"] or {}
-            for t in (*res, *extras["rect"], *extras["imgs"], c2f.get("coverage"), c2f.get("offband")):
-                if isinstance(t, torch.Tensor):
-                    t.record_stream(stream)
-            with torch.cuda.stream(stream):
-                return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras)
+            index, recorder = extras["frame"]
+            with frame_scope(extras["launches"], index, recorder), span("writer.finalize") as whole:
+                if not on_card:
+                    return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras, whole)
+                with span("writer.device_wait"):
+                    dev = res.points.device
+                    streams = writer_local.__dict__.setdefault("streams", {})
+                    stream = streams.get(dev)
+                    if stream is None:
+                        stream = streams[dev] = torch.cuda.Stream(dev)
+                    stream.wait_event(extras["ready"])
+                    c2f = extras["c2f"] or {}
+                    for t in (*res, *extras["rect"], *extras["imgs"], c2f.get("coverage"), c2f.get("offband")):
+                        if isinstance(t, torch.Tensor):
+                            t.record_stream(stream)
+                with torch.cuda.stream(stream):
+                    return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras, whole)
 
         return finalize
 
     def _stereo_pipelined(self, wds, progress_stream=None) -> List[np.ndarray]:
-        device = self._device()
-        on_card = device.type == "cuda"
-        # Deferred c2f fallback: the dispatching thread never waits for the
-        # coverage scalars; the writers resolve them.
-        pipe = DenseStereoPipeline(self.cfg.stereo, defer_c2f_fallback=True)
-        depth = max(1, self.cfg.dispatch_depth)
-        geom_cache: dict = {}
-        planes: List[np.ndarray] = [None] * len(wds)
-        inflight: deque = deque()
-        dispatch_s: List[float] = []
-        finalize = self._writer_finalizer(on_card)
+        scope = current()
+        recorder = scope.recorder if scope is not None else None
+        with span("loop.start"):
+            device = self._device()
+            on_card = device.type == "cuda"
+            # Deferred c2f fallback: the dispatching thread never waits for
+            # the coverage scalars; the writers resolve them.
+            pipe = DenseStereoPipeline(self.cfg.stereo, defer_c2f_fallback=True)
+            depth = max(1, self.cfg.dispatch_depth)
+            geom_cache: dict = {}
+            planes: List[np.ndarray] = [None] * len(wds)
+            inflight: deque = deque()
+            finalize = self._writer_finalizer(on_card)
 
-        def pop_oldest():
-            j, fut = inflight.popleft()
-            planes[j] = fut.result()
-            progress(j + 1, len(wds), stream=progress_stream)
+            def pop_oldest():
+                j, fut = inflight.popleft()
+                planes[j] = fut.result()
+                progress(j + 1, len(wds), stream=progress_stream)
 
-        self._render_s = []
-        prefetcher = Prefetcher(4)
-        tickets: dict = {}
+            prefetcher = Prefetcher(4)
+            tickets: dict = {}
 
-        def submit(i):
-            if 0 <= i < len(wds) and i not in tickets:
-                tickets[i] = (prefetcher.submit(wds[i].undistorted_path(0)), prefetcher.submit(wds[i].undistorted_path(1)))
+            def submit(i):
+                if 0 <= i < len(wds) and i not in tickets:
+                    tickets[i] = (prefetcher.submit(wds[i].undistorted_path(0), i),
+                                  prefetcher.submit(wds[i].undistorted_path(1), i))
 
-        writers = ThreadPoolExecutor(max_workers=max(1, self.cfg.writer_threads), thread_name_prefix="stereo-writer")
-        try:
+            writers = ThreadPoolExecutor(max_workers=max(1, self.cfg.writer_threads),
+                                         thread_name_prefix="stereo-writer")
             for i in range(depth + 1):
                 submit(i)
+        try:
             for i, wd in enumerate(wds):
-                ticket0, ticket1 = tickets.pop(i)
-                img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
-                submit(i + depth + 1)
-                t0 = time.perf_counter()
-                K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
-                R, T = wd.load_extrinsics()
-                geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, device)
-                b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
-                H, W = img0.shape
-                launches: dict = {}
-                with frame_scope(launches):
-                    # uint8 upload from pinned memory, cast on the device.
-                    b8, m8 = (to_device(torch.from_numpy(x), device) for x in (b_img, m_img))
-                    b, m = b8.to(torch.float32), m8.to(torch.float32)
-                    base_rect = rectify_on_device(b, gp["H_base"], (H, W))
-                    match_rect = rectify_on_device(m, gp["H_match"], (H, W))
-                    res = pipe(base_rect, match_rect, gp)
-                extras = {"launches": launches, "c2f": pipe.last_c2f, "pipe": pipe,
-                          "rect": (base_rect, match_rect), "imgs": (b8, m8), "gp": gp}
-                if on_card:
-                    extras["ready"] = torch.cuda.Event()
-                    extras["ready"].record()
-                inflight.append((i, writers.submit(finalize, wd, geom, res, K0, K1, extras)))
-                dispatch_s.append(time.perf_counter() - t0)
-                # Bound the frames in flight; the oldest one's writer has
-                # usually finished by now.
-                while len(inflight) > depth:
+                with frame_scope({}, i, recorder, dispatching=True) as launches:
+                    with span("loop.take"):
+                        ticket0, ticket1 = tickets.pop(i)
+                        img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
+                        submit(i + depth + 1)
+                    with span("loop.dispatch", cpu=True):
+                        with span("loop.rig"):
+                            K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
+                            R, T = wd.load_extrinsics()
+                            geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, device)
+                            b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
+                            H, W = img0.shape
+                        with span("loop.upload"):
+                            # uint8 upload from pinned memory, cast on the device.
+                            b8, m8 = (to_device(torch.from_numpy(x), device) for x in (b_img, m_img))
+                            b, m = b8.to(torch.float32), m8.to(torch.float32)
+                        with span("loop.rectify"):
+                            base_rect = rectify_on_device(b, gp["H_base"], (H, W))
+                            match_rect = rectify_on_device(m, gp["H_match"], (H, W))
+                        res = pipe(base_rect, match_rect, gp)
+                        with span("loop.submit"):
+                            extras = {"launches": launches, "frame": (i, recorder), "c2f": pipe.last_c2f, "pipe": pipe,
+                                      "rect": (base_rect, match_rect), "imgs": (b8, m8), "gp": gp}
+                            if on_card:
+                                extras["ready"] = torch.cuda.Event()
+                                extras["ready"].record()
+                            inflight.append((i, writers.submit(finalize, wd, geom, res, K0, K1, extras)))
+                    # Bound the frames in flight; the oldest one's writer has
+                    # usually finished by now.
+                    with span("loop.writer_wait"):
+                        while len(inflight) > depth:
+                            pop_oldest()
+            with span("loop.drain"):
+                while inflight:
                     pop_oldest()
-            while inflight:
-                pop_oldest()
         finally:
-            writers.shutdown(wait=True)
-            prefetcher.close()
-            self.loop_stats = {"decode_s": list(prefetcher.decode_s), "dispatch_s": dispatch_s,
-                               "render_s": list(self._render_s)}
+            with span("loop.drain"):
+                writers.shutdown(wait=True)
+                prefetcher.close()
         return planes
 
     def _stereo_sharded(self, wds, mesh, progress_stream=None) -> List[np.ndarray]:
@@ -546,98 +598,115 @@ class SequencePipeline:
         the end, whose results are dropped.  Under a process group each rank
         loads, runs and writes only its own slots' frames, and records the
         other frames' planes from the runner's gather; the loop ends with a
-        barrier, so every rank's files are written when stereo() returns."""
-        runner = ShardedDenseRunner(mesh, self.cfg.stereo)
-        local_slots = runner.local
-        n_slots = len(mesh)
-        on_card = mesh[local_slots[0]].device.type == "cuda"
-        me = rank()
-        geom_cache: dict = {}
-        planes: List[np.ndarray] = [None] * len(wds)
-        inflight: deque = deque()
-        dispatch_s: List[float] = []
-        finalize = self._writer_finalizer(on_card)
-        self._render_s = []
-        prefetcher = Prefetcher(2 * len(local_slots))
-        tickets: dict = {}
+        barrier, so every rank's files are written when stereo() returns.
+        The spans count per batch, and the batch's dispatch holds the
+        prefetch takes (loop.take) and the runner (runner.batch)."""
+        scope = current()
+        recorder = scope.recorder if scope is not None else None
+        with span("loop.start"):
+            runner = ShardedDenseRunner(mesh, self.cfg.stereo)
+            local_slots = runner.local
+            n_slots = len(mesh)
+            on_card = mesh[local_slots[0]].device.type == "cuda"
+            me = rank()
+            geom_cache: dict = {}
+            planes: List[np.ndarray] = [None] * len(wds)
+            inflight: deque = deque()
+            finalize = self._writer_finalizer(on_card)
+            prefetcher = Prefetcher(2 * len(local_slots))
+            tickets: dict = {}
 
-        def submit(i):
-            if 0 <= i < len(wds) and i not in tickets:
-                tickets[i] = (prefetcher.submit(wds[i].undistorted_path(0)), prefetcher.submit(wds[i].undistorted_path(1)))
+            def submit(i):
+                if 0 <= i < len(wds) and i not in tickets:
+                    tickets[i] = (prefetcher.submit(wds[i].undistorted_path(0), i // n_slots),
+                                  prefetcher.submit(wds[i].undistorted_path(1), i // n_slots))
 
-        def pop_oldest():
-            j, fut = inflight.popleft()
-            planes[j] = fut.result()
-            progress(j + 1, len(wds), stream=progress_stream)
+            def pop_oldest():
+                j, fut = inflight.popleft()
+                planes[j] = fut.result()
+                progress(j + 1, len(wds), stream=progress_stream)
 
-        def batch_frame(s, slot, group_n):
-            """The frame of slot `slot` in the batch from frame s (past the
-            end: the last frame)."""
-            return s + min(slot, group_n - 1)
+            def batch_frame(s, slot, group_n):
+                """The frame of slot `slot` in the batch from frame s (past the
+                end: the last frame)."""
+                return s + min(slot, group_n - 1)
 
-        writers = ThreadPoolExecutor(max_workers=max(1, self.cfg.writer_threads), thread_name_prefix="stereo-writer")
-        try:
+            writers = ThreadPoolExecutor(max_workers=max(1, self.cfg.writer_threads),
+                                         thread_name_prefix="stereo-writer")
             for slot in local_slots:
                 submit(batch_frame(0, slot, min(n_slots, len(wds))))
                 submit(n_slots + slot)
+        try:
             for s in range(0, len(wds), n_slots):
                 group_n = min(n_slots, len(wds) - s)
-                t0 = time.perf_counter()
-                host: dict = {}
-                batch = []
-                for slot in local_slots:
-                    fi = batch_frame(s, slot, group_n)
-                    if fi not in host:
-                        if fi in tickets:
-                            ticket0, ticket1 = tickets.pop(fi)
-                            img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
-                        else:
-                            img0, img1 = read_gray(wds[fi].undistorted_path(0)), read_gray(wds[fi].undistorted_path(1))
-                        submit(fi + n_slots)
-                        wd = wds[fi]
-                        K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
-                        host[fi] = (img0, img1, K0, K1, wd.load_extrinsics())
-                    img0, img1, K0, K1, (R, T) = host[fi]
-                    dev = mesh[slot].device
-                    geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, dev)
-                    b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
-                    # uint8 upload from pinned memory, cast on the device.
-                    b8, m8 = (to_device(torch.from_numpy(x), dev) for x in (b_img, m_img))
-                    batch.append((fi, geom, gp, K0, K1, b8, m8))
-                results, rects, info, _mean_plane = runner.run_batch(
-                    [b[5].to(torch.float32) for b in batch], [b[6].to(torch.float32) for b in batch],
-                    [b[2] for b in batch])
-                for j, slot in enumerate(local_slots):
-                    if slot >= group_n:
-                        continue  # a padded tail slot: no frame of its own
-                    fi, geom, gp, K0, K1, b8, m8 = batch[j]
-                    extras = {"launches": info["launches"][j], "c2f": None, "rect": rects[j], "imgs": (b8, m8)}
-                    if info["coverage"] is not None:
-                        extras["c2f"] = {"coverage": float(info["coverage"][slot]),
-                                         "offband": float(info["offband"][slot]),
-                                         "fallback": slot in info["fallback_frames"]}
-                    if on_card:
-                        extras["ready"] = torch.cuda.Event()
-                        extras["ready"].record(torch.cuda.current_stream(b8.device))
-                    inflight.append((fi, writers.submit(finalize, wds[fi], geom, results[j], K0, K1, extras)))
-                for slot in range(group_n):
-                    if mesh[slot].rank != me:
-                        # Another rank's frame: its plane from the gather,
-                        # gated as the finalizer gates it.
-                        good = bool(info["plane_ok"][slot]) and int(info["n_points"][slot]) >= self.cfg.stereo.min_triangulated
-                        planes[s + slot] = info["planes"][slot] if good else np.full(4, np.nan)
-                dispatch_s.append(time.perf_counter() - t0)
-                while len(inflight) > len(local_slots):
+                with frame_scope({}, s // n_slots, recorder, dispatching=True):
+                    with span("loop.dispatch", cpu=True):
+                        host: dict = {}
+                        batch = []
+                        for slot in local_slots:
+                            fi = batch_frame(s, slot, group_n)
+                            if fi not in host:
+                                with span("loop.take"):
+                                    if fi in tickets:
+                                        ticket0, ticket1 = tickets.pop(fi)
+                                        img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
+                                    else:
+                                        img0 = read_gray(wds[fi].undistorted_path(0))
+                                        img1 = read_gray(wds[fi].undistorted_path(1))
+                                    submit(fi + n_slots)
+                                with span("loop.rig"):
+                                    wd = wds[fi]
+                                    K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
+                                    host[fi] = (img0, img1, K0, K1, wd.load_extrinsics())
+                            img0, img1, K0, K1, (R, T) = host[fi]
+                            dev = mesh[slot].device
+                            with span("loop.rig"):
+                                geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, dev)
+                                b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
+                            with span("loop.upload"):
+                                # uint8 upload from pinned memory, cast on the device.
+                                b8, m8 = (to_device(torch.from_numpy(x), dev) for x in (b_img, m_img))
+                                b, m = b8.to(torch.float32), m8.to(torch.float32)
+                                batch.append((fi, geom, gp, K0, K1, b8, m8, b, m))
+                        with span("runner.batch"):
+                            results, rects, info, _mean_plane = runner.run_batch(
+                                [b[7] for b in batch], [b[8] for b in batch], [b[2] for b in batch])
+                        with span("loop.submit"):
+                            for j, slot in enumerate(local_slots):
+                                if slot >= group_n:
+                                    continue  # a padded tail slot: no frame of its own
+                                fi, geom, gp, K0, K1, b8, m8 = batch[j][:7]
+                                extras = {"launches": info["launches"][j], "frame": (s // n_slots, recorder),
+                                          "c2f": None, "rect": rects[j], "imgs": (b8, m8)}
+                                if info["coverage"] is not None:
+                                    extras["c2f"] = {"coverage": float(info["coverage"][slot]),
+                                                     "offband": float(info["offband"][slot]),
+                                                     "fallback": slot in info["fallback_frames"]}
+                                if on_card:
+                                    extras["ready"] = torch.cuda.Event()
+                                    extras["ready"].record(torch.cuda.current_stream(b8.device))
+                                fut = writers.submit(finalize, wds[fi], geom, results[j], K0, K1, extras)
+                                inflight.append((fi, fut))
+                            for slot in range(group_n):
+                                if mesh[slot].rank != me:
+                                    # Another rank's frame: its plane from the
+                                    # gather, gated as the finalizer gates it.
+                                    good = (bool(info["plane_ok"][slot])
+                                            and int(info["n_points"][slot]) >= self.cfg.stereo.min_triangulated)
+                                    planes[s + slot] = info["planes"][slot] if good else np.full(4, np.nan)
+                    with span("loop.writer_wait"):
+                        while len(inflight) > len(local_slots):
+                            pop_oldest()
+            with span("loop.drain"):
+                while inflight:
                     pop_oldest()
-            while inflight:
-                pop_oldest()
         finally:
-            writers.shutdown(wait=True)
-            prefetcher.close()
-            self.loop_stats = {"decode_s": list(prefetcher.decode_s), "dispatch_s": dispatch_s,
-                               "render_s": list(self._render_s)}
+            with span("loop.drain"):
+                writers.shutdown(wait=True)
+                prefetcher.close()
         if world_size() > 1:
-            torch.distributed.barrier()
+            with span("loop.drain"):
+                torch.distributed.barrier()
         return planes
 
     def _write_sequence_outputs(self, wds, planes) -> None:

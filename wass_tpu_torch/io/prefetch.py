@@ -7,17 +7,19 @@ close().  The native library does not build where the port runs (no
 libpng headers), so a pool of Python threads decodes through io/png.py,
 whose OpenCV decode releases the interpreter lock: the threads decode at
 once, whatever row filters the PNGs use.  A decode error is raised by
-take(), in the caller's thread.
+take(), in the caller's thread.  Each decode is the span "prefetch.decode"
+of the frame given to submit(), in the recorder of the submitting
+thread's scope (instrument.py).
 """
 
 from __future__ import annotations
 
-import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Dict, List
+from typing import Dict
 
 import numpy as np
 
+from wass_tpu_torch import instrument
 from wass_tpu_torch.io.png import read_gray
 
 
@@ -26,22 +28,21 @@ class Prefetcher:
         self._pool = ThreadPoolExecutor(max_workers=n_threads, thread_name_prefix="png-prefetch")
         self._pending: Dict[int, Future] = {}
         self._next = 0
-        # Seconds each decode took on its worker thread, in completion order.
-        self.decode_s: List[float] = []
 
-    def _decode(self, path) -> np.ndarray:
-        t0 = time.perf_counter()
-        try:
-            img = read_gray(path)
-        except ValueError as e:
-            raise ValueError(f"{path}: {e}") from e
-        self.decode_s.append(time.perf_counter() - t0)
-        return img
+    @staticmethod
+    def _decode(path, frame: int, recorder) -> np.ndarray:
+        with instrument.frame_scope({}, frame, recorder), instrument.span("prefetch.decode"):
+            try:
+                return read_gray(path)
+            except ValueError as e:
+                raise ValueError(f"{path}: {e}") from e
 
-    def submit(self, path) -> int:
+    def submit(self, path, frame: int = 0) -> int:
+        """A ticket for the decode of `path`, timed for frame `frame`."""
+        scope = instrument.current()
         ticket = self._next
         self._next += 1
-        self._pending[ticket] = self._pool.submit(self._decode, path)
+        self._pending[ticket] = self._pool.submit(self._decode, path, frame, scope and scope.recorder)
         return ticket
 
     def take(self, ticket: int) -> np.ndarray:

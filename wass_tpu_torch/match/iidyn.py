@@ -34,7 +34,7 @@ import torch
 
 from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
-from wass_tpu_torch.launches import LaunchCounts
+from wass_tpu_torch.instrument import LaunchCounts
 
 LAUNCHES = LaunchCounts({"iidyn": 0})
 

@@ -19,7 +19,7 @@ import torch
 
 from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
-from wass_tpu_torch.launches import LaunchCounts
+from wass_tpu_torch.instrument import LaunchCounts
 
 LAUNCHES = LaunchCounts({"label_propagate": 0})
 # The per-round change flags of the last kernel launch (int32, one a round).

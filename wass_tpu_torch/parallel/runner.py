@@ -17,7 +17,9 @@ frames that trip the guard re-run, each as a single full-range frame on
 its owner's device, their results swapped into the per-slot lists (the
 counterpart of replace_frame_shard).  The planes, 4 floats a frame, are
 gathered on the host from every rank, as multihost_utils.process_allgather
-does, and the mean plane is their nanmean.
+does, and the mean plane is their nanmean.  The slot threads work for the
+caller's thread: their spans (instrument.py) and their device reads count
+in the caller's recorder, under the caller's frame (the batch's index).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from wass_tpu_torch.launches import frame_scope
+from wass_tpu_torch.instrument import current, frame_scope, host_read, span
 from wass_tpu_torch.parallel.mesh import Slot, all_gather_host, local_frame_indices
 from wass_tpu_torch.stereo import sgm_kernels
 from wass_tpu_torch.stereo.c2f import TILE_ROWS, coarse_disparity, compute_row_windows, wta_disparity_windowed
@@ -66,25 +68,34 @@ def _frame_pipeline(bi, mi, gp, cfg: DenseStereoConfig, rectified: bool, uv=None
     if rectified:
         br, mr = bi, mi
     else:
-        br = rectify_on_device(bi, gp["H_base"], (H, W))
-        mr = rectify_on_device(mi, gp["H_match"], (H, W))
-    if _c2f_active(cfg, br.shape):
-        disp_c = coarse_disparity(br, mr, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions, cfg.census_win,
-                                  cfg.uniqueness_ratio, cfg.c2f_factor)
-        wstart, cov, offb = compute_row_windows(disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window)
-        cb = census_transform(br, cfg.census_win, cfg.input_smooth_sigma)
-        cm = census_transform(mr, cfg.census_win, cfg.input_smooth_sigma)
-        cost = sgm_kernels.census_cost_volume_windowed(cb, cm, wstart, cfg.c2f_window)
-        agg = sgm_kernels.sgm_aggregate_windowed(cost, wstart, cfg.p1, cfg.p2, cfg.directions)
-        disp = wta_disparity_windowed(agg, wstart.repeat_interleave(TILE_ROWS), cfg.uniqueness_ratio)
-        disp = disparity_postprocess(disp, cfg)
-    else:
-        disp = DenseStereoPipeline(cfg).disparity(br, mr)
-        cov = torch.ones((), dtype=torch.float32, device=br.device)
-        offb = torch.zeros((), dtype=torch.float32, device=br.device)
-    pts, valid, reasons = triangulate_dense(disp, gp, br, mr, cfg)
-    keep, _ = outlier_removal(pts, valid, cfg)
-    plane, ok, valid = plane_stage(pts, valid & keep, cfg, uv)
+        with span("loop.rectify"):
+            br = rectify_on_device(bi, gp["H_base"], (H, W))
+            mr = rectify_on_device(mi, gp["H_match"], (H, W))
+    with span("dense.frame"):
+        if _c2f_active(cfg, br.shape):
+            with span("dense.disparity"):
+                disp_c = coarse_disparity(br, mr, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions,
+                                          cfg.census_win, cfg.uniqueness_ratio, cfg.c2f_factor)
+                wstart, cov, offb = compute_row_windows(disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp,
+                                                        cfg.c2f_window)
+            with span("dense.census"):
+                cb = census_transform(br, cfg.census_win, cfg.input_smooth_sigma)
+                cm = census_transform(mr, cfg.census_win, cfg.input_smooth_sigma)
+            with span("dense.disparity"):
+                cost = sgm_kernels.census_cost_volume_windowed(cb, cm, wstart, cfg.c2f_window)
+                agg = sgm_kernels.sgm_aggregate_windowed(cost, wstart, cfg.p1, cfg.p2, cfg.directions)
+                disp = wta_disparity_windowed(agg, wstart.repeat_interleave(TILE_ROWS), cfg.uniqueness_ratio)
+            with span("dense.post"):
+                disp = disparity_postprocess(disp, cfg)
+        else:
+            disp = DenseStereoPipeline(cfg).disparity(br, mr)
+            cov = torch.ones((), dtype=torch.float32, device=br.device)
+            offb = torch.zeros((), dtype=torch.float32, device=br.device)
+        with span("dense.post"):
+            pts, valid, reasons = triangulate_dense(disp, gp, br, mr, cfg)
+            keep, _ = outlier_removal(pts, valid, cfg)
+        with span("dense.plane"):
+            plane, ok, valid = plane_stage(pts, valid & keep, cfg, uv)
     res = DenseFrameResult(points=pts, valid=valid, plane=plane, plane_ok=ok, disparity=disp, n_points=valid.sum(),
                            fail_reasons=reasons)
     return res, (br, mr), (cov, offb)
@@ -121,12 +132,17 @@ class ShardedDenseRunner:
         self.local = local_frame_indices(self.mesh)
         self.n_fallback_reruns = 0
 
-    def _run_slot(self, j: int, bi, mi, gp, cfg, rectified: bool, launches: dict):
+    def _run_slot(self, j: int, bi, mi, gp, cfg, rectified: bool, launches: dict, caller=None):
+        """Slot j's frame; its launches count in `launches`, its spans and
+        reads in the recorder of the caller's scope (`caller`), as the
+        dispatching thread's."""
         dev = self.mesh[self.local[j]].device
-        with device_scope(dev), frame_scope(launches):
+        index, recorder = (caller.index, caller.recorder) if caller is not None else (0, None)
+        with device_scope(dev), frame_scope(launches, index, recorder, dispatching=True):
             bi, mi, gp = _on(bi, dev), _on(mi, dev), pack_on(gp, dev)
             res, rects, diag = _frame_pipeline(bi, mi, gp, cfg, rectified, self.uv)
-            diag = tuple(torch.stack(diag).tolist())  # the frame's host read of its c2f scalars
+            # The frame's host read of its c2f scalars.
+            diag = tuple(host_read(torch.stack(diag), "runner.c2f_read").tolist())
         return res, rects, diag, (bi, mi, gp)
 
     def run_batch(self, base_img: Sequence, match_img: Sequence, geom_packs: Sequence[dict],
@@ -145,9 +161,10 @@ class ShardedDenseRunner:
             raise ValueError(f"a batch holds one frame a slot: pass exactly {n_local} frames from this process")
         launches = [{} for _ in range(n_local)]
         cfg = self.cfg
+        caller = current()
         with ThreadPoolExecutor(max_workers=n_local, thread_name_prefix="frame-slot") as pool:
             outs = list(pool.map(lambda j: self._run_slot(j, base_img[j], match_img[j], geom_packs[j], cfg, rectified,
-                                                          launches[j]), range(n_local)))
+                                                          launches[j], caller), range(n_local)))
         results = [o[0] for o in outs]
         rects = [o[1] for o in outs]
         diag = np.array([d for part in all_gather_host([o[2] for o in outs]) for d in part], np.float64)
@@ -166,10 +183,16 @@ class ShardedDenseRunner:
                     continue
                 j = self.local.index(k)
                 bi, mi, gp = outs[j][3]
-                res_k, rects_k, _, _ = self._run_slot(j, bi, mi, gp, self.cfg_full, rectified, launches[j])
+                res_k, rects_k, _, _ = self._run_slot(j, bi, mi, gp, self.cfg_full, rectified, launches[j], caller)
                 self.n_fallback_reruns += 1
                 results[j], rects[j] = res_k, rects_k
-        mine = [(r.plane.cpu().numpy().astype(np.float64), bool(r.plane_ok), int(r.n_points)) for r in results]
+        mine = []
+        for r in results:
+            # One read a slot: the plane (float32 values, exact in float64),
+            # plane_ok and n_points (exact in float64 below 2**53).
+            v = host_read(torch.cat([r.plane.double(), r.plane_ok.double().reshape(1),
+                                     r.n_points.double().reshape(1)]), "runner.plane_read").numpy()
+            mine.append((v[:4].copy(), bool(v[4]), int(v[5])))
         every = [m for part in all_gather_host(mine) for m in part]
         info["planes"] = np.stack([m[0] for m in every])
         info["plane_ok"] = np.array([m[1] for m in every])

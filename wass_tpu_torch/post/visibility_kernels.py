@@ -27,7 +27,7 @@ import torch
 
 from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
-from wass_tpu_torch.launches import LaunchCounts
+from wass_tpu_torch.instrument import LaunchCounts
 
 LAUNCHES = LaunchCounts({"visibility_batch": 0, "visibility_march": 0})
 

@@ -14,7 +14,10 @@ for 2 paths) when the shapes conform, the full-range one (K1 + K3, or
 K1 + K5 for 2/4 paths and the left-right check) otherwise or when the
 coarse windows miss too much.  The component labels run K7.  On CUDA
 tensors these are the hand-written kernels, on CPU tensors their plain
-versions.
+versions.  Inside a recorder's scope (instrument.py) the frame's stages
+are spans: dense.frame around the census (dense.census), the disparity
+search (dense.disparity), the postprocess, triangulation and z-gap
+components (dense.post) and the plane (dense.plane).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from wass_tpu_torch.core.geometry import homogeneous_transform, rt_from_plane
 from wass_tpu_torch.core.rectify import stereo_rectify_homographies
 from wass_tpu_torch.core.triangulate import triangulate_normalized
+from wass_tpu_torch.instrument import span
 from wass_tpu_torch.ops.components import biggest_component_mask, zgap_component_mask
 from wass_tpu_torch.ops.morphology import dilate_zero, erode_zero, median_filter, sobel
 from wass_tpu_torch.ops.sampling import resize, warp_homography
@@ -490,42 +494,48 @@ class DenseStereoPipeline:
             sh, sw = round(h * cfg.dense_scale), round(w * cfg.dense_scale)
             base_rect = resize(base_rect, (sh, sw), interp="cubic")
             match_rect = resize(match_rect, (sh, sw), interp="cubic")
-        cb = census_transform(base_rect, cfg.census_win, cfg.input_smooth_sigma)
-        cm = census_transform(match_rect, cfg.census_win, cfg.input_smooth_sigma)
+        with span("dense.census"):
+            cb = census_transform(base_rect, cfg.census_win, cfg.input_smooth_sigma)
+            cm = census_transform(match_rect, cfg.census_win, cfg.input_smooth_sigma)
         self.last_c2f = None
         use_c2f = _c2f_active(cfg, base_rect.shape)
-        if use_c2f:
-            disp_c = coarse_disparity(
-                base_rect, match_rect, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions,
-                cfg.census_win, cfg.uniqueness_ratio, cfg.c2f_factor,
-            )
-            wstart, cov, offband = compute_row_windows(
-                disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window
-            )
-            if self.defer_c2f_fallback:
-                self.last_c2f = {"coverage": cov, "offband": offband, "fallback": None}
+        with span("dense.disparity"):
+            if use_c2f:
+                disp_c = coarse_disparity(
+                    base_rect, match_rect, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions,
+                    cfg.census_win, cfg.uniqueness_ratio, cfg.c2f_factor,
+                )
+                wstart, cov, offband = compute_row_windows(
+                    disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window
+                )
+                if self.defer_c2f_fallback:
+                    self.last_c2f = {"coverage": cov, "offband": offband, "fallback": None}
+                else:
+                    cov_v, offband_v = torch.stack([cov, offband]).tolist()  # the host decision point
+                    fallback = c2f_should_fallback(cov_v, offband_v, cfg)
+                    self.last_c2f = {"coverage": cov_v, "offband": offband_v, "fallback": fallback}
+                    use_c2f = not fallback
+            if use_c2f:
+                disp = windowed_disparity(cb, cm, wstart, cfg.c2f_window, cfg.p1, cfg.p2, cfg.directions,
+                                          cfg.uniqueness_ratio)
             else:
-                cov_v, offband_v = torch.stack([cov, offband]).tolist()  # the host decision point
-                fallback = c2f_should_fallback(cov_v, offband_v, cfg)
-                self.last_c2f = {"coverage": cov_v, "offband": offband_v, "fallback": fallback}
-                use_c2f = not fallback
-        if use_c2f:
-            disp = windowed_disparity(cb, cm, wstart, cfg.c2f_window, cfg.p1, cfg.p2, cfg.directions,
-                                      cfg.uniqueness_ratio)
-        else:
-            disp = sgm_disparity_census(cb, cm, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions,
-                                        cfg.uniqueness_ratio, cfg.lr_max_diff)
-        return disparity_postprocess(disp, cfg)
+                disp = sgm_disparity_census(cb, cm, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions,
+                                            cfg.uniqueness_ratio, cfg.lr_max_diff)
+        with span("dense.post"):
+            return disparity_postprocess(disp, cfg)
 
     def __call__(self, base_rect, match_rect, geom_pack, uv=None) -> DenseFrameResult:
         """One frame from its rectified pair; uv optionally injects the
         RANSAC pixel picks.  (The reference's signature also takes the
         unrectified images, which nothing in it reads.)"""
         cfg = self.cfg
-        disp = self.disparity(base_rect, match_rect)
-        pts, valid, reasons = triangulate_dense(disp, geom_pack, base_rect, match_rect, cfg)
-        keep, _ = outlier_removal(pts, valid, cfg)
-        plane, ok, valid = plane_stage(pts, valid & keep, cfg, uv)
+        with span("dense.frame"):
+            disp = self.disparity(base_rect, match_rect)
+            with span("dense.post"):
+                pts, valid, reasons = triangulate_dense(disp, geom_pack, base_rect, match_rect, cfg)
+                keep, _ = outlier_removal(pts, valid, cfg)
+            with span("dense.plane"):
+                plane, ok, valid = plane_stage(pts, valid & keep, cfg, uv)
         return DenseFrameResult(
             points=pts, valid=valid, plane=plane, plane_ok=ok,
             disparity=disp, n_points=valid.sum(), fail_reasons=reasons,

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
-from wass_tpu_torch.launches import LaunchCounts
+from wass_tpu_torch.instrument import LaunchCounts
 from wass_tpu_torch.ops.sampling import bilinear_sample
 
 LAUNCHES = LaunchCounts({"flow_linearize": 0, "flow_jacobi": 0})

@@ -14,6 +14,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from wass_tpu_torch.device import to_device
+from wass_tpu_torch.instrument import host_read
 
 
 class PlaneFit(NamedTuple):
@@ -111,7 +112,7 @@ def refine_plane(
     # The 3x3 eigenproblem runs on the host (LAPACK), not worth a device
     # solver: the frame's one host read on the dispatching thread (the
     # plane parity with the reference rests on these float bits).
-    _evals, evecs = torch.linalg.eigh(A.cpu())
+    _evals, evecs = torch.linalg.eigh(host_read(A, "plane.read"))
     n = to_device(evecs[:, 0], points.device)
     n = n / torch.clamp_min(torch.linalg.norm(n), 1e-20)
     n = torch.where(n[2] < 0, -n, n)

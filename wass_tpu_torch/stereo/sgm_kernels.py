@@ -37,7 +37,7 @@ import torch
 
 from wass_tpu_torch import _build
 from wass_tpu_torch.device import on_cuda
-from wass_tpu_torch.launches import LaunchCounts
+from wass_tpu_torch.instrument import LaunchCounts
 from wass_tpu_torch.stereo import cost as _cost
 from wass_tpu_torch.stereo import sgm as _sgm
 from wass_tpu_torch.stereo.sgm import TILE_ROWS, _check_p2, _tri
