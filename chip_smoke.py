@@ -16,10 +16,14 @@ Phases, each printed on its own line; any failure exits non-zero:
    2048x1536 pair, D = 640 and 8 paths for K1/K3/K5/K7; Dw = 128 over the
    window starts of the pair's coarse pass for K2/K4/K6; the coarse pass's
    K1 and K3 (384x512, D = 160) timed too; K1 and K2 also over a 9x9
-   census (3 words), at both shapes.  K7 also on a 2048x1536 serpentine
-   mask (bands every 4 rows joined at alternating ends) that no 24 rounds
-   make converge, where all 24 rounds must change labels; the rounds that
-   did work are printed for both masks.  Then at a
+   census (3 words), at both shapes.  The census kernel on each image of
+   the pair (sigma 0.8), on the coarse pass's pooled images (384x512,
+   sigma 0) and over the 9x9 window, timed at the first two shapes (its
+   launches queued behind a device sleep, so the host's call does not
+   pace them) beside its byte bound and the plain version.  K7 also on a
+   2048x1536 serpentine mask (bands every 4 rows joined at alternating
+   ends) that no 24 rounds make converge, where all 24 rounds must change
+   labels; the rounds that did work are printed for both masks.  Then at a
    ragged shape: 1001x777, D = 52 for K1/K3/K5/K7, and 1000x776, Dw = 52
    with random window starts (flat, rising, falling, jumps of >= Dw) for
    K2/K4/K6.  The five H2 kernels (the JAX package's _USE_H2 pieces) and
@@ -37,10 +41,10 @@ Phases, each printed on its own line; any failure exits non-zero:
    writers).  Every frame must take the windowed branch, give a plane.txt and
    a mesh_cam.xyzC that read back through the workdir contract
    (wass_tpu_torch.testing.read_frame), a trimmed-mean elevation error
-   below 0.02 baseline units, and must have launched K1, K2, K3, K4 and
-   K7.  Every frame (here and in 4b, 4c) prints the sha256 of its
-   mesh_cam.xyzC and plane.txt, so that runs of two commits on one card
-   compare byte for byte.  Every frame also carries the six debug renders
+   below 0.02 baseline units, and must have launched the census kernel,
+   K1, K2, K3, K4 and K7.  Every frame (here and in 4b, 4c) prints the
+   sha256 of its mesh_cam.xyzC and plane.txt, so that runs of two commits
+   on one card compare byte for byte.  Every frame also carries the six debug renders
    (phase I checks them).
 4b. The other branches, one frame each through SequencePipeline with a
    config override: a forced full-range fallback (c2f_min_coverage 1.01),
@@ -336,6 +340,9 @@ IIDYN_PLAIN_TIMED = 200  # updates of the plain iidyn timing
 MATCH_GATES = (400, 0.5, 5e-3, 2e-2)
 
 KERNELS = {
+    # Not a Pallas kernel: the XLA fusion of the census transform and its
+    # pre-blur (features.py:_gauss_blur), one kernel an image.
+    "census": ("wass_tpu_torch/csrc/census.cu", "wass_tpu/stereo/cost.py:27"),
     "census_cost": ("wass_tpu_torch/csrc/census_cost.cu", "wass_tpu/stereo/sgm_pallas.py:710"),
     "census_cost_windowed": ("wass_tpu_torch/csrc/census_cost.cu", "wass_tpu/stereo/sgm_pallas.py:808"),
     "sgm_wta_fused": ("wass_tpu_torch/csrc/sgm.cu", "wass_tpu/stereo/sgm_pallas.py:633"),
@@ -367,7 +374,7 @@ KERNELS = {
 # The default path's SGM keys, which no H2 frame may launch.
 DEFAULT_SGM = ("sgm_wta_fused", "sgm_wta_fused_windowed", "sgm_aggregate", "sgm_aggregate_windowed")
 # Kernels each main-path run must launch (phase 4 per frame, phase 4b per run).
-WINDOWED_PATH = ("census_cost", "census_cost_windowed", "sgm_wta_fused", "sgm_wta_fused_windowed", "label_propagate")
+WINDOWED_PATH = ("census", "census_cost", "census_cost_windowed", "sgm_wta_fused", "sgm_wta_fused_windowed", "label_propagate")
 
 
 def log(msg: str) -> None:
@@ -440,6 +447,30 @@ def bound(nbytes: float, ops: float, popc: float = 0.0) -> tuple:
 
 def set_bound(results: dict, name: str, nbytes: float, ops: float) -> None:
     results[name]["bound_ms"], results[name]["bound_by"] = bound(nbytes, ops)
+
+
+def queued_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn() over reps back-to-back runs: the launches
+    queue behind a 50 ms device sleep, so a kernel shorter than its host
+    call is timed without the host's gaps."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # ~50 ms of clocks at 1.98 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def census_transform_bound(img, nw: int) -> tuple:
+    """The census kernel's bound: the image read once, the nw words a pixel
+    written once."""
+    return bound(4 * img.numel() * (1 + nw), 0)
 
 
 def census_bound(cb, d: int, extra_bytes: int = 0) -> tuple:
@@ -641,6 +672,9 @@ def check_kernels(img_pair, dev) -> dict:
     for tag, a, b, nd, dw in cases:
         base, match = a.to(dev, torch.float32), b.to(dev, torch.float32)
         cb, cm = census_transform(base, (7, 9), 0.8), census_transform(match, (7, 9), 0.8)
+        for img, words in ((base, cb), (match, cm)):
+            _record(results, "census", sk.census_transform(img, (7, 9), 0.8), words,
+                    f"{tag} {tuple(img.shape)} sigma=0.8")
         shape = f"{tuple(base.shape)} D={nd}"
 
         cost = sk.census_cost_volume(cb, cm, nd, 1)
@@ -689,7 +723,21 @@ def check_kernels(img_pair, dev) -> dict:
                 f"starts {int(ws.min())}..{int(ws.max())}")
             # The coarse pass's volume (384x512, D = 160, lane width 8): K1,
             # K3 and the H2 pieces its 8-path pass launches with H2 on.
-            ccb, ccm = (census_transform(c2f.downsample_pool(x, 4), (7, 9), 0.0) for x in (base, match))
+            cimg = [c2f.downsample_pool(x, 4) for x in (base, match)]
+            ccb, ccm = (census_transform(x, (7, 9), 0.0) for x in cimg)
+            for img, words in zip(cimg, (ccb, ccm)):
+                _record(results, "census", sk.census_transform(img, (7, 9), 0.0), words,
+                        f"coarse {tuple(img.shape)} sigma=0")
+            # The census kernel at the main path's two shapes, against the
+            # bytes it must move and the plain version's ~300 launches.
+            for img, sigma, words in ((base, 0.8, cb), (cimg[0], 0.0, ccb)):
+                k_ms = queued_ms(lambda: sk.census_transform(img, (7, 9), sigma))
+                p_ms = cuda_ms(lambda: census_transform(img, (7, 9), sigma))
+                b_ms, b_by = census_transform_bound(img, words.shape[2])
+                if img is base:
+                    results["census"].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+                log(f"time census {tuple(img.shape)} sigma={sigma}: kernel {k_ms:.4f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}), {100 * b_ms / k_ms:.1f}% of it, plain {p_ms:.3f} ms")
             cnd = c2f.coarse_num_disp(nd, 4)
             ccost = sk.census_cost_volume(ccb, ccm, cnd, 1)
             cshape = f"coarse {tuple(ccb.shape[:2])} D={cnd}"
@@ -723,6 +771,7 @@ def check_kernels(img_pair, dev) -> dict:
         # A 3-word census (9x9) through K1 and K2, at the same shapes and windows.
         cb9, cm9 = (census_transform(x, CENSUS_9X9, 0.8) for x in (base, match))
         what = f"census 9x9 (nw={cb9.shape[2]})"
+        _record(results, "census", sk.census_transform(base, CENSUS_9X9, 0.8), cb9, f"{tag} {tuple(base.shape)} {what}")
         _record(results, "census_cost", sk.census_cost_volume(cb9, cm9, nd, 1), census_cost_volume(cb9, cm9, nd, 1),
                 f"{tag} {shape} {what}")
         wcb9, wcm9 = (x[:wcb.shape[0], :wcb.shape[1]].contiguous() for x in (cb9, cm9))
@@ -1641,7 +1690,7 @@ def profile_c2f_frame(root: Path, img0, img1, rig) -> dict:
     from wass_tpu_torch.ops import components_kernels as ck
     from wass_tpu_torch.stereo import dense
     from wass_tpu_torch.stereo.c2f import coarse_disparity, compute_row_windows, windowed_disparity
-    from wass_tpu_torch.stereo.cost import census_transform
+    from wass_tpu_torch.stereo.sgm_kernels import census_transform
     from wass_tpu_torch.testing import write_sequence
 
     seq = root / "smoke_loop"
@@ -3062,7 +3111,6 @@ def sharded_k6_ms(img0, img1, rig, cfg, dev) -> tuple:
     from wass_tpu_torch.stereo import dense
     from wass_tpu_torch.stereo import sgm_kernels as sk
     from wass_tpu_torch.stereo.c2f import coarse_disparity, compute_row_windows
-    from wass_tpu_torch.stereo.cost import census_transform
 
     H, W = img0.shape
     geom = dense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
@@ -3073,8 +3121,8 @@ def sharded_k6_ms(img0, img1, rig, cfg, dev) -> tuple:
     disp_c = coarse_disparity(br, mr, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions, cfg.census_win,
                               cfg.uniqueness_ratio, cfg.c2f_factor)
     ws, _, _ = compute_row_windows(disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window)
-    cost = sk.census_cost_volume_windowed(census_transform(br, cfg.census_win, cfg.input_smooth_sigma),
-                                          census_transform(mr, cfg.census_win, cfg.input_smooth_sigma), ws,
+    cost = sk.census_cost_volume_windowed(sk.census_transform(br, cfg.census_win, cfg.input_smooth_sigma),
+                                          sk.census_transform(mr, cfg.census_win, cfg.input_smooth_sigma), ws,
                                           cfg.c2f_window)
     return cuda_ms(lambda: sk.sgm_aggregate_windowed(cost, ws, cfg.p1, cfg.p2, cfg.directions), reps=5), \
         tuple(cost.shape)

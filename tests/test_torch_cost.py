@@ -85,6 +85,19 @@ def test_cost_wrapper_runs_plain_on_cpu(rng):
     assert sgm_kernels.LAUNCHES == before  # no kernel launch on CPU tensors
 
 
+@pytest.mark.parametrize("win,sigma,shape", [((7, 9), 0.8, (40, 56)), ((7, 9), 0.0, (24, 32)),
+                                             ((7, 9), -1.0, (37, 53)), ((5, 5), 1.7, (37, 53)),
+                                             ((9, 9), 0.0, (5, 4))])
+def test_census_wrapper_runs_plain_on_cpu(rng, win, sigma, shape):
+    """The census kernel's wrapper on a CPU tensor is cost.census_transform
+    itself, and counts no launch."""
+    img = torch.from_numpy(_img(rng, *shape))
+    before = dict(sgm_kernels.LAUNCHES)
+    out = sgm_kernels.census_transform(img, win, sigma)
+    assert torch.equal(out, tcost.census_transform(img, win, sigma))
+    assert sgm_kernels.LAUNCHES == before and "census" in before
+
+
 def test_cost_rejects_negative_min_disp(rng):
     cb = tcost.census_transform(torch.from_numpy(_img(rng, 8, 16)), (3, 3))
     with pytest.raises(ValueError):
@@ -102,6 +115,9 @@ def test_wrappers_reject_devices_other_than_cpu_and_one_cuda(devices):
         sgm_kernels.census_cost_volume(a, b, 4, 1)
     with pytest.raises(ValueError, match="one CUDA device"):
         sgm_kernels.sgm_wta_fused(b.to(torch.uint8), 8, 96, 8, 1)
+    if devices[0] == devices[1]:
+        with pytest.raises(ValueError, match="one CUDA device"):
+            sgm_kernels.census_transform(b[..., 0].float(), (7, 9), 0.8)
     lab = a[..., 0]
     with pytest.raises(ValueError, match="one CUDA device"):
         components_kernels.propagate_labels(lab, b[..., 0].to(torch.uint8), b[..., 0].to(torch.uint8), 1)

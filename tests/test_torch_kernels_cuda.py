@@ -77,6 +77,69 @@ def test_census_cost_windowed_kernel_edges(dev, h, w, win, dw, ws):
     assert torch.equal(sk.census_cost_volume_windowed(cb, cm, ws, dw), census_cost_volume_windowed(cb, cm, ws, dw))
 
 
+def _census_input(kind, h, w, seed):
+    """rand: uniform grey levels; ties: integer levels (0-255 in steps of
+    51), a run of 255 and the rectifier's zero borders; ulps: neighbours a
+    few float32 ulps apart, where any other order of the blur's products
+    and sums flips census bits; specials: -0, +-inf, NaN of both signs and
+    subnormals among small integers."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "rand":
+        return torch.rand((h, w), generator=g) * 255
+    if kind == "ulps":
+        return 100.0 + torch.rand((h, w), generator=g) * 2e-4
+    if kind == "specials":
+        x = torch.randint(0, 4, (h, w), generator=g).float()
+        pick = torch.randint(0, 8, (h, w), generator=g)
+        for i, v in enumerate((-0.0, 0.0, float("inf"), -float("inf"), 1e-40, -1e-40, float("nan"), -float("nan"))):
+            x[(pick == i) & (torch.rand((h, w), generator=g) < 0.3)] = v
+        return x
+    x = torch.randint(0, 6, (h, w), generator=g).float() * 51
+    x[:, : w // 5] = 255.0
+    x[: h // 6] = 0.0
+    x[:, -3:] = 0.0
+    return x
+
+
+# (H, W, window, sigma, input): the main path's full-resolution (sigma 0.8)
+# and coarse (384x512, unsmoothed) images; AUTO (-1); sigma 1.7 (11 taps)
+# and 2.0 (13 taps), pairwise trees with a leftover; sigma 3.0 (radius 9,
+# past the unrolled radii); 1-3 and 8 words; odd shapes, W not a multiple
+# of 4 (no vector stores), images smaller than the window; special values.
+CENSUS_TRANSFORM_CASES = [
+    (1536, 2048, (7, 9), 0.8, "rand"), (1536, 2048, (7, 9), 0.8, "ulps"), (1536, 2048, (7, 9), -1.0, "ties"),
+    (384, 512, (7, 9), 0.0, "rand"), (384, 512, (7, 9), 0.0, "ties"), (200, 300, (7, 9), 1.7, "ulps"),
+    (200, 300, (7, 9), 2.0, "ulps"), (200, 300, (7, 9), 3.0, "ulps"), (37, 53, (5, 5), 0.8, "ulps"),
+    (37, 53, (9, 9), 0.8, "ties"), (37, 53, (9, 9), 0.0, "rand"), (37, 53, (5, 5), 1.7, "ties"),
+    (66, 67, (7, 9), -1.0, "ulps"), (97, 131, (15, 17), 0.8, "ulps"), (5, 4, (7, 9), 0.8, "rand"),
+    (3, 3, (9, 9), 0.0, "ties"), (37, 53, (7, 9), 0.0, "specials"), (64, 68, (7, 9), 0.8, "specials"),
+    (37, 53, (5, 5), 0.8, "specials"),
+]
+
+
+@pytest.mark.parametrize("h,w,win,sigma,kind", CENSUS_TRANSFORM_CASES)
+def test_census_transform_kernel(dev, h, w, win, sigma, kind):
+    img = _census_input(kind, h, w, h * w).to(dev)
+    assert torch.equal(sk.census_transform(img, win, sigma), census_transform(img, win, sigma))
+
+
+def test_census_transform_counts_and_checks(dev):
+    img = _census_input("rand", 40, 64, 1).to(dev)
+    wass_tpu_torch.reset_launch_counts()
+    sk.census_transform(img, (7, 9), 0.8)
+    sk.census_transform(img, (5, 5), 0.0)
+    counts = wass_tpu_torch.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "census": 2}
+    assert sk.census_transform(img[:0], (7, 9), 0.8).shape == (0, 64, 2)  # nothing to launch
+    assert wass_tpu_torch.launch_counts()["census"] == 2
+    taps = dict(sk._BLUR_TAPS)
+    sk.census_transform(img, (7, 9), -1.0)  # AUTO: the taps of 0.8 (radius 2), made once
+    assert sk._BLUR_TAPS.keys() == taps.keys() and (0.8, 2, img.device) in taps
+    for bad in ((img, (6, 9)), (img, (17, 17)), (img.double(), (7, 9)), (img.t(), (7, 9)), (img[None], (7, 9))):
+        with pytest.raises(ValueError):
+            sk.census_transform(*bad, 0.8)
+
+
 @pytest.mark.parametrize("h,w,d,min_disp", SHAPES)
 @pytest.mark.parametrize("directions,uniq", [(5, 1), (8, 1), (8, 5)])
 def test_sgm_wta_fused_kernel(dev, h, w, d, min_disp, directions, uniq):

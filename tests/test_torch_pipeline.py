@@ -80,7 +80,7 @@ def test_sequence_stereo_matches_jax(sequence, monkeypatch):
         renders = sorted(p.name for p in (seq_t / name).glob("*.jpg"))
         assert len(renders) == 6 and renders == sorted(p.name for p in (seq_j / name).glob("*.jpg"))
         log = (seq_t / name / "wass_stereo_log.txt").read_text()
-        assert ("kernel launches: census_cost=0 census_cost_windowed=0 label_propagate=0 sgm_aggregate=0 "
+        assert ("kernel launches: census=0 census_cost=0 census_cost_windowed=0 label_propagate=0 sgm_aggregate=0 "
                 "sgm_aggregate_windowed=0 sgm_pair_img=0 sgm_tri_dir_partial_h2=0 "
                 "sgm_tri_dir_partial_windowed_h2=0 sgm_tri_dir_wta_h2=0 sgm_tri_dir_wta_windowed_h2=0 "
                 "sgm_walk=0 sgm_wta_fused=0 sgm_wta_fused_windowed=0") in log

@@ -102,7 +102,7 @@ def test_progress_lines_in_order_and_windowed(serial):
     assert len(planes) == N_FRAMES and all(np.isfinite(p).all() for p in planes)
     for wd in sorted(seq.glob("*_wd")):
         log = (wd / "wass_stereo_log.txt").read_text()
-        assert "kernel launches: census_cost=0 " in log
+        assert "kernel launches: census=0 census_cost=0 " in log
         assert [ln.split("] ")[1].split()[-1] for ln in log.splitlines() if "c2f window coverage" in ln] == ["windowed"]
 
 

@@ -48,6 +48,7 @@ _PTR = _c.c_void_p
 _INT = _c.c_int
 # name -> argtypes of each C entry point (all return int: a cudaError_t).
 _SIGNATURES = {
+    "wass_census_transform": [_PTR] * 3 + [_INT] * 5 + [_PTR],
     "wass_census_cost": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _PTR],
     "wass_census_cost_windowed": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     "wass_sgm_wta_fused": [_PTR, _PTR, _PTR] + [_INT] * 8 + [_PTR],

@@ -39,7 +39,6 @@ from wass_tpu_torch.instrument import current, frame_scope, host_read, span
 from wass_tpu_torch.parallel.mesh import Slot, all_gather_host, local_frame_indices
 from wass_tpu_torch.stereo import sgm_kernels
 from wass_tpu_torch.stereo.c2f import TILE_ROWS, coarse_disparity, compute_row_windows, wta_disparity_windowed
-from wass_tpu_torch.stereo.cost import census_transform
 from wass_tpu_torch.stereo.dense import (
     DenseFrameResult,
     DenseStereoConfig,
@@ -79,8 +78,8 @@ def _frame_pipeline(bi, mi, gp, cfg: DenseStereoConfig, rectified: bool, uv=None
                 wstart, cov, offb = compute_row_windows(disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp,
                                                         cfg.c2f_window)
             with span("dense.census"):
-                cb = census_transform(br, cfg.census_win, cfg.input_smooth_sigma)
-                cm = census_transform(mr, cfg.census_win, cfg.input_smooth_sigma)
+                cb = sgm_kernels.census_transform(br, cfg.census_win, cfg.input_smooth_sigma)
+                cm = sgm_kernels.census_transform(mr, cfg.census_win, cfg.input_smooth_sigma)
             with span("dense.disparity"):
                 cost = sgm_kernels.census_cost_volume_windowed(cb, cm, wstart, cfg.c2f_window)
                 agg = sgm_kernels.sgm_aggregate_windowed(cost, wstart, cfg.p1, cfg.p2, cfg.directions)

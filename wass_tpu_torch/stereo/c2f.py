@@ -233,7 +233,7 @@ def sgm_disparity_c2f(
 ) -> torch.Tensor:
     """Coarse-to-fine disparity of a rectified pair, with no fallback
     (DenseStereoPipeline decides that): coarse pass, windows, fine pass."""
-    from wass_tpu_torch.stereo.cost import census_transform
+    from wass_tpu_torch.stereo import sgm_kernels
 
     H, W = base_img.shape
     if not c2f_supported(H, W, num_disp, win_disp, factor, directions):
@@ -242,6 +242,6 @@ def sgm_disparity_c2f(
     disp_c = coarse_disparity(base_img, match_img, num_disp, min_disp, P1, P2, directions, census_win,
                               uniqueness_ratio, factor)
     wstart, _cov, _offband = compute_row_windows(disp_c, factor, num_disp, min_disp, win_disp)
-    cb = census_transform(base_img, census_win, input_smooth_sigma)
-    cm = census_transform(match_img, census_win, input_smooth_sigma)
+    cb = sgm_kernels.census_transform(base_img, census_win, input_smooth_sigma)
+    cm = sgm_kernels.census_transform(match_img, census_win, input_smooth_sigma)
     return windowed_disparity(cb, cm, wstart, win_disp, P1, P2, directions, uniqueness_ratio)

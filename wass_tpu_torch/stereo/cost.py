@@ -3,10 +3,11 @@
 Counterpart of wass_tpu/stereo/cost.py.  Census words are int32 tensors
 holding the bits of the reference's uint32 words (torch has no uint32
 shift on the CPU and no popcount), and the popcount is a SWAR reduction
-in int64.  `census_cost_volume` and `census_cost_volume_windowed` here
-are the plain versions of kernels K1 and K2 (stereo/sgm_kernels.py,
-csrc/census_cost.cu); the main path calls the kernel wrappers, which use
-these functions for CPU tensors only.
+in int64.  `census_transform` here is the plain version of the census
+kernel (csrc/census.cu), and `census_cost_volume` and
+`census_cost_volume_windowed` those of kernels K1 and K2
+(csrc/census_cost.cu); the main path calls the kernel wrappers
+(stereo/sgm_kernels.py), which use these functions for CPU tensors only.
 
 Disparity convention (as the reference): base(y, x) matches
 match(y, x - d) for d in [min_disp, min_disp + num_disp).

@@ -35,8 +35,8 @@ from wass_tpu_torch.instrument import span
 from wass_tpu_torch.ops.components import biggest_component_mask, zgap_component_mask
 from wass_tpu_torch.ops.morphology import dilate_zero, erode_zero, median_filter, sobel
 from wass_tpu_torch.ops.sampling import resize, warp_homography
+from wass_tpu_torch.stereo import sgm_kernels
 from wass_tpu_torch.stereo.c2f import c2f_supported, coarse_disparity, compute_row_windows, windowed_disparity
-from wass_tpu_torch.stereo.cost import census_transform
 from wass_tpu_torch.stereo.plane import crop_plane, ransac_find_plane, refine_plane
 from wass_tpu_torch.stereo.sgm import sgm_disparity_census
 
@@ -495,8 +495,8 @@ class DenseStereoPipeline:
             base_rect = resize(base_rect, (sh, sw), interp="cubic")
             match_rect = resize(match_rect, (sh, sw), interp="cubic")
         with span("dense.census"):
-            cb = census_transform(base_rect, cfg.census_win, cfg.input_smooth_sigma)
-            cm = census_transform(match_rect, cfg.census_win, cfg.input_smooth_sigma)
+            cb = sgm_kernels.census_transform(base_rect, cfg.census_win, cfg.input_smooth_sigma)
+            cm = sgm_kernels.census_transform(match_rect, cfg.census_win, cfg.input_smooth_sigma)
         self.last_c2f = None
         use_c2f = _c2f_active(cfg, base_rect.shape)
         with span("dense.disparity"):

@@ -32,7 +32,7 @@ from typing import Tuple
 
 import torch
 
-from wass_tpu_torch.stereo.cost import TILE_ROWS, census_transform
+from wass_tpu_torch.stereo.cost import TILE_ROWS
 
 _BIG = 32000
 _REALIGN_FILL = 255  # carry of a lane that leaves the window (see above)
@@ -335,8 +335,10 @@ def sgm_disparity(
     SGM + WTA (K3 for the 5- and 8-path sets without the left-right
     check, else K5 and the plain WTA).  CUDA tensors run the kernels, CPU
     tensors their plain versions."""
-    cb = census_transform(base_img, census_win, input_smooth_sigma)
-    cm = census_transform(match_img, census_win, input_smooth_sigma)
+    from wass_tpu_torch.stereo import sgm_kernels
+
+    cb = sgm_kernels.census_transform(base_img, census_win, input_smooth_sigma)
+    cm = sgm_kernels.census_transform(match_img, census_win, input_smooth_sigma)
     return sgm_disparity_census(cb, cm, num_disp, min_disp, P1, P2, directions, uniqueness_ratio, lr_max_diff)
 
 

@@ -1,6 +1,10 @@
-"""Wrappers of the dense-stereo CUDA kernels K1-K6 and H2.
+"""Wrappers of the dense-stereo CUDA kernels: the census transform, K1-K6
+and H2.
 
-Counterpart of wass_tpu/stereo/sgm_pallas.py:
+`census_transform` (csrc/census.cu) replaces no Pallas kernel: it is the
+XLA fusion of wass_tpu/stereo/cost.py:census_transform and its pre-blur,
+one launch an image.  The others are the counterparts of
+wass_tpu/stereo/sgm_pallas.py:
 
   K1 `census_cost_volume`               <- census_cost_volume_pallas           (csrc/census_cost.cu)
   K2 `census_cost_volume_windowed`      <- census_cost_volume_pallas_windowed  (csrc/census_cost.cu)
@@ -43,6 +47,7 @@ from wass_tpu_torch.stereo import sgm as _sgm
 from wass_tpu_torch.stereo.sgm import TILE_ROWS, _check_p2, _tri
 
 LAUNCHES = LaunchCounts({
+    "census": 0,
     "census_cost": 0,
     "census_cost_windowed": 0,
     "sgm_wta_fused": 0,
@@ -65,6 +70,7 @@ __all__ = [
     "LAUNCHES",
     "census_cost_volume",
     "census_cost_volume_windowed",
+    "census_transform",
     "sgm_aggregate",
     "sgm_aggregate_windowed",
     "sgm_pair_img",
@@ -108,6 +114,48 @@ def _check_windows(wstart: torch.Tensor, H: int) -> None:
 
 def _lane_width_ok(lib, D: int) -> None:
     _require(lib.wass_sgm_lane_width(D) > 0, f"num_disp must be in [1, 1024], got {D}")
+
+
+# (sigma, radius, device) -> the pre-blur's taps on that card, made by the
+# plain version's own function, so the kernel multiplies by the same bits.
+_BLUR_TAPS: dict = {}
+
+
+def _blur_taps(sigma: float, radius: int, device) -> torch.Tensor:
+    key = (sigma, radius, device)
+    taps = _BLUR_TAPS.get(key)
+    if taps is None:
+        taps = _cost._gauss_kernel1d(sigma, radius, device)
+        # Written once on this thread's stream, then read from every
+        # stream (the writers' re-runs): let it land first.
+        torch.cuda.current_stream(device).synchronize()
+        _BLUR_TAPS[key] = taps
+    return taps
+
+
+def census_transform(img: torch.Tensor, win=(7, 9), smooth_sigma: float = 0.0) -> torch.Tensor:
+    """(H, W) float32 -> (H, W, nw) int32 census words, bit-equal to
+    cost.census_transform (a negative smooth_sigma is its AUTO sentinel,
+    a positive one its Gaussian pre-blur), in one launch."""
+    if not on_cuda(img):
+        return _cost.census_transform(img, win, smooth_sigma)
+    wy, wx = win
+    _require(wy % 2 == 1 and wx % 2 == 1, f"census window must be odd, got {win}")
+    nw = (wy * wx - 1 + 31) // 32
+    _require(1 <= nw <= 8, f"the census window must give 1 to 8 words, got {win}")
+    _require(img.dim() == 2 and img.dtype == torch.float32 and img.is_contiguous(),
+             f"the image must be contiguous (H, W) float32, got {img.dtype} {tuple(img.shape)}")
+    sigma = _cost.AUTO_SIGMA if smooth_sigma is not None and smooth_sigma < 0 else smooth_sigma
+    radius = max(1, int(3.0 * sigma + 0.5)) if sigma and sigma > 0 else 0  # cost.gauss_blur's
+    H, W = img.shape
+    out = torch.empty((H, W, nw), dtype=torch.int32, device=img.device)
+    if out.numel() == 0:
+        return out
+    taps = _blur_taps(float(sigma), radius, img.device) if radius else None
+    _build.launch("wass_census_transform", "census_transform kernel", img.device,
+                  img.data_ptr(), _ptr(taps), out.data_ptr(), H, W, radius, wy, wx)
+    LAUNCHES.add("census")
+    return out
 
 
 def census_cost_volume(
