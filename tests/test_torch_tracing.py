@@ -3,21 +3,26 @@ the CPU: the recorder's sums, self times and memory; stereo()'s
 loop_stats through the pipelined loop and the frame-sharded one (3 slots
 on the CPU), where every span key holds one entry a frame (a batch) and
 children fit in their parents; the dispatching thread's top-level spans
-covering the call; one counted host read a frame; and the profiler
-ranges: one record_function range a span, on the span's clock, while a
-profiler records, and none otherwise."""
+covering the call; one counted host read a frame; the writers' render
+phases (build, fetch, encode, write) and counters (render_bytes,
+render_images) inside writer.render, none with the renders off, and the
+benchmark's readers of them; and the profiler ranges: one
+record_function range a span, on the span's clock, while a profiler
+records, and none otherwise."""
 
 import dataclasses
 import io
 import shutil
 import threading
 import time
+import types
 from collections import Counter
 from pathlib import Path
 
 import pytest
 import torch
 
+from benchmark import spec as bench_spec
 from wass_tpu_torch import instrument
 from wass_tpu_torch.cli import pipeline as pipeline_mod
 from wass_tpu_torch.cli.main import load_pipeline
@@ -37,7 +42,13 @@ NESTING = [
     ("dense.frame", ("dense.census", "dense.disparity", "dense.post", "dense.plane")),
     ("dense.plane", ("plane.read",)),
     ("writer.finalize", ("writer.device_wait", "writer.fetch", "writer.write", "writer.render")),
+    ("writer.render", ("writer.render.build", "writer.render.fetch", "writer.render.encode", "writer.render.write")),
 ]
+RENDER_SPANS = NESTING[-1][1]
+# The benchmark's readers of the render spans and counters, and the key each
+# reads.
+RENDER_READERS = {"writers.render_build_ms": "writer.render.build", "writers.render_fetch_ms": "writer.render.fetch",
+                  "writers.render_encode_ms": "writer.render.encode", "writers.render_mb": "render_bytes"}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -139,6 +150,15 @@ def sharded(tmp_path_factory):
                                plane_max_distance=0.3)
     pipe = SequencePipeline(root, SequenceConfig(stereo=stereo, device="cpu", wire_delta=False))
     pipe._frame_mesh = lambda: tmesh.make_frame_mesh(devices=["cpu"] * 3)
+    pipe.stereo(progress_stream=io.StringIO())
+    return pipe
+
+
+@pytest.fixture(scope="module")
+def norender(seq):
+    """The pipelined loop with the renders off (debug_renders = False)."""
+    pipe = _pipelined(seq, "norender")
+    pipe.cfg.debug_renders = False
     pipe.stereo(progress_stream=io.StringIO())
     return pipe
 
@@ -314,3 +334,59 @@ def test_a_long_sequence_keeps_a_few_floats_a_frame():
     s = rec.stats()
     assert rec.records == [] and set(s) == set(names)
     assert all(len(v) == 27_000 for v in s.values())
+
+
+def test_render_phases_and_counters_every_frame(plain):
+    """Renders on: each frame has the four render phases and both
+    counters: six images, 20 bytes a pixel with the failure map."""
+    stats = plain[0].loop_stats
+    for key in (*RENDER_SPANS, "render_bytes", "render_images"):
+        assert len(stats[key]) == N_FRAMES and all(v > 0 for v in stats[key]), key
+    assert stats["render_images"] == [6.0] * N_FRAMES
+    assert stats["render_bytes"] == [20.0 * 192 * 256] * N_FRAMES
+
+
+def test_render_phases_cover_the_render_span(plain):
+    """The phases fit in writer.render frame by frame (NESTING) and cover at
+    least 90% of it over the call."""
+    stats = plain[0].loop_stats
+    phases = sum(sum(stats[k]) for k in RENDER_SPANS)
+    assert 0.9 * sum(stats["writer.render"]) <= phases <= sum(stats["writer.render"])
+
+
+@pytest.mark.parametrize("failmap", [True, False], ids=["with_failure_map", "without_failure_map"])
+def test_render_counters_count_the_fetched_images(tmp_path, failmap):
+    """render_bytes is the uint8 bytes fetched: 20 a pixel with the
+    failure map, 17 without; render_images the files written."""
+    h, w = 32, 48
+    g = torch.Generator().manual_seed(5)
+    codes = torch.randint(0, 8, (h, w), generator=g, dtype=torch.uint8)
+    res = types.SimpleNamespace(disparity=torch.rand(h, w, generator=g) * 40,
+                                valid=torch.rand(h, w, generator=g) > 0.5, fail_reasons=codes if failmap else None)
+    extras = {"imgs": tuple(torch.randint(0, 256, (h, w), generator=g, dtype=torch.uint8) for _ in range(2)),
+              "rect": tuple(torch.rand(h, w, generator=g) * 255 for _ in range(2))}
+    rec = Recorder()
+    with frame_scope({}, 0, rec):
+        SequencePipeline._write_renders(types.SimpleNamespace(path=tmp_path), types.SimpleNamespace(roi=(2, 3, 20, 9)),
+                                        res, extras)
+    s = rec.stats()
+    n = 6 if failmap else 5
+    assert s["render_images"] == [float(n)] and len(list(tmp_path.glob("*.jpg"))) == n
+    assert s["render_bytes"] == [(20.0 if failmap else 17.0) * h * w]
+    assert all(len(s[k]) == 1 for k in RENDER_SPANS)
+
+
+def test_renders_off_record_no_render_phase(plain, norender):
+    """Renders off: no render span or counter, and the benchmark's four
+    readers of them read nothing; renders on, they read the spans' means."""
+    off = norender.loop_stats
+    assert off["writer.finalize"] and off["render_s"] == []
+    assert not {"writer.render", *RENDER_SPANS, "render_bytes", "render_images"} & set(off)
+    on = plain[0].loop_stats
+    for name, key in RENDER_READERS.items():
+        read = bench_spec.metric_reader(name)
+        assert read(types.SimpleNamespace(loop_stats=off)) is None, name
+        scale = 1e-6 if key == "render_bytes" else 1e3
+        assert read(types.SimpleNamespace(loop_stats=on)) == pytest.approx(scale * sum(on[key]) / N_FRAMES), name
+    assert bench_spec.metric_reader("writers.render_mb")(types.SimpleNamespace(loop_stats=on)) == pytest.approx(
+        20 * 192 * 256 / 1e6)

@@ -56,7 +56,9 @@ loop.writer_wait (the oldest frame's writer), and loop.drain.  A writer's
 writer.finalize holds writer.device_wait (the first read that waits for
 the frame's device work), writer.rerun, writer.fetch (the export and its
 reads), writer.write (every file), writer.render and writer.flow; a
-prefetch thread's decode is prefetch.decode.
+prefetch thread's decode is prefetch.decode.  writer.render holds
+writer.render.build, .fetch, .encode and .write, and the counters
+render_bytes (the uint8 bytes fetched) and render_images (the files).
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ import torch
 from wass_tpu_torch.calib.autocalibrate import AutocalConfig, autocalibrate_sequence
 from wass_tpu_torch.core.geometry import rt_from_plane
 from wass_tpu_torch.device import resolve_device, to_device
-from wass_tpu_torch.instrument import Recorder, current, frame_scope, span
+from wass_tpu_torch.instrument import Recorder, count, current, frame_scope, span
+from wass_tpu_torch.io.image import encode_jpeg
 from wass_tpu_torch.io.ply import save_ply_points
 from wass_tpu_torch.io.png import read_gray
 from wass_tpu_torch.io.prefetch import Prefetcher
@@ -383,10 +386,23 @@ class SequencePipeline:
 
     @staticmethod
     def _write_renders(wd: Workdir, geom, res, extras: dict) -> None:
-        images = render.stereo_renders(res.disparity, res.valid, res.fail_reasons, extras["imgs"], extras["rect"],
-                                       geom.roi)
-        for name, img in images.items():
-            render.save(wd.path / name, img)
+        """The frame's debug renders, each phase over all of them in its own
+        span: the device build as enqueued, the copies to the host (each
+        waits for its image), the JPEG encodes and the file writes.  Counts
+        the uint8 bytes fetched (render_bytes) and the files written
+        (render_images)."""
+        with span("writer.render.build"):
+            images = render.stereo_renders(res.disparity, res.valid, res.fail_reasons, extras["imgs"],
+                                           extras["rect"], geom.roi)
+        with span("writer.render.fetch"):
+            host = {name: render.fetch(img) for name, img in images.items()}
+        count("render_bytes", sum(img.nbytes for img in host.values()))
+        with span("writer.render.encode"):
+            jpegs = {name: encode_jpeg(img) for name, img in host.items()}
+        with span("writer.render.write"):
+            for name, data in jpegs.items():
+                (wd.path / name).write_bytes(data)
+        count("render_images", len(jpegs))
 
     @staticmethod
     def _write_stereo_log(wd: Workdir, lines, whole) -> None:

@@ -11,8 +11,8 @@ failure map (:1114-1119, 1378-1383), the component map
 Each stereo render builds its uint8 (H, W) or (H, W, 3) image with torch
 ops on the device of its inputs, in float64 as the JAX package's numpy
 does, with the same clip and truncation to uint8, so the images equal the
-JAX package's bit for bit; save() fetches the uint8 image and encodes it
-on the host (JPEG, io/image.py).  render_matches rasterises its lines on
+JAX package's bit for bit; fetch() copies the uint8 image to the host and
+save() encodes it there (JPEG, io/image.py).  render_matches rasterises its lines on
 the host with numpy, as the JAX function does.  The flow renders
 (flow.png, flow_coarse.png; render_flow) are built on the host too, in
 float64 numpy, the JAX function's own code on the fetched flow field, and
@@ -171,11 +171,15 @@ def stereo_renders(disparity: torch.Tensor, valid: torch.Tensor, fail_reasons, i
     return images
 
 
+def fetch(img) -> np.ndarray:
+    """A render's uint8 image (tensor or array) on the host: a tensor's
+    copy waits for the device work that builds it."""
+    return img.cpu().numpy() if isinstance(img, torch.Tensor) else img
+
+
 def save(path, img) -> None:
     """Fetch a render's uint8 image (tensor or array) and write it as JPEG."""
-    if isinstance(img, torch.Tensor):
-        img = img.cpu().numpy()
-    Path(path).write_bytes(encode_jpeg(img))
+    Path(path).write_bytes(encode_jpeg(fetch(img)))
 
 
 def _flow_color_wheel() -> np.ndarray:
