@@ -31,7 +31,11 @@ Phases, each printed on its own line; any failure exits non-zero:
    on the same volumes and on the coarse pass's (384x512, D = 160, with
    K1 and K3 there too), with their times; and the four public SGM entry
    points with sgm_kernels._USE_H2 set, bit-equal to their default path
-   (5 and 8 paths), timed both ways at the slice's shapes.
+   (5 and 8 paths), timed both ways at the slice's shapes.  Then the JPEG
+   kernel (csrc/jpeg.cu) on one 5 MP frame's six debug renders in one
+   call, each file byte-equal to OpenCV's and the plain version's, its
+   device time beside its bound, and OpenCV's and the plain version's host
+   times for the same images.
 4. The main path: a synthetic 2048x1536 wave-field pair (rendered once and
    cached in wass_tpu_torch/_build/) written as 3 frame workdirs, then
    `python -m wass_tpu_torch.cli.main stereo <outdir>`'s entry point with
@@ -312,6 +316,8 @@ PEAK_INT_OPS_PER_S = 67e12  # H100 SXM, outside the tensor cores
 POPC_PER_CLOCK_PER_SM = 16  # __popc results a clock per SM on sm_90, a quarter of the XOR/IADD rate
 CENSUS_9X9 = (9, 9)  # a 3-word census (80 bits), checked beside the default 7x9 (2 words)
 SGM_OPS = 8  # integer operations per cost element and path (3 min, 3 add/sub, 2 compare)
+JPEG_DCT_OPS = 16 * 58  # integer operations of a block's islow DCT: 16 one-dimensional passes of 58
+JPEG_FRAME = (1920, 2560)  # phase 3's JPEG frame: the 5 MP design point
 LOOP_FRAMES = 10  # frames of the sequence-loop timing (phase 5)
 LOOP_SETTINGS = ((1, 1), (3, 2))  # (dispatch_depth, writer_threads) timed in phase 5
 PREP_FRAMES = 3  # raw frames of phase P
@@ -370,6 +376,9 @@ KERNELS = {
     # one Jacobi sweep of the inner lax.scan.
     "flow_linearize": ("wass_tpu_torch/csrc/flow.cu", "wass_tpu/stereo/flow.py:248"),
     "flow_jacobi": ("wass_tpu_torch/csrc/flow.cu", "wass_tpu/stereo/flow.py:261"),
+    # Not a Pallas kernel: the host JPEG encode of the debug renders
+    # (io/image.py:encode_jpeg), where the JAX package writes through imageio.
+    "jpeg": ("wass_tpu_torch/csrc/jpeg.cu", "wass_tpu/utils/render.py:21"),
 }
 # The default path's SGM keys, which no H2 frame may launch.
 DEFAULT_SGM = ("sgm_wta_fused", "sgm_wta_fused_windowed", "sgm_aggregate", "sgm_aggregate_windowed")
@@ -1088,6 +1097,53 @@ def check_render_files(wds, renders: dict, what: str) -> None:
     log(f"phase I {what}: {len(renders)} renders in each of {len(wds)} workdirs, each decoding to its shape")
 
 
+def check_jpeg(results: dict, img_pair, dev, card: str) -> None:
+    """Phase 3, the JPEG kernel: one 5 MP frame's six debug renders
+    (utils/render.py:stereo_renders at 2560x1920, from the slice pair
+    scaled up and a disparity ramp with an invalid band) encoded in one
+    call; each file must equal OpenCV's encoding of the image and the plain
+    version's.  The call's device time (CUDA events, its launches queued
+    behind a device sleep) beside its bound: the images' bytes read and the
+    streams' written at the memory rate, or the DCTs' integer operations
+    (JPEG_DCT_OPS a block) at the ALU rate, whichever is larger; and
+    OpenCV's and the plain version's host times for the same six images."""
+    import torch
+    import torch.nn.functional as F
+
+    from wass_tpu_torch.io import jpeg
+    from wass_tpu_torch.io.image import RENDER_QUALITY, encode_jpeg
+    from wass_tpu_torch.stereo.dense import FAIL_NO_DISPARITY
+    from wass_tpu_torch.utils import render
+
+    h, w = JPEG_FRAME
+    rect = [F.interpolate(torch.as_tensor(x, dtype=torch.float32)[None, None].to(dev), size=(h, w), mode="bilinear",
+                          align_corners=False)[0, 0] for x in img_pair]
+    imgs = tuple(torch.clamp(x, 0, 255).to(torch.uint8) for x in rect)
+    disp = (100.0 + torch.arange(w, dtype=torch.float32, device=dev) / 40.0).expand(h, w).clone()
+    disp[:, :w // 10] = float("nan")
+    valid = torch.isfinite(disp)
+    fails = torch.where(valid, 0, FAIL_NO_DISPARITY).to(torch.uint8)
+    images = render.stereo_renders(disp, valid, fails, imgs, rect, (w // 10, 0, w - w // 10, h))
+    tensors = list(images.values())
+    host = [t.cpu().numpy() for t in tensors]
+    cv_ms, want = host_ms(lambda: [encode_jpeg(x, RENDER_QUALITY) for x in host], 1)
+    plain_ms, plain = host_ms(lambda: [jpeg.encode_plain(x, RENDER_QUALITY) for x in host], 1)
+    enc = jpeg.device_encoder({}, tensors, RENDER_QUALITY)
+    got = enc.fetch(enc.run(tensors))
+    differ = [name for name, a, b, c in zip(images, got, want, plain) if not a == b == c]
+    if differ:
+        raise AssertionError(f"phase 3: the JPEG kernel's files differ from OpenCV's or the plain version's: {differ}")
+    k_ms = queued_ms(lambda: enc.launch(tensors))
+    blocks = jpeg.layout(enc.shapes)[1]
+    stream_bytes = sum(len(f) - len(hdr) - 2 for f, hdr in zip(got, enc.headers))
+    b_ms, b_by = bound(sum(t.numel() for t in tensors) + stream_bytes, JPEG_DCT_OPS * blocks)
+    results["jpeg"].update(ms=k_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"kernel jpeg {len(tensors)} renders of a {h}x{w} frame ({', '.join(str(tuple(t.shape)) for t in tensors)}; "
+        f"{blocks} blocks, {stream_bytes} stream bytes): byte-equal to OpenCV and the plain version")
+    log(f"time jpeg {h}x{w} frame: kernel {k_ms:.4f} ms ({jpeg.KERNELS_A_CALL} launches), bound {b_ms:.4f} ms "
+        f"({b_by}), {100 * b_ms / k_ms:.1f}% of it; OpenCV {cv_ms:.1f} ms, plain {plain_ms:.1f} ms on the host; {card}")
+
+
 def check_frame0_renders(kept: dict, wd: Path, card: str) -> None:
     """Phase I: frame 0's render images on the card bit-equal to the same
     functions on the CPU over the same fetched tensors; the files the loop
@@ -1107,11 +1163,13 @@ def check_frame0_renders(kept: dict, wd: Path, card: str) -> None:
     differ = [name for name, img in kept["card"].items() if not torch.equal(img, cpu[name])]
     if differ or sorted(cpu) != sorted(STEREO_RENDERS):
         raise AssertionError(f"phase I: frame 0's renders differ between the card and the CPU: {differ}")
-    same_file = [name for name, img in kept["card"].items()
-                 if (wd / name).read_bytes() == encode_jpeg(img.numpy())]
+    other_file = [name for name, img in kept["card"].items()
+                  if (wd / name).read_bytes() != encode_jpeg(img.numpy())]
+    if other_file:
+        raise AssertionError(f"phase I: frame 0's JPEG files differ from OpenCV's encoding of its images: {other_file}")
     log(f"phase I renders: frame 0's {len(cpu)} images bit-equal card / CPU ({cpu_s:.2f} s on the CPU; "
-        f"{', '.join(f'{n} {tuple(i.shape)}' for n, i in kept['card'].items())}); {len(same_file)} of the loop's "
-        "files equal to the card's images encoded again")
+        f"{', '.join(f'{n} {tuple(i.shape)}' for n, i in kept['card'].items())}); the loop's {len(cpu)} files "
+        "(encoded on the card) equal to OpenCV's encoding of the card's images")
     disparity, valid, fails, imgs, rect, roi = kept["inputs"]
     dev = torch.device("cuda")
     inputs = (disparity.to(dev), valid.to(dev), fails.to(dev), [t.to(dev) for t in imgs], [t.to(dev) for t in rect],
@@ -3485,6 +3543,7 @@ def main() -> int:
         rectify_on_device(torch.as_tensor(m_img, device=dev), geom.H_match, (H, W)).cpu(),
     )
     results = check_kernels(rect, dev)
+    check_jpeg(results, rect, dev, smi)
 
     # Phase 4: the main path; 4b: the other branches; 4c: the H2 frames.
     seq = _build.BUILD_DIR / "smoke_seq"

@@ -1,15 +1,23 @@
-"""The CUDA kernels against their plain versions on the card.
+"""The CUDA kernels against their plain versions on the card (the JPEG
+kernel also against OpenCV's encoder).
 
 Marked `cuda`: they need an NVIDIA GPU and nvcc and skip without them.
 Run them on the GPU machine, which has no jax for the shared conftest, with
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels_cuda.py -q
 (chip_smoke.py checks the same kernels at the full 3 MP shapes)."""
 
+import io
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 import wass_tpu_torch
+from wass_tpu_torch.cli.main import load_pipeline
+from wass_tpu_torch.cli.pipeline import SequencePipeline
+from wass_tpu_torch.io import jpeg
+from wass_tpu_torch.io.image import encode_jpeg
 from wass_tpu_torch.match import iidyn as im
 from wass_tpu_torch.ops import components_kernels as ck
 from wass_tpu_torch.post import geometry as pg
@@ -20,6 +28,11 @@ from wass_tpu_torch.stereo import sgm_kernels as sk
 from wass_tpu_torch.stereo import sgm as plain_sgm
 from wass_tpu_torch.stereo.cost import census_cost_volume, census_cost_volume_windowed, census_transform
 from wass_tpu_torch.stereo.sgm import sgm_wta_fused_plain
+from wass_tpu_torch.testing import write_pairs
+from wass_tpu_torch.testing.synthetic import make_rig, make_scene
+from wass_tpu_torch.utils import render
+
+from torch_jpeg_cases import CASES, FRAME_SHAPES, case_id, case_image, image
 
 pytestmark = pytest.mark.cuda
 
@@ -723,3 +736,120 @@ def test_flow_jacobi_refuses_aliased_output(dev):
     It, Ix, Iy, wdata = fk.flow_linearize(*args)
     with pytest.raises(ValueError):
         fk.flow_jacobi(u0, v0, u0, v0, It, Ix, Iy, wdata, 3.0, out=(u0, torch.empty_like(u0)))
+
+
+@pytest.mark.parametrize("case", CASES, ids=[case_id(c) for c in CASES])
+def test_jpeg_kernel(dev, case):
+    """The kernel's file equals the plain version's and OpenCV's."""
+    img, quality = case_image(case)
+    want = encode_jpeg(img, quality)
+    assert jpeg.encode_plain(img, quality) == want
+    assert jpeg.encode([torch.from_numpy(img).to(dev)], quality) == [want]
+
+
+@pytest.mark.parametrize("shape", FRAME_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", ["smooth", "noise"])
+def test_jpeg_kernel_frame_shapes(dev, shape, kind):
+    """A 5 MP frame's render shapes, smooth and noise (the longest streams)."""
+    img = image(kind, shape, sum(shape))
+    want = encode_jpeg(img, 75)
+    assert jpeg.encode_plain(img, 75) == want
+    assert jpeg.encode([torch.from_numpy(img).to(dev)], 75) == [want]
+
+
+@pytest.mark.parametrize("shape", [(48, 64, 3), (40, 48)], ids=["rgb", "grey"])
+def test_jpeg_kernel_unaligned_rows(dev, shape):
+    """An image one byte into its buffer (rows on no alignment) encodes to
+    OpenCV's file."""
+    img = image("noise", shape, 7)
+    t = torch.empty(img.size + 1, dtype=torch.uint8, device=dev)[1:].view(shape)
+    t.copy_(torch.from_numpy(img))
+    assert t.is_contiguous() and t.data_ptr() % 8 != 0
+    assert jpeg.encode([t], 75) == [encode_jpeg(img, 75)]
+
+
+def test_jpeg_kernel_eight_images_a_call(dev):
+    """Eight images of mixed shapes and kinds in one call, each file
+    OpenCV's; an encoder's buffers serve call after call."""
+    imgs = [case_image(c)[0] for c in CASES if c[2] == 90][::10][:8]
+    assert len(imgs) == jpeg.MAX_IMAGES and {i.ndim for i in imgs} == {2, 3}
+    tensors = [torch.from_numpy(i).to(dev) for i in imgs]
+    want = [encode_jpeg(i, 90) for i in imgs]
+    cache = {}
+    enc = jpeg.device_encoder(cache, tensors, 90)
+    for _ in range(3):
+        assert enc.fetch(enc.run(tensors)) == want
+    assert jpeg.device_encoder(cache, tensors, 90) is enc and len(cache) == 1
+
+
+def test_jpeg_wrapper_dispatch_counts_and_checks(dev):
+    img = torch.from_numpy(image("smooth", (37, 61, 3), 4))
+    wass_tpu_torch.reset_launch_counts()
+    assert jpeg.encode([img], 75) == [encode_jpeg(img.numpy(), 75)]
+    assert wass_tpu_torch.launch_counts()["jpeg"] == 0
+    assert jpeg.encode([img.to(dev)], 75) == [encode_jpeg(img.numpy(), 75)]
+    counts = wass_tpu_torch.launch_counts()
+    assert counts == {**{k: 0 for k in counts}, "jpeg": jpeg.KERNELS_A_CALL}
+    with pytest.raises(ValueError, match="1-8 images"):
+        jpeg.encode([img.to(dev)] * (jpeg.MAX_IMAGES + 1), 75)
+    with pytest.raises(ValueError):
+        jpeg.encode([img.to(dev), img], 75)  # mixed devices
+    with pytest.raises(ValueError, match="uint8"):
+        jpeg.encode([img.to(dev, torch.float32)], 75)
+    with pytest.raises(ValueError, match="contiguous"):
+        jpeg.encode([img.to(dev)[:, ::2]], 75)
+    with pytest.raises(ValueError, match="RGB"):
+        jpeg.encode([torch.zeros((8, 8, 4), dtype=torch.uint8, device=dev)], 75)
+    assert wass_tpu_torch.launch_counts()["jpeg"] == jpeg.KERNELS_A_CALL
+
+
+def test_loop_jpegs_on_the_card_equal_the_cpu_loop(dev, tmp_path, monkeypatch):
+    """Two 256x192 frames through the CLI's loop (renders on, two writers)
+    on the card and on the CPU.  The card encodes each frame's six renders
+    (render_device_images 6, four launches a frame, render_bytes the JPEG
+    streams) and every file is OpenCV's encoding of the image its writer
+    built.  Where the two loops build the same image (the stacked input
+    pair always; a render of the disparity only where the card's float
+    disparity equals the CPU's to the bit), the files are the same bytes."""
+    W, H = 256, 192
+    rig = make_rig(width=W, height=H)
+    scenes = [make_scene(seed=3, width=W, height=H, wave_amplitude=0.25, rig=rig, time=k / 15.0) for k in range(2)]
+    pairs = [tuple(np.clip(img, 0, 255).astype(np.uint8) for img in (s.img0, s.img1)) for s in scenes]
+    local, kept, run = threading.local(), {}, {}
+    write, build = SequencePipeline._write_renders, render.stereo_renders
+
+    def write_kept(wd, geom, res, extras):
+        local.name = wd.path.name
+        return write(wd, geom, res, extras)
+
+    def build_kept(*args, **kwargs):
+        images = build(*args, **kwargs)
+        kept[run["device"], local.name] = {name: render.fetch(img).copy() for name, img in images.items()}
+        return images
+
+    monkeypatch.setattr(SequencePipeline, "_write_renders", staticmethod(write_kept))
+    monkeypatch.setattr(render, "stereo_renders", build_kept)
+    files, stats = {}, {}
+    for device in ("cuda", "cpu"):
+        run["device"] = device
+        seq = tmp_path / device
+        wds = write_pairs(seq, pairs, rig)
+        (seq / "stereo_config.txt").write_text("MAX_DISPARITY=160\n")
+        wass_tpu_torch.reset_launch_counts()
+        pipe = load_pipeline(seq, device)
+        assert pipe.cfg.debug_renders and pipe.cfg.writer_threads == 2
+        pipe.stereo(progress_stream=io.StringIO())
+        stats[device] = pipe.loop_stats
+        assert wass_tpu_torch.launch_counts()["jpeg"] == (2 * jpeg.KERNELS_A_CALL if device == "cuda" else 0)
+        files[device] = {(wd.name, p.name): p.read_bytes() for wd in wds for p in sorted(wd.glob("*.jpg"))}
+        assert len(files[device]) == 12
+        for (name, fname), data in files[device].items():
+            assert data == encode_jpeg(kept[device, name][fname]), (device, name, fname)
+    same = [key for key in files["cuda"] if np.array_equal(kept[("cuda", key[0])][key[1]], kept[("cpu", key[0])][key[1]])]
+    assert {("000000_wd", "stereo_input.jpg"), ("000001_wd", "stereo_input.jpg")} <= set(same)
+    assert all(files["cuda"][key] == files["cpu"][key] for key in same)
+    assert stats["cuda"]["render_device_images"] == [6.0, 6.0] and stats["cpu"]["render_device_images"] == [0.0, 0.0]
+    streams = [sum(len(data) - len(jpeg.header(*jpeg._shape(kept[("cuda", n)][f].shape), 75)) - len(jpeg.EOI)
+                   for (n, f), data in files["cuda"].items() if n == wd) for wd in ("000000_wd", "000001_wd")]
+    assert stats["cuda"]["render_bytes"] == [float(b) for b in streams]
+    assert stats["cpu"]["render_bytes"] == [20.0 * W * H] * 2

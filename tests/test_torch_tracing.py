@@ -5,7 +5,8 @@ on the CPU), where every span key holds one entry a frame (a batch) and
 children fit in their parents; the dispatching thread's top-level spans
 covering the call; one counted host read a frame; the writers' render
 phases (build, fetch, encode, write) and counters (render_bytes,
-render_images) inside writer.render, none with the renders off, and the
+render_device_images, render_images) inside writer.render, none with the
+renders off, and the
 benchmark's readers of them; and the profiler ranges: one
 record_function range a span, on the span's clock, while a profiler
 records, and none otherwise."""
@@ -337,13 +338,15 @@ def test_a_long_sequence_keeps_a_few_floats_a_frame():
 
 
 def test_render_phases_and_counters_every_frame(plain):
-    """Renders on: each frame has the four render phases and both
-    counters: six images, 20 bytes a pixel with the failure map."""
+    """Renders on: each frame has the four render phases and the
+    counters: six images, 20 bytes a pixel with the failure map, none
+    encoded on a card."""
     stats = plain[0].loop_stats
     for key in (*RENDER_SPANS, "render_bytes", "render_images"):
         assert len(stats[key]) == N_FRAMES and all(v > 0 for v in stats[key]), key
     assert stats["render_images"] == [6.0] * N_FRAMES
     assert stats["render_bytes"] == [20.0 * 192 * 256] * N_FRAMES
+    assert stats["render_device_images"] == [0.0] * N_FRAMES
 
 
 def test_render_phases_cover_the_render_span(plain):
@@ -357,7 +360,8 @@ def test_render_phases_cover_the_render_span(plain):
 @pytest.mark.parametrize("failmap", [True, False], ids=["with_failure_map", "without_failure_map"])
 def test_render_counters_count_the_fetched_images(tmp_path, failmap):
     """render_bytes is the uint8 bytes fetched: 20 a pixel with the
-    failure map, 17 without; render_images the files written."""
+    failure map, 17 without; render_images the files written; no image
+    encoded on a card."""
     h, w = 32, 48
     g = torch.Generator().manual_seed(5)
     codes = torch.randint(0, 8, (h, w), generator=g, dtype=torch.uint8)
@@ -373,6 +377,7 @@ def test_render_counters_count_the_fetched_images(tmp_path, failmap):
     n = 6 if failmap else 5
     assert s["render_images"] == [float(n)] and len(list(tmp_path.glob("*.jpg"))) == n
     assert s["render_bytes"] == [(20.0 if failmap else 17.0) * h * w]
+    assert s["render_device_images"] == [0.0]
     assert all(len(s[k]) == 1 for k in RENDER_SPANS)
 
 
@@ -381,7 +386,7 @@ def test_renders_off_record_no_render_phase(plain, norender):
     readers of them read nothing; renders on, they read the spans' means."""
     off = norender.loop_stats
     assert off["writer.finalize"] and off["render_s"] == []
-    assert not {"writer.render", *RENDER_SPANS, "render_bytes", "render_images"} & set(off)
+    assert not {"writer.render", *RENDER_SPANS, "render_bytes", "render_device_images", "render_images"} & set(off)
     on = plain[0].loop_stats
     for name, key in RENDER_READERS.items():
         read = bench_spec.metric_reader(name)

@@ -55,21 +55,23 @@ __version__ = "0.1.0"
 
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name."""
+    from wass_tpu_torch.io import jpeg
     from wass_tpu_torch.match import iidyn
     from wass_tpu_torch.ops import components_kernels
     from wass_tpu_torch.post import visibility_kernels
     from wass_tpu_torch.stereo import flow_kernels, sgm_kernels
 
     return {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES, **iidyn.LAUNCHES, **visibility_kernels.LAUNCHES,
-            **flow_kernels.LAUNCHES}
+            **flow_kernels.LAUNCHES, **jpeg.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
+    from wass_tpu_torch.io import jpeg
     from wass_tpu_torch.match import iidyn
     from wass_tpu_torch.ops import components_kernels
     from wass_tpu_torch.post import visibility_kernels
     from wass_tpu_torch.stereo import flow_kernels, sgm_kernels
 
     for counts in (sgm_kernels.LAUNCHES, components_kernels.LAUNCHES, iidyn.LAUNCHES, visibility_kernels.LAUNCHES,
-                   flow_kernels.LAUNCHES):
+                   flow_kernels.LAUNCHES, jpeg.LAUNCHES):
         counts.reset()

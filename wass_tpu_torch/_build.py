@@ -64,6 +64,7 @@ _SIGNATURES = {
     "wass_visibility_march": [_PTR] * 5 + [_INT] * 4 + [_PTR],
     "wass_flow_linearize": [_PTR] * 10 + [_INT] * 2 + [_PTR],
     "wass_flow_jacobi": [_PTR] * 10 + [_INT] * 2 + [_c.c_float, _PTR],
+    "wass_jpeg_encode": [_PTR, _INT, _PTR, _INT] + [_PTR] * 9 + [_c.c_longlong, _PTR],
 }
 
 

@@ -77,9 +77,10 @@ import torch
 
 from wass_tpu_torch.calib.autocalibrate import AutocalConfig, autocalibrate_sequence
 from wass_tpu_torch.core.geometry import rt_from_plane
-from wass_tpu_torch.device import resolve_device, to_device
+from wass_tpu_torch.device import on_cuda, resolve_device, to_device
 from wass_tpu_torch.instrument import Recorder, count, current, frame_scope, span
-from wass_tpu_torch.io.image import encode_jpeg
+from wass_tpu_torch.io import jpeg
+from wass_tpu_torch.io.image import RENDER_QUALITY, encode_jpeg
 from wass_tpu_torch.io.ply import save_ply_points
 from wass_tpu_torch.io.png import read_gray
 from wass_tpu_torch.io.prefetch import Prefetcher
@@ -387,18 +388,33 @@ class SequencePipeline:
     @staticmethod
     def _write_renders(wd: Workdir, geom, res, extras: dict) -> None:
         """The frame's debug renders, each phase over all of them in its own
-        span: the device build as enqueued, the copies to the host (each
-        waits for its image), the JPEG encodes and the file writes.  Counts
-        the uint8 bytes fetched (render_bytes) and the files written
-        (render_images)."""
+        span.  Built on the frame's device; on a card the JPEG kernel
+        (io/jpeg.py) encodes them there and only the JPEG streams come back
+        (build, encode: the launches and the wait for the byte counts,
+        fetch, write); on the CPU each uint8 image is fetched and OpenCV
+        encodes it (build, fetch, encode, write).  Counts the bytes copied
+        from the device (render_bytes: the streams on a card, the images on
+        the CPU), the images encoded on the card (render_device_images) and
+        the files written (render_images)."""
         with span("writer.render.build"):
             images = render.stereo_renders(res.disparity, res.valid, res.fail_reasons, extras["imgs"],
                                            extras["rect"], geom.roi)
-        with span("writer.render.fetch"):
-            host = {name: render.fetch(img) for name, img in images.items()}
-        count("render_bytes", sum(img.nbytes for img in host.values()))
-        with span("writer.render.encode"):
-            jpegs = {name: encode_jpeg(img) for name, img in host.items()}
+        tensors = list(images.values())
+        if on_cuda(*tensors):
+            with span("writer.render.encode"):
+                encoder = jpeg.device_encoder(extras.get("jpeg_encoders", {}), tensors, RENDER_QUALITY)
+                sizes = encoder.run(tensors)
+            with span("writer.render.fetch"):
+                jpegs = dict(zip(images, encoder.fetch(sizes)))
+            count("render_bytes", sum(sizes))
+            count("render_device_images", len(jpegs))
+        else:
+            with span("writer.render.fetch"):
+                host = {name: render.fetch(img) for name, img in images.items()}
+            count("render_bytes", sum(img.nbytes for img in host.values()))
+            with span("writer.render.encode"):
+                jpegs = {name: encode_jpeg(img) for name, img in host.items()}
+            count("render_device_images", 0)
         with span("writer.render.write"):
             for name, data in jpegs.items():
                 (wd.path / name).write_bytes(data)
@@ -504,7 +520,7 @@ class SequencePipeline:
     def _writer_finalizer(self, on_card: bool):
         """The writers' finalize: on a card each writer thread reads its
         frames on a CUDA stream of its own for each device, after the
-        frame's `ready` event."""
+        frame's `ready` event, and keeps its JPEG encoders."""
         writer_local = threading.local()
 
         def finalize(wd, geom, res, K0, K1, extras):
@@ -523,6 +539,8 @@ class SequencePipeline:
                     for t in (*res, *extras["rect"], *extras["imgs"], c2f.get("coverage"), c2f.get("offband")):
                         if isinstance(t, torch.Tensor):
                             t.record_stream(stream)
+                # The thread's JPEG encoders, whose buffers its frames reuse.
+                extras["jpeg_encoders"] = writer_local.__dict__.setdefault("jpeg_encoders", {})
                 with torch.cuda.stream(stream):
                     return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras, whole)
 
