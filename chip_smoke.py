@@ -242,30 +242,29 @@ I. Image IO and the renders.  Phase 4's frames must carry the six stereo
    Stokes images), then `polarimetric_setup` over phase G's cube, the
    finite share of its averages printed (no physics gate).
 D. The frame-sharded path (phase D, after phase I).  (a) One process in
-   an NCCL group of world size 1, a frame mesh of 2 slots on cuda:0:
-   `SequencePipeline.stereo` through the sharded loop over phase 5's ten
-   frames with the defaults and the renders (two passes, frames/s; two
-   slots on one card are a record of overlap on one device, not a scaling
-   number).  Every frame must launch K1, K3 (the coarse pass), K2, K6 and
-   K7, not K4, take the windowed branch, pass the elevation gate, and
-   its mesh_cam.xyzC and plane.txt, and output/planes.txt, must be
-   byte-equal to phase 5's pipelined frames.  A 2-frame batch with
-   _select_fallback forced to slot 1: that frame re-runs at full range
-   (K7 twice), byte-equal to phase 4b's c2f_window = 0 frame,
-   n_fallback_reruns printed.  lm_refine_two_view_sharded over the 2
-   slots on phase M's pooled matches against the unsharded BA (float32:
-   R and T's direction within 5e-5, |T| printed; float64: 1e-10).  K6
-   timed on frame 0's windowed volume.  (b) Two processes on the card
+   an NCCL group of world size 1, a frame mesh of 2 slots on cuda:0, each
+   slot dispatching its frames (frame i on slot i % 2) from a thread of
+   its own: `SequencePipeline.stereo` over phase 5's ten frames with the
+   defaults and the renders (two passes, frames/s beside phase 5's (3, 2)
+   renders-on rate; two slots on one card are a record of overlap on one
+   device, not a scaling number).  Every frame must launch what a
+   one-slot c2f frame launches (WINDOWED_PATH), take the windowed branch,
+   pass the elevation gate; its mesh_cam.xyzC and plane.txt, and
+   output/planes.txt, must be byte-equal to phase 5's frames, and its
+   wass_stereo_log.txt equal to phase 5's but for the wall time line.  A
+   2-frame sequence on the 2 slots with frame 1's c2f fallback forced in
+   the writers (c2f_should_fallback patched as cli/pipeline.py and
+   stereo/dense.py see it): that frame re-runs at full range (K7 twice),
+   byte-equal to phase 4b's c2f_window = 0 frame, and frame 0 to phase
+   5's.  lm_refine_two_view_sharded over the 2 slots on phase M's pooled
+   matches against the unsharded BA (float32: R and T's direction within
+   5e-5, |T| printed; float64: 1e-10).  (b) Two processes on the card
    (this script with --sharded-rank, a localhost TCP store, gloo: NCCL
    refuses two ranks on one device), one slot each: the same ten frames
    through stereo(), each rank writing its own frames and rank 0
    planes.txt, all byte-equal to (a)'s; then the BA across the two ranks
-   against (a)'s.  (c) The wire probe (card-to-host MB/s, host decode ns
-   a point) and its AUTO decision; phase 5's frame 0 with
-   wire_delta=True, its .xyzC byte-equal to the direct one; n_exc and the
-   host ms of the delta and direct fetches.  (d) With more than one card,
-   a frame on the last card bit-equal to cuda:0's (one card: a line says
-   the check needs two).
+   against (a)'s.  (c) With more than one card, a frame on the last card
+   bit-equal to cuda:0's (one card: a line says the check needs two).
 6. A JSON line of per-kernel results (times, launches, and the bound: the
    larger of the bytes the function must move, each input read once and
    each output written once, at 3.35 TB/s, and its integer operations at
@@ -3073,9 +3072,6 @@ def run_h5_phase(root: Path, card: str, dev="cuda") -> dict:
 SHARDED_SLOTS = 2  # phase D (a): frame slots on cuda:0 in one process; (b): two ranks, one slot each
 SHARDED_DEVICE = "cuda:0"  # the card of phase D's slots
 ONE_PROCESS_BACKEND = "nccl"  # phase D (a)'s process group of world size 1
-# Kernels each sharded c2f frame must launch: the coarse pass (K1 + K3), K2,
-# K6 and K7; the pipelined loop's K4 must not run.
-SHARDED_PATH = ("census_cost", "sgm_wta_fused", "census_cost_windowed", "sgm_aggregate_windowed", "label_propagate")
 RANKS_TIMEOUT = 300  # seconds for the two ranks of phase D (b)
 # The sharded BA against the unsharded one, the limits of
 # tests/test_torch_parallel.py: float32 R and T's direction (the pose
@@ -3099,6 +3095,14 @@ def seq_files(seq: Path) -> dict:
              for f in ("mesh_cam.xyzC", "plane.txt")}
     files["output/planes.txt"] = (seq / "output" / "planes.txt").read_bytes()
     return files
+
+
+def seq_logs(seq: Path) -> dict:
+    """Each frame's wass_stereo_log.txt without its finalize wall time line,
+    by path under seq."""
+    return {f"{wd.name}/wass_stereo_log.txt": [ln for ln in (wd / "wass_stereo_log.txt").read_text().splitlines()
+                                               if "finalize wall time" not in ln]
+            for wd in sorted(seq.glob("*_wd"))}
 
 
 def same_files(a: dict, b: dict, what: str) -> None:
@@ -3160,44 +3164,22 @@ def ba_agrees(a, b, what: str, dtype: str = "float32") -> str:
             f"{tol_t:g}; {bits})")
 
 
-def sharded_k6_ms(img0, img1, rig, cfg, dev) -> tuple:
-    """K6 on frame 0's windowed cost volume as a sharded frame builds it
-    (CUDA events, 5 calls): (ms, the volume's shape)."""
-    import numpy as np
-    import torch
-
-    from wass_tpu_torch.stereo import dense
-    from wass_tpu_torch.stereo import sgm_kernels as sk
-    from wass_tpu_torch.stereo.c2f import coarse_disparity, compute_row_windows
-
-    H, W = img0.shape
-    geom = dense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
-    b8, m8 = (np.clip(np.asarray(x), 0, 255).astype(np.uint8) for x in
-              ((img0, img1) if geom.base_is_cam0 else (img1, img0)))
-    br = dense.rectify_on_device(torch.as_tensor(b8).to(dev).float(), geom.H_base, (H, W))
-    mr = dense.rectify_on_device(torch.as_tensor(m8).to(dev).float(), geom.H_match, (H, W))
-    disp_c = coarse_disparity(br, mr, cfg.num_disp, cfg.min_disp, cfg.p1, cfg.p2, cfg.directions, cfg.census_win,
-                              cfg.uniqueness_ratio, cfg.c2f_factor)
-    ws, _, _ = compute_row_windows(disp_c, cfg.c2f_factor, cfg.num_disp, cfg.min_disp, cfg.c2f_window)
-    cost = sk.census_cost_volume_windowed(sk.census_transform(br, cfg.census_win, cfg.input_smooth_sigma),
-                                          sk.census_transform(mr, cfg.census_win, cfg.input_smooth_sigma), ws,
-                                          cfg.c2f_window)
-    return cuda_ms(lambda: sk.sgm_aggregate_windowed(cost, ws, cfg.p1, cfg.p2, cfg.directions), reps=5), \
-        tuple(cost.shape)
-
-
-def run_sharded_one_process(root: Path, scene, dev, card: str) -> dict:
+def run_sharded_one_process(root: Path, scene, dev, card: str, loop_rates: dict) -> tuple:
     """Phase D (a): one process in an NCCL group of world size 1, a frame
-    mesh of SHARDED_SLOTS slots on cuda:0.  Returns the launches."""
+    mesh of SHARDED_SLOTS slots on cuda:0.  Returns (the launches, the
+    float32 sharded BA's R and T)."""
     import numpy as np
     import torch.distributed as dist
 
     import wass_tpu_torch
+    from wass_tpu_torch import instrument
     from wass_tpu_torch.calib.ba import lm_refine_two_view
+    from wass_tpu_torch.cli import pipeline as pipeline_mod
     from wass_tpu_torch.cli.main import load_pipeline
     from wass_tpu_torch.parallel import runner as prun
     from wass_tpu_torch.parallel.distba import lm_refine_two_view_sharded
     from wass_tpu_torch.parallel.mesh import make_frame_mesh
+    from wass_tpu_torch.stereo import dense
     from wass_tpu_torch.testing import write_sequence
 
     rig = scene.rig
@@ -3208,7 +3190,6 @@ def run_sharded_one_process(root: Path, scene, dev, card: str) -> dict:
         write_sequence(seq, scene.img0, scene.img1, rig, LOOP_FRAMES)
         pipe = load_pipeline(seq)
         pipe._frame_mesh = lambda: make_frame_mesh(devices=[SHARDED_DEVICE] * SHARDED_SLOTS)
-        pipe.cfg.wire_delta = False
         rates = []
         for rep in range(2):
             wass_tpu_torch.reset_launch_counts()
@@ -3217,33 +3198,40 @@ def run_sharded_one_process(root: Path, scene, dev, card: str) -> dict:
             rates.append(LOOP_FRAMES / (time.time() - t0))
             if rep == 0:
                 add_counts(totals, wass_tpu_torch.launch_counts())
-        log(f"phase D (a) on {card}: SequencePipeline.stereo through the sharded loop, {SHARDED_SLOTS} slots on cuda:0 "
-            f"in an NCCL group of world size 1, {LOOP_FRAMES} frames a pass (renders on): frames/s "
-            f"{' '.join(f'{r:.4f}' for r in rates)} (the first pass includes the warm-up; slots sharing one card: "
-            f"a record of overlap on one device, not a scaling number); launches {totals}")
+        one_slot = loop_rates.get((3, 2, True), [])
+        log(f"phase D (a) on {card}: SequencePipeline.stereo on {SHARDED_SLOTS} slots on cuda:0, each dispatching from "
+            f"a thread of its own, in an NCCL group of world size 1, {LOOP_FRAMES} frames a pass (renders on): frames/s "
+            f"{' '.join(f'{r:.4f}' for r in rates)}; phase 5's one slot at (3, 2), renders on: "
+            f"{' '.join(f'{r:.4f}' for r in one_slot)} (the first pass of each includes the warm-up; slots sharing one "
+            f"card: a record of overlap on one device, not a scaling number); launches {totals}")
         for i, wd in enumerate(sorted(seq.glob("*_wd"))):
-            per_frame = check_frame(f"sharded {i}", wd, scene, SHARDED_PATH, gate=True)
-            if per_frame.get("sgm_wta_fused_windowed", 0) or not c2f_line(wd).endswith("windowed"):
-                raise AssertionError(f"sharded frame {i}: launches {per_frame}, {c2f_line(wd)!r}")
-        same_files(seq_files(seq), seq_files(root / "smoke_loop"), "phase D (a): the sharded frames against phase 5's "
-                   "pipelined frames (K6 + the windowed WTA against K4)")
+            per_frame = check_frame(f"two-slot {i}", wd, scene, WINDOWED_PATH, gate=True)
+            if not c2f_line(wd).endswith("windowed"):
+                raise AssertionError(f"two-slot frame {i}: launches {per_frame}, {c2f_line(wd)!r}")
+        same_files(seq_files(seq), seq_files(root / "smoke_loop"), "phase D (a): the two slots' frames against "
+                   "phase 5's one-slot frames")
+        same_files(seq_logs(seq), seq_logs(root / "smoke_loop"), "phase D (a): the two slots' logs (but the wall time "
+                   "line) against phase 5's")
 
-        # One frame of a 2-frame batch forced to the full-range fallback.
+        # Frame 1 of a 2-frame sequence forced to the full-range fallback in
+        # the writers: the writer's decision and resolve_fallback's.
         fb = root / "smoke_sharded_fallback"
         write_sequence(fb, scene.img0, scene.img1, rig, 2)
-        made = []
-        select = prun.ShardedDenseRunner._select_fallback
-        prun.ShardedDenseRunner._select_fallback = lambda self, cov, offb, shape: made.append(self) or [1]
+        decide = dense.c2f_should_fallback
+
+        def forced(cov, offb, cfg):
+            return instrument.current().index == 1 or decide(cov, offb, cfg)
+
+        pipeline_mod.c2f_should_fallback = dense.c2f_should_fallback = forced
         try:
             pipe = load_pipeline(fb)
             pipe._frame_mesh = lambda: make_frame_mesh(devices=[SHARDED_DEVICE] * SHARDED_SLOTS)
-            pipe.cfg.wire_delta = False
             wass_tpu_torch.reset_launch_counts()
             pipe.stereo(progress_stream=io.StringIO())
             add_counts(totals, wass_tpu_torch.launch_counts())
         finally:
-            prun.ShardedDenseRunner._select_fallback = select
-        per_frame = check_frame("sharded fallback 1", fb / "000001_wd", scene, SHARDED_PATH, gate=True)
+            pipeline_mod.c2f_should_fallback = dense.c2f_should_fallback = decide
+        per_frame = check_frame("two-slot fallback 1", fb / "000001_wd", scene, WINDOWED_PATH, gate=True)
         if not c2f_line(fb / "000001_wd").endswith("FALLBACK to full-range SGM") or per_frame["label_propagate"] != 2:
             raise AssertionError(f"forced fallback frame: {c2f_line(fb / '000001_wd')!r}, launches {per_frame}")
         files = seq_files(fb)
@@ -3253,9 +3241,8 @@ def run_sharded_one_process(root: Path, scene, dev, card: str) -> dict:
                    "phase 4b's c2f_window = 0 frame")
         same_files({k: v for k, v in files.items() if k.startswith("000000_wd/")},
                    {k: v for k, v in seq_files(root / "smoke_loop").items() if k.startswith("000000_wd/")},
-                   "phase D (a): the batch's other frame against phase 5's frame 0")
-        log(f"phase D (a): forced fallback of slot 1 through _select_fallback: n_fallback_reruns "
-            f"{made[-1].n_fallback_reruns} (the runner of that batch), frame 1 launches {per_frame}")
+                   "phase D (a): the other slot's frame against phase 5's frame 0")
+        log(f"phase D (a): frame 1's fallback forced in the writers, its launches {per_frame}")
 
         # The sharded BA on phase M's pooled matches.
         prob = pooled_ba_problem(root, dev, SHARDED_SLOTS)
@@ -3276,9 +3263,6 @@ def run_sharded_one_process(root: Path, scene, dev, card: str) -> dict:
                 f"{shard.n_iters} LM steps {t_shard:.3f} s, unsharded {single.n_iters} steps {t_single:.3f} s; {agree}")
             if dtype == "float32":
                 ba_ref = (shard.R.cpu().numpy(), shard.T.cpu().numpy())
-        k6_ms, shape = sharded_k6_ms(scene.img0, scene.img1, rig, pipe.cfg.stereo, dev)
-        log(f"phase D K6 on {card}: {k6_ms:.3f} ms on frame 0's windowed volume {shape}, "
-            f"{pipe.cfg.stereo.directions} paths (CUDA events, 5 calls)")
         return totals, ba_ref
     finally:
         dist.destroy_process_group()
@@ -3323,11 +3307,11 @@ def run_sharded_ranks(root: Path, scene, ba_ref, card: str) -> None:
         f"{time.time() - t0:.1f} s wall with both processes' start (a record of two processes on one device, not a "
         f"scaling number)")
     for i, wd in enumerate(sorted(seq.glob("*_wd"))):
-        per_frame = check_frame(f"rank-sharded {i}", wd, scene, SHARDED_PATH, gate=True)
-        if per_frame.get("sgm_wta_fused_windowed", 0):
-            raise AssertionError(f"rank-sharded frame {i}: launches {per_frame}")
+        check_frame(f"rank-sharded {i}", wd, scene, WINDOWED_PATH, gate=True)
     same_files(seq_files(seq), seq_files(root / "smoke_sharded"), "phase D (b): the two ranks' files (each rank its "
                "own frames, rank 0 planes.txt) against (a)'s")
+    same_files(seq_logs(seq), seq_logs(root / "smoke_sharded"), "phase D (b): the two ranks' logs (but the wall "
+               "time line) against (a)'s")
     for r in range(2):
         got = np.load(seq / f"ba_rank{r}.npz")
         log(f"phase D (b) BA rank {r} ({int(got['n_iters'])} LM steps) against (a)'s sharded BA: "
@@ -3350,7 +3334,6 @@ def sharded_rank(rank: int, port: int, seq: Path, ba_path: Path, device: str) ->
     initialize_multihost(f"localhost:{port}", 2, rank, backend="gloo")
     try:
         pipe = load_pipeline(seq)  # default_devices(): each rank's card is cuda:0 (rank % 1)
-        pipe.cfg.wire_delta = False
         wass_tpu_torch.reset_launch_counts()
         t0 = time.time()
         pipe.stereo(progress_stream=io.StringIO())
@@ -3369,89 +3352,8 @@ def sharded_rank(rank: int, port: int, seq: Path, ba_path: Path, device: str) ->
     return 0
 
 
-def check_wire(root: Path, scene, dev, card: str) -> dict:
-    """Phase D (c): the wire probe and its AUTO decision; phase 5's frame 0
-    with wire_delta=True, its .xyzC byte-equal to the direct one; n_exc and
-    the host ms of the delta and direct fetches of that frame.  Returns the
-    launches."""
-    import numpy as np
-    import torch
-
-    import wass_tpu_torch
-    from wass_tpu_torch.cli.main import load_pipeline
-    from wass_tpu_torch.cli.pipeline import SequencePipeline
-    from wass_tpu_torch.io.xyzc import decode_delta_payload
-    from wass_tpu_torch.stereo import dense
-    from wass_tpu_torch.testing import write_sequence
-
-    down, decode = SequencePipeline._probe_wire_rates(dev)
-    auto = SequencePipeline._wire_delta_decision(down, decode)
-    log(f"phase D (c) wire probe on {card}: card to host {down:.1f} MB/s, host delta decode {decode * 1e9:.2f} ns a "
-        f"point; AUTO picks {'delta' if auto else 'direct'}")
-    seq = root / "smoke_wire"
-    write_sequence(seq, scene.img0, scene.img1, scene.rig, 1)
-    pipe = load_pipeline(seq)
-    pipe.cfg.wire_delta = True
-    wass_tpu_torch.reset_launch_counts()
-    pipe.stereo(progress_stream=io.StringIO())
-    launches = wass_tpu_torch.launch_counts()
-    wire = [ln.split("] ", 1)[-1] for ln in (seq / "000000_wd" / "wass_stereo_log.txt").read_text().splitlines()
-            if "wire:" in ln]
-    same_files({k: v for k, v in seq_files(seq).items() if k.startswith("000000_wd/")},
-               {k: v for k, v in seq_files(root / "smoke_loop").items() if k.startswith("000000_wd/")},
-               f"phase D (c): frame 0 with wire_delta=True ({wire[0]}) against phase 5's direct frame 0")
-
-    cfg = pipe.cfg.stereo
-    H, W = scene.img0.shape
-    rig = scene.rig
-    geom = dense.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
-    gp = dense.build_geom_pack(geom, (H, W), dev)
-    b8, m8 = (np.clip(np.asarray(x), 0, 255).astype(np.uint8) for x in
-              ((scene.img0, scene.img1) if geom.base_is_cam0 else (scene.img1, scene.img0)))
-    res = dense.DenseStereoPipeline(cfg)(dense.rectify_on_device(torch.as_tensor(b8).to(dev).float(), gp["H_base"],
-                                                                 (H, W)),
-                                         dense.rectify_on_device(torch.as_tensor(m8).to(dev).float(), gp["H_match"],
-                                                                 (H, W)), gp)
-    n = int(res.n_points)
-    plane = res.plane
-
-    def wire():  # the finalizer's wire_delta=True path: the 25% rule, then delta or direct
-        return SequencePipeline._fetch_delta(res, plane, n)
-
-    def delta():  # the delta stream whatever the rule says
-        delta_b, exc_vals, _q, n_exc, _mins, _scales = dense.export_delta(res.points, res.valid, plane, n)
-        n_exc = int(n_exc)
-        return decode_delta_payload(delta_b.cpu().numpy(), dense.fetch_u16(exc_vals[:n_exc])), n_exc
-
-    def direct():
-        q, mins, scales = dense.export_u16(res.points, res.valid, plane, n)
-        return dense.fetch_u16(q), mins.cpu(), scales.cpu()
-
-    def host_ms_min(fn, reps=5):
-        best = None
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            best = ms if best is None else min(best, ms)
-        return best, out
-
-    w_ms, w_out = host_ms_min(wire)
-    d_ms, (d_rows, n_exc) = host_ms_min(delta)
-    q_ms, q_out = host_ms_min(direct)
-    if not (np.array_equal(d_rows, q_out[0]) and np.array_equal(w_out[0], q_out[0])):
-        raise AssertionError("phase D (c): the delta stream's decoded rows differ from the direct rows")
-    log(f"phase D (c) on {card}: frame 0, {n} points, n_exc {n_exc} ({100 * n_exc / max(n, 1):.2f}%); export + "
-        f"fetch (+ decode), host clock, min of 5, synchronized: the finalizer's wire_delta=True path {w_ms:.3f} ms "
-        f"({w_out[3]}), the delta stream forced {d_ms:.3f} ms ({3 * n + 6 * n_exc} wire bytes; its decoded rows "
-        f"equal the direct rows), direct {q_ms:.3f} ms ({6 * n} wire bytes)")
-    return launches
-
-
 def check_other_card(scene, card: str) -> None:
-    """Phase D (d): with more than one card, a frame on the last card
+    """Phase D (c): with more than one card, a frame on the last card
     bit-equal to the frame on cuda:0."""
     import torch
 
@@ -3459,7 +3361,7 @@ def check_other_card(scene, card: str) -> None:
 
     n = torch.cuda.device_count()
     if n < 2:
-        log(f"phase D (d): {n} card here; holding a frame on another card against cuda:0 needs two cards "
+        log(f"phase D (c): {n} card here; holding a frame on another card against cuda:0 needs two cards "
             "(this line is not a caught failure)")
         return
     rig = scene.rig
@@ -3467,17 +3369,16 @@ def check_other_card(scene, card: str) -> None:
                               device=f"cuda:{k}")[0] for k in (0, n - 1)]
     for name, a, b in zip(out[0]._fields, *out):
         if isinstance(a, torch.Tensor) and not torch.equal(a.cpu(), b.cpu()):
-            raise AssertionError(f"phase D (d): {name} of the frame on cuda:{n - 1} differs from cuda:0's")
-    log(f"phase D (d): the frame on cuda:{n - 1} bit-equal to cuda:0's ({card})")
+            raise AssertionError(f"phase D (c): {name} of the frame on cuda:{n - 1} differs from cuda:0's")
+    log(f"phase D (c): the frame on cuda:{n - 1} bit-equal to cuda:0's ({card})")
 
 
-def run_sharded_phase(root: Path, scene, dev, card: str) -> dict:
-    """Phase D: (a) the sharded loop and BA in one process, (b) two ranks,
-    (c) the wire, (d) another card.  Returns the launches of (a) and (c)."""
+def run_sharded_phase(root: Path, scene, dev, card: str, loop_rates: dict) -> dict:
+    """Phase D: (a) two slots and the sharded BA in one process, (b) two
+    ranks, (c) another card.  Returns the launches of (a)."""
     t0 = time.time()
-    launches, ba_ref = run_sharded_one_process(root, scene, dev, card)
+    launches, ba_ref = run_sharded_one_process(root, scene, dev, card, loop_rates)
     run_sharded_ranks(root, scene, ba_ref, card)
-    add_counts(launches, check_wire(root, scene, dev, card))
     check_other_card(scene, card)
     log(f"phase D: {time.time() - t0:.1f} s wall")
     return launches
@@ -3578,8 +3479,8 @@ def main() -> int:
     add_counts(launches, check_raw_forms(_build.BUILD_DIR, rig, scene))
     check_stokes(_build.BUILD_DIR, rig, dev)
     log(f"phase I: {time.time() - t0:.1f} s wall")
-    # Phase D: the frame-sharded path, the two-rank run and the wire.
-    add_counts(launches, run_sharded_phase(_build.BUILD_DIR, scene, dev, smi))
+    # Phase D: the frame-sharded path and the two-rank run.
+    add_counts(launches, run_sharded_phase(_build.BUILD_DIR, scene, dev, smi, loop_rates))
     unused = [k for k in KERNELS if launches[k] < 1]
     if unused:
         raise AssertionError(f"kernels no main-path run launched: {unused}")

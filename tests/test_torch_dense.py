@@ -131,9 +131,9 @@ def test_plane_with_injected_picks(frame):
     assert torch.equal(tplane.draw_pixels(400, H, W, 0), tplane.draw_pixels(400, H, W, 0))
 
 
-def test_export_payload_identical(rng):
-    """Given JAX's points, valid mask and plane: the u16 payload and its
-    float header are byte-identical."""
+def _step_surface(rng):
+    """A sloped, rippled surface with a 5-unit step, seen from above, a
+    quarter of its pixels invalid, and a plane near it."""
     H, W = 40, 56
     yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     z = 10.0 + 0.01 * xx + 0.02 * yy + 0.2 * np.sin(xx / 5.0)
@@ -142,13 +142,54 @@ def test_export_payload_identical(rng):
     valid = rng.random((H, W)) > 0.25
     plane = np.array([0.01, -0.02, 0.9, -9.5])
     plane[:3] /= np.linalg.norm(plane[:3])
-    plane = plane.astype(np.float32)
+    return pts, valid, plane.astype(np.float32)
+
+
+def _surface(rng, H, W, hole_share, jump=False):
+    """A point grid (x, y 0.01 apart a pixel; z a slope across the rows, a
+    gentle wave along them and noise), with a share of invalid pixels and
+    optionally a depth discontinuity, and a plane near it.  On a wide grid
+    a pixel's step along a row is under 127 quanta in every component, as
+    on a production-width frame; on a narrow one it is not."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    z = 10 + 2.0 * yy / H + 0.01 * np.sin(xx / 20.0) * np.cos(yy / 7.0) + rng.normal(0, 1e-4, (H, W))
+    if jump:
+        z[H // 3:H // 2, W // 4:W // 2] += 2.0
+    pts = np.stack([xx * 0.01, yy * 0.01, z], -1).astype(np.float32)
+    valid = rng.random((H, W)) >= hole_share
+    n = np.array([0.01, -0.02, 1.0])
+    plane = np.append(n / np.linalg.norm(n), -10.0).astype(np.float32)
+    return pts, valid, plane
+
+
+SURFACES = {"step": _step_surface,
+            "wide_smooth": lambda rng: _surface(rng, 24, 640, 0.0),
+            "wide_speckled": lambda rng: _surface(rng, 24, 640, 0.25, jump=True),
+            "narrow": lambda rng: _surface(rng, 32, 96, 0.1)}
+
+
+@pytest.mark.parametrize("surface", sorted(SURFACES))
+def test_export_payload_identical(rng, surface):
+    """Given JAX's points, valid mask and plane: the u16 payload and its
+    float header are byte-identical, over the whole (H*W, 3) buffer and
+    over the first n_points rows the finalizer fetches."""
+    pts, valid, plane = SURFACES[surface](rng)
+    H, W = valid.shape
     q_j, mins_j, scales_j = jd._stage_export(jnp.asarray(pts), jnp.asarray(valid), jnp.asarray(plane))
+    q_j = np.asarray(q_j)
+    whole, mins_t, scales_t = td.export_u16(_t(pts), _t(valid), _t(plane), H * W)
+    assert whole.shape == q_j.shape and td.fetch_u16(whole).tobytes() == q_j.tobytes()
     q_t, mins_t, scales_t = td.export_u16(_t(pts), _t(valid), _t(plane))
     n = int(valid.sum())
-    assert q_t.numpy().astype(np.uint16).tobytes() == np.asarray(q_j)[:n].tobytes()
+    assert q_t.shape == (n, 3) and td.fetch_u16(q_t).tobytes() == q_j[:n].tobytes()
     assert mins_t.numpy().astype(np.float64).tobytes() == np.asarray(mins_j, np.float64).tobytes()
     assert scales_t.numpy().astype(np.float64).tobytes() == np.asarray(scales_j, np.float64).tobytes()
+
+
+def test_fetch_u16_keeps_every_value():
+    q = torch.tensor([[0, 1, 32767], [32768, 65534, 65535]], dtype=torch.int32)
+    out = td.fetch_u16(q)
+    assert out.dtype == np.uint16 and out.tolist() == q.tolist()
 
 
 @pytest.mark.parametrize("n", [1, 17, 2240, 65537])

@@ -1,10 +1,10 @@
-"""Two processes of the port under a torch.distributed gloo group (CPU, 4
-frame slots each; jax and the JAX package refused in them) drive the
-sharded runner, the sharded stereo loop and the distributed BA; the test
-process holds their results against the JAX package's runner and sharded
-BA on its 8 virtual devices and against a single-process port run
-(tests/test_multiprocess.py on the port).  Not marked slow: the workers
-take ~20 s."""
+"""Two processes of the port under a torch.distributed gloo group (CPU;
+jax and the JAX package refused in them) drive the stereo loop over 8
+frame slots (4 a rank) and over 4 (2 a rank), and the distributed BA; the
+test process holds their results against the JAX package's sharded runner
+and sharded BA on its 8 virtual devices and against a single-process port
+run (tests/test_multiprocess.py on the port).  Not marked slow: the
+workers take ~20 s."""
 
 import io
 import os
@@ -29,6 +29,8 @@ from wass_tpu.testing import make_scene
 ROOT = Path(__file__).resolve().parents[1]
 H, W, F, N_SEQ = 64, 96, 8, 5
 CFG = dict(num_disp=16, min_disp=1, plane_ransac_rounds=64, plane_ransac_threshold=0.1, plane_max_distance=0.3)
+# Part 1's: the smoothing the JAX runner takes for an unresolved AUTO.
+FRAMES_CFG = dict(CFG, input_smooth_sigma=0.8)
 
 _WORKER = textwrap.dedent(
     """
@@ -47,33 +49,46 @@ _WORKER = textwrap.dedent(
 
     torch.set_num_threads(1)
     pid, port, shared = int(sys.argv[1]), sys.argv[2], Path(sys.argv[3])
+    from wass_tpu_torch import instrument
     from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
     from wass_tpu_torch.parallel.distba import lm_refine_two_view_sharded
     from wass_tpu_torch.parallel.mesh import local_frame_indices, make_frame_mesh
-    from wass_tpu_torch.parallel.runner import ShardedDenseRunner, initialize_multihost
-    from wass_tpu_torch.stereo.dense import DenseStereoConfig
+    from wass_tpu_torch.parallel.runner import initialize_multihost
+    from wass_tpu_torch.stereo.dense import DenseStereoConfig, DenseStereoPipeline
 
     assert initialize_multihost(f"localhost:{port}", 2, pid, backend="gloo")
     cfg = DenseStereoConfig(**%r)
     inp = np.load(shared / "inputs.npz")
     out = {}
 
-    # 1. the runner: 8 slots, 4 a rank, each rank feeding its own frames
+    # 1. stereo() over 8 frames of one pair, 8 slots, 4 a rank: each rank
+    # runs its own slots' frames, with the JAX runner's RANSAC picks, and
+    # keeps their disparities as the slots computed them
     mesh = make_frame_mesh(devices=["cpu"] * 4)
     slots = local_frame_indices(mesh)
     assert len(mesh) == 8 and slots == [4 * pid + i for i in range(4)], slots
-    gp = {k[3:]: torch.from_numpy(inp[k]) for k in inp.files if k.startswith("gp_")}
-    gp["base_is_cam0"] = bool(inp["base_is_cam0"])
-    runner = ShardedDenseRunner(mesh, cfg, uv=torch.from_numpy(inp["uv"]))
-    res, rects, info, mean_plane = runner.run_batch(inp["bs"][slots], inp["ms"][slots], [gp] * 4)
-    out["disparity"] = np.stack([r.disparity.numpy() for r in res])
-    out["planes"], out["mean_plane"] = info["planes"], mean_plane
-    print(f"[{pid}] runner ok", flush=True)
+    picks, disparity = torch.from_numpy(inp["uv"]), {}
+    call = DenseStereoPipeline.__call__
+
+    def keep(self, base_rect, match_rect, geom_pack, uv=None):
+        res = call(self, base_rect, match_rect, geom_pack, uv=picks if uv is None else uv)
+        disparity[instrument.current().index] = res.disparity.numpy()
+        return res
+
+    DenseStereoPipeline.__call__ = keep
+    pipe = SequencePipeline(shared / "frames", SequenceConfig(stereo=DenseStereoConfig(**%r), device="cpu",
+                                                              debug_renders=False))
+    pipe._frame_mesh = lambda: make_frame_mesh(devices=["cpu"] * 4)
+    planes = pipe.stereo(progress_stream=io.StringIO())
+    DenseStereoPipeline.__call__ = call
+    assert sorted(disparity) == slots, sorted(disparity)
+    out["disparity"] = np.stack([disparity[i] for i in slots])
+    out["planes"] = np.stack(planes)
+    print(f"[{pid}] frames ok", flush=True)
 
     # 2. stereo(): 2 slots a rank over the shared sequence, each rank writing
     # its own frames, rank 0 planes.txt
-    pipe = SequencePipeline(shared / "seq", SequenceConfig(stereo=cfg, device="cpu", wire_delta=False,
-                                                           debug_renders=False))
+    pipe = SequencePipeline(shared / "seq", SequenceConfig(stereo=cfg, device="cpu", debug_renders=False))
     pipe._frame_mesh = lambda: make_frame_mesh(devices=["cpu"] * 2)
     planes = pipe.stereo(progress_stream=io.StringIO())
     out["seq_planes"] = np.stack(planes)
@@ -87,7 +102,7 @@ _WORKER = textwrap.dedent(
     out["R"], out["T"] = ba.R.numpy(), ba.T.numpy()
     np.savez(shared / f"out{pid}.npz", **out)
     print(f"[{pid}] ALL-OK", flush=True)
-    """ % (CFG,)
+    """ % (CFG, FRAMES_CFG)
 )
 
 
@@ -129,21 +144,26 @@ def test_two_process_runner_pipeline_distba(tmp_path):
     torch_threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
+        from wass_tpu_torch.io.png import read_gray
+        from wass_tpu_torch.io.workdir import Workdir
+        from wass_tpu_torch.testing import write_pairs
+
         sc = make_scene(seed=3, width=W, height=H, wave_amplitude=0.25)
         rig = sc.rig
         jcfg = jd.DenseStereoConfig(**CFG)
         geom = jd.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (W, H))
         gp = jd.build_geom_pack(geom, (H, W))
-        b_img, m_img = (sc.img0, sc.img1) if geom.base_is_cam0 else (sc.img1, sc.img0)
+        # Part 1's frames: the pair 8 times; the JAX runner reads its 8-bit PNGs.
+        write_pairs(tmp_path / "frames", [(sc.img0, sc.img1)] * F, rig)
+        img0, img1 = (read_gray(Workdir(tmp_path / "frames" / "000000_wd").undistorted_path(c)) for c in (0, 1))
+        b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
         stack = lambda x: np.broadcast_to(np.asarray(x, np.float32), (F, H, W)).copy()
         k1, _ = jax.random.split(jax.random.PRNGKey(0))
         uv = np.array(jax.random.randint(k1, (CFG["plane_ransac_rounds"], 3, 2), 0, jnp.array([W, H])))
         Rp, Tp, Xp, p0, p1, mask = _ba_problem(np.random.default_rng(42))
         _write_seq(tmp_path / "seq")
         _write_seq(tmp_path / "ref")
-        np.savez(tmp_path / "inputs.npz", bs=stack(b_img), ms=stack(m_img), uv=uv,
-                 base_is_cam0=np.bool_(geom.base_is_cam0), Rp=Rp, Tp=Tp, Xp=Xp, p0=p0, p1=p1, mask=mask,
-                 **{f"gp_{k}": np.asarray(v) for k, v in gp.items() if k != "base_is_cam0"})
+        np.savez(tmp_path / "inputs.npz", uv=uv, Rp=Rp, Tp=Tp, Xp=Xp, p0=p0, p1=p1, mask=mask)
 
         with socket.socket() as s:
             s.bind(("localhost", 0))
@@ -157,12 +177,12 @@ def test_two_process_runner_pipeline_distba(tmp_path):
                  for i in range(2)]
         try:
             # The references, while the workers run.
-            jres, _, _, jmean = jrun.ShardedDenseRunner(jax_mesh(F), jcfg).run_batch(stack(b_img), stack(m_img),
-                                                                                   [gp] * F)
+            jres = jrun.ShardedDenseRunner(jax_mesh(F), jd.DenseStereoConfig(**FRAMES_CFG)).run_batch(
+                stack(b_img), stack(m_img), [gp] * F)[0]
             jba = jax_sharded_ba(jax_mesh(F), *(jnp.asarray(a) for a in (Rp, Tp, Xp, p0, p1)), jnp.asarray(mask),
                                  max_iters=40)
             ref_planes = SequencePipeline(tmp_path / "ref", SequenceConfig(
-                stereo=convert.config_from_jax(jcfg), device="cpu", wire_delta=False, debug_renders=False)).stereo(
+                stereo=convert.config_from_jax(jcfg), device="cpu", debug_renders=False)).stereo(
                 progress_stream=io.StringIO())
             outs = [p.communicate(timeout=240)[0] for p in procs]
         finally:
@@ -176,13 +196,12 @@ def test_two_process_runner_pipeline_distba(tmp_path):
         torch.set_num_threads(torch_threads)
 
     res = [np.load(tmp_path / f"out{i}.npz") for i in range(2)]
-    # The runner: every rank's frames bit-equal to the JAX runner's, the
-    # gathered planes and the mean plane within 1e-4 on both ranks.
+    # Part 1: every rank's frames bit-equal to the JAX runner's, and every
+    # frame's plane, gathered on both ranks, within 1e-4 of it.
     disp = np.concatenate([r["disparity"] for r in res])
     np.testing.assert_array_equal(disp, np.asarray(jres.disparity))
     for r in res:
         np.testing.assert_allclose(r["planes"], np.asarray(jres.plane), rtol=0, atol=1e-4)
-        np.testing.assert_allclose(r["mean_plane"], np.asarray(jmean), rtol=0, atol=1e-4)
     # stereo(): the two ranks' files are the single-process run's, byte for
     # byte, and both ranks hold every plane.
     assert _seq_files(tmp_path / "seq").keys() == _seq_files(tmp_path / "ref").keys()

@@ -1,5 +1,5 @@
 """The port runs without jax and without any module of the JAX package
-(a dense frame, the same frame through the sharded runner, prepare on colour frames, the stereo CLI with its debug
+(a dense frame, the frame's pair through stereo() on two frame slots, prepare on colour frames, the stereo CLI with its debug
 renders and the optical flow, measure, the grid console (--refine) on its
 meshes, the post console on
 that cube, and the match stage through the CLI), and without h5py,
@@ -73,16 +73,19 @@ rig = sc.rig
 res, geom = dense_stereo_frame(sc.img0, sc.img1, rig.K0, rig.K1, rig.R, rig.T,
                                DenseStereoConfig(num_disp=16, plane_ransac_rounds=50), device="cpu")
 assert res.points.shape == (48, 64, 3) and int(res.n_points) > 0
-# The frame again through the sharded runner on two CPU slots.
+# The frame's pair, twice, through stereo() on two CPU slots.
+import io
 import wass_tpu_torch.parallel.distba
+from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
 from wass_tpu_torch.parallel.mesh import make_frame_mesh
-from wass_tpu_torch.parallel.runner import ShardedDenseRunner
-from wass_tpu_torch.stereo.dense import build_geom_pack
-pair = (sc.img0, sc.img1) if geom.base_is_cam0 else (sc.img1, sc.img0)
-gp = build_geom_pack(geom, (48, 64), "cpu")
-sres, _, _, _ = ShardedDenseRunner(make_frame_mesh(devices=["cpu"] * 2), DenseStereoConfig(
-    num_disp=16, plane_ransac_rounds=50)).run_batch([pair[0]] * 2, [pair[1]] * 2, [gp] * 2)
-assert torch.equal(sres[0].disparity, sres[1].disparity) and int(sres[1].n_points) > 0
+with tempfile.TemporaryDirectory() as tmp:
+    write_sequence(Path(tmp), sc.img0, sc.img1, rig, 2)
+    pipe = SequencePipeline(tmp, SequenceConfig(stereo=DenseStereoConfig(num_disp=16, plane_ransac_rounds=50),
+                                                device="cpu", debug_renders=False))
+    pipe._frame_mesh = lambda: make_frame_mesh(devices=["cpu"] * 2)
+    pipe.stereo(progress_stream=io.StringIO())
+    meshes = [(Path(tmp) / f"{i:06d}_wd" / "mesh_cam.xyzC").read_bytes() for i in range(2)]
+    assert meshes[0] == meshes[1] and len(meshes[0]) > 200
 with tempfile.TemporaryDirectory() as tmp:
     seq = Path(tmp)
     cam0, cam1, calib = write_raw_sequence(seq / "raw", sc.img0, sc.img1, rig, 1, fmt="colour_png")
@@ -140,8 +143,8 @@ print("OK", int(res.n_points), len(mesh), n_matches)
 
 def test_port_runs_without_jax():
     """jax, every module of the JAX package, h5py, imageio, matplotlib and
-    click are refused at import; a frame (also on two frame slots of the
-    sharded runner), the stereo CLI (with the optical
+    click are refused at import; a frame (and its pair through stereo() on
+    two frame slots), the stereo CLI (with the optical
     flow), the grid console (setup and grid with --refine), the post console (info, spectrum, visibilitymap,
     filter) and the match CLI still run, and the match, calibration and
     grid modules import."""

@@ -1,8 +1,11 @@
-"""Port parity of the frame-sharded path (wass_tpu_torch/parallel/) on the
-CPU: frame meshes of n slots on the one CPU device against the JAX
-package's runner and distributed BA on its 8 virtual CPU devices
-(tests/test_parallel.py on the port), the sharded stereo loop against the
-pipelined one, and the launch helper every kernel wrapper goes through.
+"""Port parity of the frame-sharded path (wass_tpu_torch/parallel/ and the
+stereo loop's slots) on the CPU: frame meshes of n slots on the one CPU
+device, what each slot runs on a frame (DenseStereoPipeline with the
+deferred c2f fallback, resolved as the writers resolve it) against the JAX
+package's runner, and the sharded BA against its distributed BA, on its 8
+virtual CPU devices (tests/test_parallel.py on the port); stereo() on
+several slots against one slot; and the launch helper every kernel wrapper
+goes through.
 
 The JAX runner's c2f branch asks for a TPU; the c2f case patches its gate
 to the shape gate and runs its windowed Pallas kernels in interpret mode
@@ -11,6 +14,7 @@ the JAX package holds bit-equal to it), as tests/test_torch_c2f_pipeline.py
 does.  The JAX package's files are untouched."""
 
 import ast
+import dataclasses
 import io
 from pathlib import Path
 
@@ -32,7 +36,7 @@ from wass_tpu.testing import make_scene
 from wass_tpu_torch import _build, convert
 from wass_tpu_torch.calib import ba as tba
 from wass_tpu_torch.parallel import distba, mesh as tmesh
-from wass_tpu_torch.parallel.runner import ShardedDenseRunner
+from wass_tpu_torch.stereo import dense as td
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -84,26 +88,37 @@ def frames8():
     return dict(cfg=cfg, bs=bs, ms=ms, gp=gp, tgp=_port_pack(gp), uv=_picks(cfg, h, w), jax=jres, F=F)
 
 
-def _port_runner(f, cfg=None, n=None):
-    n = n or f["F"]
-    return ShardedDenseRunner(tmesh.make_frame_mesh(devices=["cpu"] * n), convert.config_from_jax(cfg or f["cfg"]),
-                              uv=f["uv"])
+def _slot_frames(bs, ms, tgp, cfg, uv):
+    """Each frame as a slot of the stereo loop runs it: rectified, through
+    a DenseStereoPipeline with the deferred c2f fallback, the fallback then
+    resolved as the writers resolve it.  Returns (results, resolved c2f
+    dicts, None where c2f did not run)."""
+    cfg = convert.config_from_jax(cfg)
+    results, c2f = [], []
+    for bi, mi in zip(bs, ms):
+        pipe = td.DenseStereoPipeline(cfg, defer_c2f_fallback=True)
+        shape = tuple(bi.shape)
+        br = td.rectify_on_device(torch.from_numpy(bi), tgp["H_base"], shape)
+        mr = td.rectify_on_device(torch.from_numpy(mi), tgp["H_match"], shape)
+        res = pipe(br, mr, tgp, uv=uv)
+        res, info = pipe.resolve_fallback(res, pipe.last_c2f, br, mr, tgp, uv=uv)
+        results.append(res)
+        c2f.append(info)
+    return results, c2f
 
 
-def _assert_frames_match_jax(res, info, mean_plane, jres):
-    """Disparity bit-equal per frame; planes and the mean plane within 1e-4
+def _assert_frames_match_jax(res, c2f, jres):
+    """Disparity bit-equal per frame; planes within 1e-4
     (tests/test_torch_dense.py's whole-frame tolerance), n_points within
-    0.1%."""
-    rj, _rects, infoj, mpj = jres
+    0.1%; the same frames fall back to full range."""
+    rj, _rects, infoj, _mean = jres
     for k, r in enumerate(res):
         np.testing.assert_array_equal(r.disparity.numpy(), np.asarray(rj.disparity)[k])
         assert bool(r.plane_ok) and bool(np.asarray(rj.plane_ok)[k])
         np.testing.assert_allclose(r.plane.numpy(), np.asarray(rj.plane)[k], rtol=0, atol=1e-4)
         nj = int(np.asarray(rj.n_points)[k])
         assert abs(int(r.n_points) - nj) <= 0.001 * nj
-    np.testing.assert_allclose(info["planes"], np.asarray(rj.plane), rtol=0, atol=1e-4)
-    np.testing.assert_allclose(mean_plane, np.asarray(mpj), rtol=0, atol=1e-4)
-    assert info["fallback_frames"] == infoj["fallback_frames"]
+    assert [k for k, c in enumerate(c2f) if c is not None and c["fallback"]] == infoj["fallback_frames"]
 
 
 # --- meshes --------------------------------------------------------------------
@@ -133,20 +148,18 @@ def test_initialize_multihost_without_coordinator_is_a_noop():
     assert tmesh.all_reduce_sum(t) is t and tmesh.all_gather_host(5) == [5]
 
 
-# --- the runner ----------------------------------------------------------------
+# --- a slot's frame ---------------------------------------------------------------
 
 
 def test_sharded_runner_matches_jax(frames8):
-    """8 CPU slots against the JAX ShardedDenseRunner on 8 virtual devices:
-    disparities bit-equal, planes and the mean plane within 1e-4; the
-    rectified pairs come back per slot."""
+    """8 frames, each as a slot runs it, against the JAX package's sharded runner
+    on 8 virtual devices: disparities bit-equal, planes within 1e-4; c2f
+    does not run at this size."""
     f = frames8
-    runner = _port_runner(f)
-    res, rects, info, mean_plane = runner.run_batch(f["bs"], f["ms"], [f["tgp"]] * f["F"])
-    assert len(res) == len(rects) == f["F"] and rects[0][0].shape == (64, 96)
-    assert info["coverage"] is None and runner.n_fallback_reruns == 0
-    assert len(info["launches"]) == f["F"]
-    _assert_frames_match_jax(res, info, mean_plane, f["jax"])
+    res, c2f = _slot_frames(f["bs"], f["ms"], f["tgp"], f["cfg"], f["uv"])
+    assert len(res) == f["F"] and c2f == [None] * f["F"]
+    assert f["jax"][2]["coverage"] is None
+    _assert_frames_match_jax(res, c2f, f["jax"])
 
 
 def _jax_c2f_on_cpu(monkeypatch):
@@ -166,52 +179,32 @@ def _jax_c2f_on_cpu(monkeypatch):
                         lambda cost, P1, P2, d, md, u=1: jsgm.wta_disparity(jsgm.sgm_aggregate(cost, P1, P2, d), md, u))
 
 
+C2F_CFG = dict(num_disp=32, min_disp=1, c2f_window=16, c2f_factor=4, input_smooth_sigma=0.0, plane_ransac_rounds=64,
+               plane_ransac_threshold=0.1, plane_max_distance=0.3)
+
+
 def test_sharded_runner_c2f_matches_jax(monkeypatch):
-    """A c2f-sized batch (64x128, num_disp 32, window 16, two slots): one
+    """A c2f-sized batch (64x128, num_disp 32, window 16, two frames): one
     frame's coarse windows miss (its off-band share trips the guard) and
-    re-runs at full range, the other runs K2 + K6 + the windowed WTA; both
-    packages take the same branches, with the same coverage and off-band
-    scalars, and give the same disparities."""
+    the writers' resolution re-runs it at full range; the other keeps the
+    windowed pass (K2 + K4 here, K2 + K6 + the windowed WTA in the JAX
+    runner); both packages take the same branches, with the same coverage
+    and off-band scalars, and give the same disparities."""
     _jax_c2f_on_cpu(monkeypatch)
     h, w, F = 64, 128, 2
     scenes = [make_scene(seed=3 + i, width=w, height=h, wave_amplitude=0.25) for i in range(F)]
     rig = scenes[0].rig
-    cfg = jd.DenseStereoConfig(
-        num_disp=32, min_disp=1, c2f_window=16, c2f_factor=4, input_smooth_sigma=0.0, plane_ransac_rounds=64,
-        plane_ransac_threshold=0.1, plane_max_distance=0.3)
+    cfg = jd.DenseStereoConfig(**C2F_CFG)
     geom = jd.prepare_frame_geometry(rig.K0, rig.K1, rig.R, rig.T, (w, h))
     gp = jd.build_geom_pack(geom, (h, w))
     bs, ms = _batch(scenes, geom)
     jres = jrun.ShardedDenseRunner(jax_mesh(F), cfg).run_batch(bs, ms, [gp] * F)
-    runner = ShardedDenseRunner(tmesh.make_frame_mesh(devices=["cpu"] * F), convert.config_from_jax(cfg),
-                                uv=_picks(cfg, h, w))
-    res, _rects, info, mean_plane = runner.run_batch(bs, ms, [_port_pack(gp)] * F)
+    res, c2f = _slot_frames(bs, ms, _port_pack(gp), cfg, _picks(cfg, h, w))
     infoj = jres[2]
-    np.testing.assert_allclose(info["coverage"], infoj["coverage"], rtol=0, atol=1e-6)
-    np.testing.assert_allclose(info["offband"], infoj["offband"], rtol=0, atol=1e-6)
-    assert info["fallback_frames"] == infoj["fallback_frames"] == [0]
-    assert runner.n_fallback_reruns == 1
-    _assert_frames_match_jax(res, info, mean_plane, jres)
-
-
-def test_only_tripped_frames_rerun(frames8):
-    """TestFallbackGranularity on the port: a tripped slot re-runs alone at
-    full range; the other slots' tensors are those of a batch without the
-    trip, bit for bit, and the re-run frame equals its full-range frame."""
-    f = frames8
-    control = _port_runner(f)
-    res0, _, info0, _ = control.run_batch(f["bs"], f["ms"], [f["tgp"]] * f["F"])
-    assert info0["fallback_frames"] == [] and control.n_fallback_reruns == 0
-
-    runner = _port_runner(f)
-    runner._select_fallback = lambda cov, offb, shape: [3]
-    res, _, info, mean_plane = runner.run_batch(f["bs"], f["ms"], [f["tgp"]] * f["F"])
-    assert info["fallback_frames"] == [3] and runner.n_fallback_reruns == 1
-    for k in range(f["F"]):
-        for a, b in zip(res[k], res0[k]):
-            assert torch.equal(a, b), k
-    assert res[3] is not res0[3]
-    assert np.all(np.isfinite(mean_plane))
+    np.testing.assert_allclose([c["coverage"] for c in c2f], infoj["coverage"], rtol=0, atol=1e-6)
+    np.testing.assert_allclose([c["offband"] for c in c2f], infoj["offband"], rtol=0, atol=1e-6)
+    assert [c["fallback"] for c in c2f] == [True, False] and infoj["fallback_frames"] == [0]
+    _assert_frames_match_jax(res, c2f, jres)
 
 
 # --- the sharded BA ------------------------------------------------------------
@@ -307,61 +300,125 @@ def test_pad_points_for_mesh():
                                           arrs[0], arrs[1][:, :2], arrs[1][:, :2], np.ones(13, bool))
 
 
-# --- stereo() through the sharded loop -------------------------------------------
+# --- stereo() on several slots ---------------------------------------------------
 
 
-def _write_seq(root, n):
+def _write_seq(root, n, h=64, w=96, amplitude=0.25):
     from wass_tpu_torch.testing import write_pairs
 
-    rig = make_scene(seed=3, width=96, height=64, wave_amplitude=0.25).rig
-    scenes = [make_scene(seed=300 + i, width=96, height=64, wave_amplitude=0.25, rig=rig, time=i * 0.25)
+    rig = make_scene(seed=3, width=w, height=h, wave_amplitude=amplitude).rig
+    scenes = [make_scene(seed=300 + i, width=w, height=h, wave_amplitude=amplitude, rig=rig, time=i * 0.25)
               for i in range(n)]
     write_pairs(root, [(s.img0, s.img1) for s in scenes], rig)
 
 
-def _stereo_files(root, n_slots=None):
+FILES = ("mesh_cam.xyzC", "plane.txt", "planes.txt", "P0cam.txt", "P1cam.txt")
+
+
+def _stereo_files(root, n_slots=None, stereo=None):
     """stereo() on the CPU: the pipeline's own frame mesh, or one of n_slots
-    slots on the one CPU device."""
+    slots on the one CPU device.  stereo: the DenseStereoConfig (the
+    tests/test_parallel.py one by default)."""
     from wass_tpu_torch.cli.pipeline import SequenceConfig, SequencePipeline
 
-    cfg = SequenceConfig(stereo=convert.config_from_jax(_jcfg()), device="cpu", wire_delta=False)
+    cfg = SequenceConfig(stereo=stereo or convert.config_from_jax(_jcfg()), device="cpu")
     pipe = SequencePipeline(root, cfg)
     if n_slots is not None:
         pipe._frame_mesh = lambda: tmesh.make_frame_mesh(devices=["cpu"] * n_slots)
     out = io.StringIO()
     planes = pipe.stereo(progress_stream=out)
-    files = {str(p.relative_to(root)): p.read_bytes() for p in sorted(Path(root).rglob("*"))
-             if p.name in ("mesh_cam.xyzC", "plane.txt", "planes.txt", "P0cam.txt", "P1cam.txt")}
+    files = {str(p.relative_to(root)): p.read_bytes() for p in sorted(Path(root).rglob("*")) if p.name in FILES}
     return planes, files, out.getvalue(), pipe
 
 
-def test_stereo_sharded_loop_equals_pipelined(tmp_path):
-    """5 frames over 3 CPU slots (a ragged tail of 2): the sharded loop's
+def _logs(root):
+    """Each frame's wass_stereo_log.txt without its finalize wall time line."""
+    return [[ln for ln in (wd / "wass_stereo_log.txt").read_text().splitlines() if "finalize wall time" not in ln]
+            for wd in sorted(Path(root).glob("*_wd"))]
+
+
+class _PoolSpy:
+    """pipeline.ThreadPoolExecutor, keeping each pool's thread_name_prefix."""
+
+    def __init__(self, prefixes):
+        from wass_tpu_torch.cli import pipeline as pipeline_mod
+
+        self.prefixes, self.real = prefixes, pipeline_mod.ThreadPoolExecutor
+
+    def __call__(self, *a, **k):
+        self.prefixes.append(k.get("thread_name_prefix"))
+        return self.real(*a, **k)
+
+
+def test_stereo_sharded_loop_equals_pipelined(tmp_path, monkeypatch):
+    """5 frames over 3 CPU slots, each slot on a thread of its own: the
     files (mesh_cam.xyzC, plane.txt, P0/P1cam.txt, output/planes.txt) are
-    byte-equal to the pipelined loop's, every frame has its c2f-free log
-    and renders, and a progress line follows each frame."""
+    byte-equal to one slot's, and so is every frame's log but its wall
+    time line; every frame has its renders, a progress line follows each
+    frame, and loop_stats holds one entry a frame."""
+    from wass_tpu_torch.cli import pipeline as pipeline_mod
+
     for name in ("piped", "sharded"):
         _write_seq(tmp_path / name, 5)
     planes_p, files_p, _, _ = _stereo_files(tmp_path / "piped")
+    pools: list = []
+    monkeypatch.setattr(pipeline_mod, "ThreadPoolExecutor", _PoolSpy(pools))
     planes_s, files_s, progress, pipe = _stereo_files(tmp_path / "sharded", n_slots=3)
+    assert pools.count("frame-slot") == 1
     assert len(files_s) == 5 * 4 + 1 and files_s == files_p
     np.testing.assert_array_equal(np.stack(planes_s), np.stack(planes_p))
     assert sorted(progress.split()) == sorted(f"[P|{i}|5]" for i in range(1, 6))
-    assert len(pipe.loop_stats["dispatch_s"]) == 2
-    for wd in sorted((tmp_path / "sharded").glob("*_wd")):
-        log = (wd / "wass_stereo_log.txt").read_text()
-        assert "kernel launches:" in log and "triangulated+filtered points" in log
+    assert len(pipe.loop_stats["dispatch_s"]) == len(pipe.loop_stats["loop.dispatch"]) == 5
+    logs = _logs(tmp_path / "sharded")
+    assert logs == _logs(tmp_path / "piped")
+    for wd, log in zip(sorted((tmp_path / "sharded").glob("*_wd")), logs):
+        assert log[0].startswith("[INFO] kernel launches:") and "triangulated+filtered points" in "".join(log)
         assert len(list(wd.glob("*.jpg"))) == 6
 
 
 def test_one_slot_takes_the_pipelined_loop(tmp_path, monkeypatch):
-    from wass_tpu_torch.cli.pipeline import SequencePipeline
+    """One slot: the calling thread dispatches, and no slot thread starts."""
+    from wass_tpu_torch.cli import pipeline as pipeline_mod
 
     _write_seq(tmp_path / "one", 2)
-    called = []
-    monkeypatch.setattr(SequencePipeline, "_stereo_sharded", lambda *a, **k: called.append(1))
+    pools: list = []
+    monkeypatch.setattr(pipeline_mod, "ThreadPoolExecutor", _PoolSpy(pools))
     _stereo_files(tmp_path / "one")
-    assert called == []
+    assert pools == ["stereo-writer"]
+
+
+def test_only_tripped_frames_rerun(tmp_path, monkeypatch):
+    """TestFallbackGranularity on the port: 3 frames of a c2f-active size
+    (64x128, a calm sea: frames 0 and 2 windowed, frame 1 tripped) on 3
+    slots, frame 2's fallback forced in the writers: that frame's files
+    equal a c2f_window = 0 run's, and the other frames' those of a run
+    without the forced trip."""
+    from wass_tpu_torch import instrument
+    from wass_tpu_torch.cli import pipeline as pipeline_mod
+
+    stereo = convert.config_from_jax(jd.DenseStereoConfig(**C2F_CFG))
+    for name in ("forced", "plain", "full"):
+        _write_seq(tmp_path / name, 3, h=64, w=128, amplitude=0.1)
+    _, plain, _, _ = _stereo_files(tmp_path / "plain", stereo=stereo)
+    _, full, _, _ = _stereo_files(tmp_path / "full", stereo=dataclasses.replace(stereo, c2f_window=0))
+    decide = td.c2f_should_fallback
+
+    def forced(cov, offb, cfg):
+        return instrument.current().index == 2 or decide(cov, offb, cfg)
+
+    # The writer's decision (its writer.rerun span) and resolve_fallback's.
+    monkeypatch.setattr(pipeline_mod, "c2f_should_fallback", forced)
+    monkeypatch.setattr(td, "c2f_should_fallback", forced)
+    _, files, _, _ = _stereo_files(tmp_path / "forced", n_slots=3, stereo=stereo)
+    tail = lambda root: [log[1].rsplit(" ", 1)[-1] for log in _logs(root)]  # noqa: E731
+    assert tail(tmp_path / "plain") == ["windowed", "SGM", "windowed"]
+    assert tail(tmp_path / "forced") == ["windowed", "SGM", "SGM"]
+    assert files["000002_wd/mesh_cam.xyzC"] != plain["000002_wd/mesh_cam.xyzC"]
+    for name, data in files.items():
+        if name.startswith("000002_wd/"):
+            assert data == full[name], name
+        elif name != "output/planes.txt":
+            assert data == plain[name], name
 
 
 # --- launches on the tensors' card -------------------------------------------------

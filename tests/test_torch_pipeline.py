@@ -58,7 +58,6 @@ def test_sequence_stereo_matches_jax(sequence, monkeypatch):
     shutil.copytree(sequence / "base", seq_t)
 
     pipe = _load_pipeline(seq_j)  # debug renders on, as in the port
-    pipe.cfg.wire_delta = False
     monkeypatch.setattr(jax, "devices", lambda *a: jax.local_devices()[:1])  # the one-device loop
     monkeypatch.setattr(jd, "_jit_triangulate", jd._jit_triangulate.__wrapped__)
     monkeypatch.setattr(jd, "_stage_plane", jd._stage_plane.__wrapped__)

@@ -55,7 +55,6 @@ def test_lr_check_sequence_matches_jax(tmp_path, monkeypatch):
     pipe = _load_pipeline(seq_j)
     assert pipe.cfg.stereo.lr_max_diff == 1
     pipe.cfg.debug_renders = False
-    pipe.cfg.wire_delta = False
     monkeypatch.setattr(jax, "devices", lambda *a: jax.local_devices()[:1])  # the one-device loop
     monkeypatch.setattr(jd, "_jit_triangulate", jd._jit_triangulate.__wrapped__)
     monkeypatch.setattr(jd, "_stage_plane", jd._stage_plane.__wrapped__)

@@ -1,8 +1,9 @@
-"""The port's production stereo loop (cli/pipeline.py _stereo_pipelined)
+"""The port's production stereo loop (cli/pipeline.py _stereo_loop)
 and its host pieces, on the CPU: frame outputs independent of the dispatch
 depth and the writer count, progress lines, the deferred c2f fallback,
 decode errors, the thread-safe per-frame launch counts, the device-side
-modal label, the PNG prefetcher, and the progress text against the JAX
+modal label, the PNG prefetcher (shared by the loop's slot threads),
+and the progress text against the JAX
 package's."""
 
 import dataclasses
@@ -149,6 +150,39 @@ def test_prefetcher_takes_any_order_and_raises_in_take(tmp_path, rng):
             pf.take(cut)
     stats = rec.stats()
     assert len(stats["decode_s"]) == 8 and len(stats["prefetch.decode"]) == 8 and min(stats["decode_s"]) > 0
+
+
+def test_prefetcher_under_many_threads(tmp_path, rng):
+    """24 threads, more than the cores, submit and take at once with a
+    short switch interval: every ticket gives its own image (a ticket lost
+    to a race would give another's, or none)."""
+    imgs = [rng.integers(0, 256, (4, 3 + i), dtype=np.uint8) for i in range(8)]
+    for i, img in enumerate(imgs):
+        png.write_gray(tmp_path / f"{i}.png", img)
+    wrong, errors = [], []
+
+    def work(k, pf):
+        try:
+            for n in range(40):
+                i = (k + n) % len(imgs)
+                if not np.array_equal(pf.take(pf.submit(tmp_path / f"{i}.png", frame=k)), imgs[i]):
+                    wrong.append((k, n))
+        except Exception as e:  # the test thread reports it
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with Prefetcher(4) as pf:
+            threads = [threading.Thread(target=work, args=(k, pf)) for k in range(24)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    assert errors == [] and wrong == []
 
 
 def _png_with_filters(img, ftypes):

@@ -176,7 +176,6 @@ def test_prepare_stereo_chain_matches_jax(raw, tmp_path, monkeypatch):
 
     pipe = _load_pipeline(jout)
     pipe.cfg.debug_renders = False
-    pipe.cfg.wire_delta = False
     monkeypatch.setattr(jax, "devices", lambda *a: jax.local_devices()[:1])  # the one-device loop
     monkeypatch.setattr(jd, "_jit_triangulate", jd._jit_triangulate.__wrapped__)
     monkeypatch.setattr(jd, "_stage_plane", jd._stage_plane.__wrapped__)

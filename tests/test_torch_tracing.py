@@ -1,8 +1,8 @@
 """The stereo loop's spans and counters (wass_tpu_torch/instrument.py) on
 the CPU: the recorder's sums, self times and memory; stereo()'s
-loop_stats through the pipelined loop and the frame-sharded one (3 slots
-on the CPU), where every span key holds one entry a frame (a batch) and
-children fit in their parents; the dispatching thread's top-level spans
+loop_stats through one slot and through three (3 slots on the CPU, each
+dispatching from a thread of its own), where every span key holds one
+entry a frame and children fit in their parents; the dispatching thread's top-level spans
 covering the call; one counted host read a frame; the writers' render
 phases (build, fetch, encode, write) and counters (render_bytes,
 render_device_images, render_images) inside writer.render, none with the
@@ -141,7 +141,7 @@ def profiled(seq):
 
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
-    """5 frames of 96x64 over 3 CPU slots (batches of 3 and a ragged 2)."""
+    """5 frames of 96x64 over 3 CPU slots (frames 0 and 3, 1 and 4, and 2)."""
     root = tmp_path_factory.mktemp("tracing_sharded")
     rig = make_rig(width=96, height=64)
     scenes = [make_scene(seed=300 + i, width=96, height=64, wave_amplitude=0.25, rig=rig, time=i * 0.25)
@@ -149,7 +149,7 @@ def sharded(tmp_path_factory):
     write_pairs(root, [(s.img0, s.img1) for s in scenes], rig)
     stereo = DenseStereoConfig(num_disp=16, min_disp=1, plane_ransac_rounds=64, plane_ransac_threshold=0.1,
                                plane_max_distance=0.3)
-    pipe = SequencePipeline(root, SequenceConfig(stereo=stereo, device="cpu", wire_delta=False))
+    pipe = SequencePipeline(root, SequenceConfig(stereo=stereo, device="cpu"))
     pipe._frame_mesh = lambda: tmesh.make_frame_mesh(devices=["cpu"] * 3)
     pipe.stereo(progress_stream=io.StringIO())
     return pipe
@@ -170,7 +170,7 @@ def _span_keys(stats):
 
 @pytest.mark.parametrize("loop", ["pipelined", "sharded"])
 def test_every_key_has_one_entry_a_frame(plain, sharded, loop):
-    stats, n = (plain[0].loop_stats, N_FRAMES) if loop == "pipelined" else (sharded.loop_stats, 2)
+    stats, n = (plain[0].loop_stats, N_FRAMES) if loop == "pipelined" else (sharded.loop_stats, 5)
     keys = _span_keys(stats)
     assert {*TOP, "loop.rig", "loop.upload", "dense.frame", "dense.plane", "plane.read", "loop.submit", "host_reads",
             "writer.finalize", "writer.device_wait", "writer.fetch", "writer.write", "prefetch.decode",
@@ -207,9 +207,7 @@ def test_top_level_spans_cover_the_call(plain):
 
 def test_one_counted_host_read_a_frame(plain, sharded):
     assert plain[0].loop_stats["host_reads"] == [1.0] * N_FRAMES
-    # A batch of 3 slots: each slot's plane read and c2f scalars, and the
-    # gather's read a slot.
-    assert sharded.loop_stats["host_reads"] == [9.0, 9.0]
+    assert sharded.loop_stats["host_reads"] == [1.0] * 5
 
 
 def test_the_log_line_is_the_finalize_span(plain):

@@ -21,9 +21,9 @@ full-range fallback included), gridding and post stages on an NVIDIA H100:
              sequence autocalibration
   stereo/    census, cost volumes, SGM, coarse-to-fine windows, plane fit,
              the dense frame pipeline, the optical-flow reconstruction, the
-             .xyzC payload (direct or delta-coded)
-  parallel/  frame meshes over torch.distributed, the frame-sharded dense
-             runner, the point-sharded bundle adjustment
+             .xyzC payload
+  parallel/  frame meshes over torch.distributed, the process-group
+             bootstrap, the point-sharded bundle adjustment
   ops/       sampling and undistortion, morphology, connected components
   core/      geometry, epipolar errors, triangulation, rectification
   prepare/   the prepare stage (CLAHE, undistortion, the polarimetric

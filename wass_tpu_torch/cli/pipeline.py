@@ -31,25 +31,22 @@ one host read left on the dispatching thread is the plane refinement's
 3x3 eigenproblem (stereo/plane.py).
 
 With more than one frame slot (more than one card, or a torch.distributed
-group of several ranks; parallel/mesh.py) and more than one frame,
-stereo() takes the JAX package's _stereo_sharded loop instead:
-batches of one frame a slot through parallel/runner.ShardedDenseRunner,
-each slot's frame uploaded and rectified on its slot's device, the
-fallback resolved in the runner, the same writers (a CUDA stream per
-writer and device), a ragged tail padded with the last frame.  Under a
-process group each rank writes its own frames' files, and rank 0 writes
-output/planes.txt and workspaces.txt from the gathered planes.
+group of several ranks; parallel/mesh.py), frame i belongs to global slot
+i % (the slot count), as in the JAX package's frame-sharded loop, and each
+process runs only the frames of its own slots: each local slot dispatches
+its frames on its slot's device with a DenseStereoPipeline of its own and
+at most dispatch_depth of them in flight, from a thread of its own when
+the process has more than one slot.  The prefetch threads and the writers
+are shared.  Under a process group each rank writes its own frames' files;
+after the drain the planes are gathered, rank 0 writes output/planes.txt
+and workspaces.txt, and a barrier ends stereo().
 
-The .xyzC payload crosses the link as u16 rows (6 bytes a point), or
-delta-coded (SequenceConfig.wire_delta: 3 bytes a point and 6 an
-exception, decoded on the host into the same rows, so the file is
-byte-identical); by default a probe of the link's and the host decode's
-rates decides once a sequence.
+The .xyzC payload crosses the link as u16 rows, 6 bytes a point.
 
 Each stereo() call leaves its spans and counters (instrument.py), summed
 per frame, in loop_stats.  The dispatching thread is always inside one of
-its top-level spans: loop.start (the AUTO smoothing, the wire probe, the
-pools), then a frame's loop.take (its prefetched pair), loop.dispatch
+its top-level spans: loop.start (the AUTO smoothing, the pools), then a
+frame's loop.take (its prefetched pair), loop.dispatch
 (loop.rig, loop.upload, loop.rectify, the dense frame's dense.* spans with
 plane.read, the frame's one counted host read, and loop.submit) and
 loop.writer_wait (the oldest frame's writer), and loop.drain.  A writer's
@@ -85,11 +82,10 @@ from wass_tpu_torch.io.ply import save_ply_points
 from wass_tpu_torch.io.png import read_gray
 from wass_tpu_torch.io.prefetch import Prefetcher
 from wass_tpu_torch.io.workdir import Workdir, frame_workdirs
-from wass_tpu_torch.io.xyzc import decode_delta_payload, save_xyz_quantized
+from wass_tpu_torch.io.xyzc import save_xyz_quantized
 from wass_tpu_torch.match.pipeline import MatchConfig, match_frame
 from wass_tpu_torch.ops import components_kernels
-from wass_tpu_torch.parallel.mesh import make_frame_mesh, rank, world_size
-from wass_tpu_torch.parallel.runner import ShardedDenseRunner
+from wass_tpu_torch.parallel.mesh import all_gather_host, local_frame_indices, make_frame_mesh, rank, world_size
 from wass_tpu_torch.prepare.prepare import PrepareConfig, prepare_frame
 from wass_tpu_torch.stereo import flow_kernels, sgm_kernels
 from wass_tpu_torch.stereo.dense import (
@@ -97,7 +93,6 @@ from wass_tpu_torch.stereo.dense import (
     DenseStereoPipeline,
     build_geom_pack,
     c2f_should_fallback,
-    export_delta,
     export_u16,
     fetch_u16,
     prepare_frame_geometry,
@@ -109,8 +104,7 @@ from wass_tpu_torch.utils.progress import progress
 
 
 # loop_stats keys that hold every duration of a span, in the order they end:
-# one an image, one a frame (a batch in the sharded loop), one a rendered
-# frame.
+# one an image, one a frame, one a rendered frame.
 LEGACY_KEYS = {"prefetch.decode": "decode_s", "loop.dispatch": "dispatch_s", "writer.render": "render_s"}
 
 
@@ -136,16 +130,6 @@ class SequenceConfig:
     # The optical-flow reconstruction (ENABLE_OPTICAL_FLOW; None: off, as in
     # the reference).
     flow: Optional[FlowConfig] = None
-    # Delta-code the .xyzC wire payload (3 bytes a point + 6 an exception
-    # row instead of 6 a point; the same file after the host decode).  It
-    # wins only where the host decodes a point faster than the link ships
-    # the ~1.5 bytes a point it saves.  None = AUTO: probe the link's
-    # download rate and the host decode rate once a sequence and take the
-    # faster path; True / False force it.  AUTO is resolved at the start of
-    # each stereo() call, on the CPU as on a card and by each rank for
-    # itself (a ~4 MB copy to the host and a 500k-point decode, ~20 ms),
-    # and the decision is stored here.
-    wire_delta: Optional[bool] = None
 
 
 class SequencePipeline:
@@ -314,13 +298,8 @@ class SequencePipeline:
                 # device; the host fetches exactly the n_points payload rows.
                 plane32 = torch.as_tensor(plane, dtype=torch.float32)
                 _Rp, _Tp, Rinv, Tinv = (a.numpy().astype(np.float64) for a in rt_from_plane(plane32))
-                plane_dev = plane32.to(res.points.device)
-                if self.cfg.wire_delta:
-                    quant, mins, scales, wire = self._fetch_delta(res, plane_dev, n_points)
-                    log_lines.append(wire)
-                else:
-                    q, mins, scales = export_u16(res.points, res.valid, plane_dev, n_points)
-                    quant = fetch_u16(q)
+                q, mins, scales = export_u16(res.points, res.valid, plane32.to(res.points.device), n_points)
+                quant = fetch_u16(q)
                 scales = scales.cpu().numpy().astype(np.float64)
                 mins = mins.cpu().numpy().astype(np.float64)
             else:
@@ -351,19 +330,6 @@ class SequencePipeline:
         with span("writer.write"):
             self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, whole)
         return plane
-
-    @staticmethod
-    def _fetch_delta(res, plane_dev, n_points: int):
-        """The delta-coded wire: the exception count is read first, and a
-        frame whose delta stream would not save 25% of the direct 6n bytes
-        (a narrow or speckled frame: mostly exceptions) takes the direct
-        fetch.  Returns (u16 rows, mins, scales, the log line)."""
-        delta_b, exc_vals, q, n_exc, mins, scales = export_delta(res.points, res.valid, plane_dev, n_points)
-        n_exc = int(n_exc)
-        if 3 * n_points + 6 * n_exc < 0.75 * 6 * n_points:
-            quant = decode_delta_payload(delta_b.cpu().numpy(), fetch_u16(exc_vals[:n_exc]))
-            return quant, mins, scales, f"wire: delta-coded, {n_exc} exception rows of {n_points}"
-        return fetch_u16(q), mins, scales, f"wire: direct ({n_exc} exception rows of {n_points})"
 
     def _launch_line(self, launches: dict) -> str:
         names = {**sgm_kernels.LAUNCHES, **components_kernels.LAUNCHES}
@@ -445,19 +411,17 @@ class SequencePipeline:
                             input_smooth_sigma=resolve_smooth_sigma(
                                 -1.0, read_gray(wds[0].undistorted_path(0)).astype(np.float32), "dense"),
                         )
-                    if self.cfg.wire_delta is None:
-                        self.cfg.wire_delta = self._probe_wire_delta(self._device())
                     mesh = self._frame_mesh()
-                if len(mesh) > 1 and len(wds) > 1:
-                    planes = self._stereo_sharded(wds, mesh, progress_stream)
-                else:
-                    planes = self._stereo_pipelined(wds, progress_stream)
+                planes = self._stereo_loop(wds, mesh, progress_stream)
                 # Under a process group every rank holds every plane (its own
                 # from its writers, the others' from the gather); rank 0
-                # writes them.
+                # writes them, and no rank returns before the files are
+                # written.
                 with span("loop.drain"):
                     if rank() == 0:
                         self._write_sequence_outputs(wds, planes)
+                    if world_size() > 1:
+                        torch.distributed.barrier()
         finally:
             self.loop_stats = recorder.stats()
         return planes
@@ -468,54 +432,6 @@ class SequencePipeline:
         if device.type == "cuda" and torch.device(self.cfg.device).index is None:
             return make_frame_mesh()
         return make_frame_mesh(devices=[device])
-
-    @staticmethod
-    def _wire_delta_decision(link_MBps: float, decode_s_per_pt: float) -> bool:
-        """The break-even: the delta codec iff the host decodes a point
-        faster than the link ships the ~1.5 bytes a point the codec saves
-        (6n direct against 3n + 6 x ~0.25n delta at the typical exception
-        share).  Both rates are per point, so the frame size cancels."""
-        link_s_per_pt = 1.5 / max(link_MBps * 1024 * 1024, 1e-9)
-        return bool(link_s_per_pt > decode_s_per_pt)
-
-    @staticmethod
-    def _probe_wire_rates(device) -> tuple:
-        """(device-to-host MB/s, host delta decode s a point): a copy of a
-        uint8 tensor on `device` to the host, timed between two
-        synchronizations (0.25 MB, then 4 MB when that took under 0.1 s),
-        and the decode of a synthetic 500k-point payload with 25%
-        exception rows, as real frames carry."""
-        device = torch.device(device)
-
-        def sync():
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-
-        mb, down = 0.25, 0.0
-        for _ in range(2):
-            x = torch.ones(int(mb * 1024 * 1024), dtype=torch.uint8, device=device)
-            sync()
-            t0 = time.perf_counter()
-            x.cpu()
-            sync()
-            dt = max(time.perf_counter() - t0, 1e-9)
-            down = mb / dt
-            if dt > 0.1:
-                break
-            mb = 4.0
-        npts = 500_000
-        rng = np.random.default_rng(0)
-        db = rng.integers(1, 256, (npts, 3)).astype(np.uint8)
-        exc = rng.random(npts) < 0.25
-        db[exc, 0] = 0
-        ev = rng.integers(0, 65535, (int(exc.sum()), 3)).astype(np.uint16)
-        t0 = time.perf_counter()
-        decode_delta_payload(db, ev)
-        return down, max(time.perf_counter() - t0, 1e-9) / npts
-
-    @classmethod
-    def _probe_wire_delta(cls, device) -> bool:
-        return cls._wire_delta_decision(*cls._probe_wire_rates(device))
 
     def _writer_finalizer(self, on_card: bool):
         """The writers' finalize: on a card each writer thread reads its
@@ -546,27 +462,31 @@ class SequencePipeline:
 
         return finalize
 
-    def _stereo_pipelined(self, wds, progress_stream=None) -> List[np.ndarray]:
+    def _stereo_loop(self, wds, mesh, progress_stream=None) -> List[np.ndarray]:
+        """The frames of this process's slots of `mesh` (frame i belongs to
+        global slot i % len(mesh)).  Returns every frame's plane: this
+        process's from its writers, the other ranks' from the gather."""
         scope = current()
         recorder = scope.recorder if scope is not None else None
         with span("loop.start"):
-            device = self._device()
-            on_card = device.type == "cuda"
-            # Deferred c2f fallback: the dispatching thread never waits for
-            # the coverage scalars; the writers resolve them.
-            pipe = DenseStereoPipeline(self.cfg.stereo, defer_c2f_fallback=True)
+            local = local_frame_indices(mesh)
+            n_slots = len(mesh)
+            on_card = mesh[local[0]].device.type == "cuda"
+            # Deferred c2f fallback: the dispatching threads never wait for
+            # the coverage scalars; the writers resolve them.  One pipeline a
+            # slot: last_c2f is the state of the latest frame.
+            pipes = {s: DenseStereoPipeline(self.cfg.stereo, defer_c2f_fallback=True) for s in local}
             depth = max(1, self.cfg.dispatch_depth)
             geom_cache: dict = {}
             planes: List[np.ndarray] = [None] * len(wds)
-            inflight: deque = deque()
             finalize = self._writer_finalizer(on_card)
 
-            def pop_oldest():
+            def pop_oldest(inflight):
                 j, fut = inflight.popleft()
                 planes[j] = fut.result()
                 progress(j + 1, len(wds), stream=progress_stream)
 
-            prefetcher = Prefetcher(4)
+            prefetcher = Prefetcher(4 * len(local))
             tickets: dict = {}
 
             def submit(i):
@@ -576,171 +496,71 @@ class SequencePipeline:
 
             writers = ThreadPoolExecutor(max_workers=max(1, self.cfg.writer_threads),
                                          thread_name_prefix="stereo-writer")
-            for i in range(depth + 1):
-                submit(i)
-        try:
-            for i, wd in enumerate(wds):
-                with frame_scope({}, i, recorder, dispatching=True) as launches:
-                    with span("loop.take"):
-                        ticket0, ticket1 = tickets.pop(i)
-                        img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
-                        submit(i + depth + 1)
-                    with span("loop.dispatch", cpu=True):
-                        with span("loop.rig"):
-                            K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
-                            R, T = wd.load_extrinsics()
-                            geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, device)
-                            b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
-                            H, W = img0.shape
-                        with span("loop.upload"):
-                            # uint8 upload from pinned memory, cast on the device.
-                            b8, m8 = (to_device(torch.from_numpy(x), device) for x in (b_img, m_img))
-                            b, m = b8.to(torch.float32), m8.to(torch.float32)
-                        with span("loop.rectify"):
-                            base_rect = rectify_on_device(b, gp["H_base"], (H, W))
-                            match_rect = rectify_on_device(m, gp["H_match"], (H, W))
-                        res = pipe(base_rect, match_rect, gp)
-                        with span("loop.submit"):
-                            extras = {"launches": launches, "frame": (i, recorder), "c2f": pipe.last_c2f, "pipe": pipe,
-                                      "rect": (base_rect, match_rect), "imgs": (b8, m8), "gp": gp}
-                            if on_card:
-                                extras["ready"] = torch.cuda.Event()
-                                extras["ready"].record()
-                            inflight.append((i, writers.submit(finalize, wd, geom, res, K0, K1, extras)))
-                    # Bound the frames in flight; the oldest one's writer has
-                    # usually finished by now.
-                    with span("loop.writer_wait"):
-                        while len(inflight) > depth:
-                            pop_oldest()
-            with span("loop.drain"):
-                while inflight:
-                    pop_oldest()
-        finally:
-            with span("loop.drain"):
-                writers.shutdown(wait=True)
-                prefetcher.close()
-        return planes
+            for s in local:
+                for k in range(depth + 1):
+                    submit(s + k * n_slots)
 
-    def _stereo_sharded(self, wds, mesh, progress_stream=None) -> List[np.ndarray]:
-        """Batches of one frame a slot of `mesh` (the JAX package's
-        _stereo_sharded).  Frames decode on 2 x (local slots) prefetch
-        threads, a batch ahead; each local slot's frame is uploaded as
-        uint8, cast and rectified on its slot's device and runs there
-        (parallel/runner.py, which also re-runs a frame whose c2f windows
-        missed); the writers finalize the frames while the next batch
-        computes.  A ragged tail repeats the last frame in the slots past
-        the end, whose results are dropped.  Under a process group each rank
-        loads, runs and writes only its own slots' frames, and records the
-        other frames' planes from the runner's gather; the loop ends with a
-        barrier, so every rank's files are written when stereo() returns.
-        The spans count per batch, and the batch's dispatch holds the
-        prefetch takes (loop.take) and the runner (runner.batch)."""
-        scope = current()
-        recorder = scope.recorder if scope is not None else None
-        with span("loop.start"):
-            runner = ShardedDenseRunner(mesh, self.cfg.stereo)
-            local_slots = runner.local
-            n_slots = len(mesh)
-            on_card = mesh[local_slots[0]].device.type == "cuda"
-            me = rank()
-            geom_cache: dict = {}
-            planes: List[np.ndarray] = [None] * len(wds)
+        def dispatch_slot(slot) -> deque:
+            """Slot `slot`'s frames on its device; returns its frames still
+            in flight."""
+            device, pipe = mesh[slot].device, pipes[slot]
             inflight: deque = deque()
-            finalize = self._writer_finalizer(on_card)
-            prefetcher = Prefetcher(2 * len(local_slots))
-            tickets: dict = {}
-
-            def submit(i):
-                if 0 <= i < len(wds) and i not in tickets:
-                    tickets[i] = (prefetcher.submit(wds[i].undistorted_path(0), i // n_slots),
-                                  prefetcher.submit(wds[i].undistorted_path(1), i // n_slots))
-
-            def pop_oldest():
-                j, fut = inflight.popleft()
-                planes[j] = fut.result()
-                progress(j + 1, len(wds), stream=progress_stream)
-
-            def batch_frame(s, slot, group_n):
-                """The frame of slot `slot` in the batch from frame s (past the
-                end: the last frame)."""
-                return s + min(slot, group_n - 1)
-
-            writers = ThreadPoolExecutor(max_workers=max(1, self.cfg.writer_threads),
-                                         thread_name_prefix="stereo-writer")
-            for slot in local_slots:
-                submit(batch_frame(0, slot, min(n_slots, len(wds))))
-                submit(n_slots + slot)
-        try:
-            for s in range(0, len(wds), n_slots):
-                group_n = min(n_slots, len(wds) - s)
-                with frame_scope({}, s // n_slots, recorder, dispatching=True):
-                    with span("loop.dispatch", cpu=True):
-                        host: dict = {}
-                        batch = []
-                        for slot in local_slots:
-                            fi = batch_frame(s, slot, group_n)
-                            if fi not in host:
-                                with span("loop.take"):
-                                    if fi in tickets:
-                                        ticket0, ticket1 = tickets.pop(fi)
-                                        img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
-                                    else:
-                                        img0 = read_gray(wds[fi].undistorted_path(0))
-                                        img1 = read_gray(wds[fi].undistorted_path(1))
-                                    submit(fi + n_slots)
-                                with span("loop.rig"):
-                                    wd = wds[fi]
-                                    K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
-                                    host[fi] = (img0, img1, K0, K1, wd.load_extrinsics())
-                            img0, img1, K0, K1, (R, T) = host[fi]
-                            dev = mesh[slot].device
+            with torch.cuda.device(device) if on_card else contextlib.nullcontext():
+                for i in range(slot, len(wds), n_slots):
+                    wd = wds[i]
+                    with frame_scope({}, i, recorder, dispatching=True) as launches:
+                        with span("loop.take"):
+                            ticket0, ticket1 = tickets.pop(i)
+                            img0, img1 = prefetcher.take(ticket0), prefetcher.take(ticket1)
+                            submit(i + (depth + 1) * n_slots)
+                        with span("loop.dispatch", cpu=True):
                             with span("loop.rig"):
-                                geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, dev)
+                                K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
+                                R, T = wd.load_extrinsics()
+                                geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, device)
                                 b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
+                                H, W = img0.shape
                             with span("loop.upload"):
                                 # uint8 upload from pinned memory, cast on the device.
-                                b8, m8 = (to_device(torch.from_numpy(x), dev) for x in (b_img, m_img))
+                                b8, m8 = (to_device(torch.from_numpy(x), device) for x in (b_img, m_img))
                                 b, m = b8.to(torch.float32), m8.to(torch.float32)
-                                batch.append((fi, geom, gp, K0, K1, b8, m8, b, m))
-                        with span("runner.batch"):
-                            results, rects, info, _mean_plane = runner.run_batch(
-                                [b[7] for b in batch], [b[8] for b in batch], [b[2] for b in batch])
-                        with span("loop.submit"):
-                            for j, slot in enumerate(local_slots):
-                                if slot >= group_n:
-                                    continue  # a padded tail slot: no frame of its own
-                                fi, geom, gp, K0, K1, b8, m8 = batch[j][:7]
-                                extras = {"launches": info["launches"][j], "frame": (s // n_slots, recorder),
-                                          "c2f": None, "rect": rects[j], "imgs": (b8, m8)}
-                                if info["coverage"] is not None:
-                                    extras["c2f"] = {"coverage": float(info["coverage"][slot]),
-                                                     "offband": float(info["offband"][slot]),
-                                                     "fallback": slot in info["fallback_frames"]}
+                            with span("loop.rectify"):
+                                base_rect = rectify_on_device(b, gp["H_base"], (H, W))
+                                match_rect = rectify_on_device(m, gp["H_match"], (H, W))
+                            res = pipe(base_rect, match_rect, gp)
+                            with span("loop.submit"):
+                                extras = {"launches": launches, "frame": (i, recorder), "c2f": pipe.last_c2f,
+                                          "pipe": pipe, "rect": (base_rect, match_rect), "imgs": (b8, m8), "gp": gp}
                                 if on_card:
                                     extras["ready"] = torch.cuda.Event()
-                                    extras["ready"].record(torch.cuda.current_stream(b8.device))
-                                fut = writers.submit(finalize, wds[fi], geom, results[j], K0, K1, extras)
-                                inflight.append((fi, fut))
-                            for slot in range(group_n):
-                                if mesh[slot].rank != me:
-                                    # Another rank's frame: its plane from the
-                                    # gather, gated as the finalizer gates it.
-                                    good = (bool(info["plane_ok"][slot])
-                                            and int(info["n_points"][slot]) >= self.cfg.stereo.min_triangulated)
-                                    planes[s + slot] = info["planes"][slot] if good else np.full(4, np.nan)
-                    with span("loop.writer_wait"):
-                        while len(inflight) > len(local_slots):
-                            pop_oldest()
+                                    extras["ready"].record()
+                                inflight.append((i, writers.submit(finalize, wd, geom, res, K0, K1, extras)))
+                        # Bound the slot's frames in flight; the oldest one's
+                        # writer has usually finished by now.
+                        with span("loop.writer_wait"):
+                            while len(inflight) > depth:
+                                pop_oldest(inflight)
+            return inflight
+
+        try:
+            if len(local) == 1:
+                pending = [dispatch_slot(local[0])]
+            else:
+                with ThreadPoolExecutor(max_workers=len(local), thread_name_prefix="frame-slot") as slots:
+                    pending = list(slots.map(dispatch_slot, local))
             with span("loop.drain"):
-                while inflight:
-                    pop_oldest()
+                for inflight in pending:
+                    while inflight:
+                        pop_oldest(inflight)
         finally:
             with span("loop.drain"):
                 writers.shutdown(wait=True)
                 prefetcher.close()
         if world_size() > 1:
             with span("loop.drain"):
-                torch.distributed.barrier()
+                for part in all_gather_host({i: p for i, p in enumerate(planes) if p is not None}):
+                    for i, plane in part.items():
+                        planes[i] = plane
         return planes
 
     def _write_sequence_outputs(self, wds, planes) -> None:

@@ -9,11 +9,13 @@ whose OpenCV decode releases the interpreter lock: the threads decode at
 once, whatever row filters the PNGs use.  A decode error is raised by
 take(), in the caller's thread.  Each decode is the span "prefetch.decode"
 of the frame given to submit(), in the recorder of the submitting
-thread's scope (instrument.py).
+thread's scope (instrument.py).  Several threads may submit and take at
+once (the stereo loop's slot threads share one Prefetcher).
 """
 
 from __future__ import annotations
 
+import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict
 
@@ -28,6 +30,7 @@ class Prefetcher:
         self._pool = ThreadPoolExecutor(max_workers=n_threads, thread_name_prefix="png-prefetch")
         self._pending: Dict[int, Future] = {}
         self._next = 0
+        self._lock = threading.Lock()
 
     @staticmethod
     def _decode(path, frame: int, recorder) -> np.ndarray:
@@ -40,9 +43,10 @@ class Prefetcher:
     def submit(self, path, frame: int = 0) -> int:
         """A ticket for the decode of `path`, timed for frame `frame`."""
         scope = instrument.current()
-        ticket = self._next
-        self._next += 1
-        self._pending[ticket] = self._pool.submit(self._decode, path, frame, scope and scope.recorder)
+        with self._lock:
+            ticket = self._next
+            self._next += 1
+            self._pending[ticket] = self._pool.submit(self._decode, path, frame, scope and scope.recorder)
         return ticket
 
     def take(self, ticket: int) -> np.ndarray:

@@ -66,42 +66,6 @@ def save_xyz_quantized(path, quant: np.ndarray, scales, mins, Rinv: np.ndarray, 
         f.write(q.tobytes())
 
 
-def decode_delta_payload(delta_b: np.ndarray, exc_vals: np.ndarray) -> np.ndarray:
-    """Reconstruct the exact compacted u16 point array (n, 3) from the
-    delta-coded wire payload (stereo/dense._stage_export_delta).
-
-    delta_b: (n, 3) u8 — biased deltas (value 0 in component 0 = sentinel
-    for an exception row).  exc_vals: (>= n_exc, 3) u16 absolute triplets
-    in scan order; extra rows are ignored.  Fully vectorized: segment
-    bases propagate with maximum.accumulate, values are base + running
-    delta sum within each segment.
-    """
-    delta_b = np.asarray(delta_b)
-    n = delta_b.shape[0]
-    if n == 0:
-        return np.zeros((0, 3), np.uint16)
-    exc = delta_b[:, 0] == 0
-    eidx = np.flatnonzero(exc)
-    n_exc = len(eidx)
-    # int32 throughout (the raw delta cumsum is bounded by 127*n < 2^31).
-    # Per-segment base propagation uses a SPARSE-correction cumsum (one
-    # scatter of n_exc rows + one extra cumsum) instead of np.repeat /
-    # (n, 3) fancy-indexing — measured 6.6 s -> ~0.1 s at 2.3e6 points on
-    # this 2-core host, which is the difference between the delta wire
-    # winning and losing end-to-end.
-    d = delta_b.astype(np.int32)
-    d -= 128
-    d[eidx] = 0
-    S = np.cumsum(d, axis=0, dtype=np.int32)  # intra-segment running sums
-    # corr[k] = value the whole segment k must be shifted by.
-    corr = np.asarray(exc_vals[:n_exc], np.int32) - S[eidx]
-    z = d  # reuse the buffer: sparse per-row correction deltas
-    z[:] = 0
-    z[eidx] = np.diff(corr, axis=0, prepend=np.zeros((1, 3), np.int32))
-    S += np.cumsum(z, axis=0, dtype=np.int32)
-    return S.astype(np.uint16)
-
-
 def load_camera_mesh(path) -> np.ndarray:
     """Decode to camera-frame points (3, N), mirroring wass_utils.py:22-35."""
     with open(path, "rb") as f:

@@ -416,32 +416,6 @@ def export_u16(pts: torch.Tensor, valid: torch.Tensor, plane: torch.Tensor, n_po
     return out[:n_points], mins, scales
 
 
-def export_delta(pts: torch.Tensor, valid: torch.Tensor, plane: torch.Tensor, n_points: Optional[int] = None):
-    """The .xyzC payload delta-coded for the wire (the JAX package's
-    _stage_export_delta): export_u16's rows, each as 3 bytes of biased
-    per-component delta to the row before (d + 128), with a sentinel 0 in
-    every byte of an exception row: point 0, and any row with a component
-    delta outside [-127, 127].  The exceptions' absolute u16 triplets are
-    compacted in scan order.  The host rebuilds the exact rows with
-    io/xyzc.decode_delta_payload.  Plain torch on the device, as in the JAX
-    package (no kernel).  Returns (delta_b (n, 3) uint8, exc_vals (n, 3)
-    int32 (the first n_exc rows used), q (n, 3) int32, n_exc (0-d int64,
-    the exceptions among the valid points), mins, scales), n the n_points
-    rows of export_u16 (n_points = H * W gives the JAX function's whole
-    buffers)."""
-    q, mins, scales = export_u16(pts, valid, plane, n_points)
-    n = q.shape[0]
-    d = q - torch.roll(q, 1, 0)
-    exc = (d.abs() > 127).any(1)
-    if n:
-        exc[0] = True
-    delta_b = torch.where(exc[:, None], 0, d + 128).to(torch.uint8)
-    target = torch.where(exc, torch.cumsum(exc, 0) - 1, n)  # other rows land in row n, dropped
-    exc_vals = torch.zeros((n + 1, 3), dtype=torch.int32, device=q.device).index_copy_(0, target, q)[:n]
-    n_exc = (exc & (torch.arange(n, device=q.device) < valid.sum())).sum()
-    return delta_b, exc_vals, q, n_exc, mins, scales
-
-
 def fetch_u16(q: torch.Tensor) -> np.ndarray:
     """(n, 3) int32 values in [0, 65535] (export_u16's q) as uint16 on the
     host: cast to int16 bits on the device, so 2 bytes a value cross the
