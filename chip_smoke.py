@@ -118,8 +118,13 @@ M. Match and autocalibrate on the card (phase M): MATCH_FRAMES workdirs of
    frame's device stages one after another (CUDA events, a synchronize
    between stages, 3 repeats) and K7's rounds on the frame's own z-gap
    mask.  The loop runs with its debug renders on (the default) and off,
-   and prints the writers' render ms a frame.  Measurement only: nothing here is counted as a launch of the
-   main path.
+   and prints the writers' render ms a frame.  Then the loop at (3, 2),
+   renders on, twice over the same frames: with each frame's device work
+   replayed from its CUDA graphs (the card's path, stereo/frame_graphs.py)
+   and run eagerly (frame_graphs.engages replaced); every file of the two
+   must be byte-equal (the logs' wall time lines aside), and the two
+   loops' frames/s and dispatch ms are printed side by side.  Measurement
+   only: nothing here is counted as a launch of the main path.
 F. The optical flow (phase F): FLOW_FRAMES of phase 5's frames through
    SequencePipeline with ENABLE_OPTICAL_FLOW=true (the flow defaults: 8
    linearisations and 200 Jacobi sweeps, the loop's defaults, renders on).
@@ -1736,6 +1741,61 @@ def dispatch_syncs(img0, img1, rig, cfg) -> list:
     return sites
 
 
+def loop_files(seq: Path) -> dict:
+    """Every file the loop wrote under seq (the logs without their wall time
+    lines), by path under seq."""
+    files = {}
+    for wd in sorted(seq.glob("*_wd")):
+        for f in sorted(p for p in wd.iterdir() if p.is_file()):
+            data = f.read_bytes()
+            if f.name == "wass_stereo_log.txt":
+                data = b"\n".join(ln for ln in data.splitlines() if b"wall time" not in ln)
+            files[f"{wd.name}/{f.name}"] = data
+    files["output/planes.txt"] = (seq / "output" / "planes.txt").read_bytes()
+    return files
+
+
+def graph_against_eager(root: Path, img0, img1, rig) -> None:
+    """Phase 5: the loop at its defaults, renders on, with each frame
+    replayed from CUDA graphs and run eagerly, on the same frames: the
+    files byte-equal, the rates side by side."""
+    import numpy as np
+
+    from wass_tpu_torch.cli.main import load_pipeline
+    from wass_tpu_torch.stereo import frame_graphs
+    from wass_tpu_torch.testing import write_sequence
+
+    engages = frame_graphs.engages
+    rates, dispatch, files, stats = {}, {}, {}, {}
+    for name, graphs in (("graph", True), ("eager", False)):
+        seq = root / f"smoke_loop_{name}"
+        write_sequence(seq, img0, img1, rig, LOOP_FRAMES)
+        frame_graphs.engages = lambda device, on=graphs: on
+        try:
+            pipe = load_pipeline(seq)
+            rates[name], dispatch[name] = [], []
+            for _ in range(3):
+                t0 = time.time()
+                pipe.stereo(progress_stream=io.StringIO())
+                rates[name].append(LOOP_FRAMES / (time.time() - t0))
+                dispatch[name] += pipe.loop_stats["dispatch_s"]
+            stats[name] = pipe.loop_stats
+        finally:
+            frame_graphs.engages = engages
+        files[name] = loop_files(seq)
+    same_files(files["graph"], files["eager"], "phase 5: the graph loop's files against the eager loop's (the logs but "
+               "the wall time lines)")
+    replays = stats["graph"].get("dense_graph_replays", [])
+    if replays != [1.0] * LOOP_FRAMES or "dense_graph_replays" in stats["eager"]:
+        raise AssertionError(f"phase 5: graph replays {replays}, eager {stats['eager'].get('dense_graph_replays')}")
+    log("phase 5 graph loop against the eager loop (dispatch_depth 3, writer_threads 2, renders on, "
+        f"{LOOP_FRAMES} frames a pass, the first pass with the warm-up): frames/s graph "
+        f"{' '.join(f'{r:.4f}' for r in rates['graph'])}, eager {' '.join(f'{r:.4f}' for r in rates['eager'])}; "
+        f"dispatch a frame graph {1e3 * np.median(dispatch['graph']):.1f} ms, eager "
+        f"{1e3 * np.median(dispatch['eager']):.1f} ms (medians); plane read a frame graph "
+        f"{1e3 * np.median(stats['graph']['plane.read']):.1f} ms, eager {1e3 * np.median(stats['eager']['plane.read']):.1f}")
+
+
 def profile_c2f_frame(root: Path, img0, img1, rig) -> dict:
     """Phase 5: the c2f frame's device stages and the sequence loop's rate.
     Returns the loop's frames/s by (dispatch_depth, writer_threads,
@@ -1775,6 +1835,8 @@ def profile_c2f_frame(root: Path, img0, img1, rig) -> dict:
             f"{1e3 * np.mean(decode):.1f} ms an image (max {1e3 * max(decode):.1f}); dispatch on the main thread "
             f"{1e3 * np.mean(dispatch):.1f} ms a frame (max {1e3 * max(dispatch):.1f}); {rendering}; peak device "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    graph_against_eager(root, img0, img1, rig)
 
     cfg = pipe.cfg.stereo  # the AUTO smoothing resolved by the loop
     dispatch_syncs(img0, img1, rig, cfg)

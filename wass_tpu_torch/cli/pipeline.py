@@ -28,7 +28,11 @@ On a card each writer thread reads its frames on a CUDA stream of its
 own, after an event recorded at the end of the frame's dispatch: a read on
 the dispatching stream would wait for every frame dispatched since.  The
 one host read left on the dispatching thread is the plane refinement's
-3x3 eigenproblem (stereo/plane.py).
+3x3 eigenproblem (stereo/dense.py:plane_normal_read).  On a card the
+dispatching thread replays each frame's rectification and dense device
+work from CUDA graphs (stereo/frame_graphs.py: a ring of graph instances a
+slot, whose inputs a frame's upload fills); the writer records the
+instance's `done` event after its last read of the frame.
 
 With more than one frame slot (more than one card, or a torch.distributed
 group of several ranks; parallel/mesh.py), frame i belongs to global slot
@@ -47,15 +51,19 @@ Each stereo() call leaves its spans and counters (instrument.py), summed
 per frame, in loop_stats.  The dispatching thread is always inside one of
 its top-level spans: loop.start (the AUTO smoothing, the pools), then a
 frame's loop.take (its prefetched pair), loop.dispatch
-(loop.rig, loop.upload, loop.rectify, the dense frame's dense.* spans with
-plane.read, the frame's one counted host read, and loop.submit) and
+(loop.rig, loop.upload, loop.rectify, the dense frame's dense.frame span
+with plane.read, the frame's one counted host read, and loop.submit) and
 loop.writer_wait (the oldest frame's writer), and loop.drain.  A writer's
 writer.finalize holds writer.device_wait (the first read that waits for
 the frame's device work), writer.rerun, writer.fetch (the export and its
 reads), writer.write (every file), writer.render and writer.flow; a
 prefetch thread's decode is prefetch.decode.  writer.render holds
 writer.render.build, .fetch, .encode and .write, and the counters
-render_bytes (the uint8 bytes fetched) and render_images (the files).
+render_bytes (the uint8 bytes fetched) and render_images (the files).  The
+dense frame's inner spans (dense.census, dense.disparity, dense.post,
+dense.plane) fire where the frame runs eagerly, and on a card only when a
+graph is captured; the counters dense_graph_replays and
+dense_graph_captures count the frames replayed and the instances captured.
 """
 
 from __future__ import annotations
@@ -87,7 +95,7 @@ from wass_tpu_torch.match.pipeline import MatchConfig, match_frame
 from wass_tpu_torch.ops import components_kernels
 from wass_tpu_torch.parallel.mesh import all_gather_host, local_frame_indices, make_frame_mesh, rank, world_size
 from wass_tpu_torch.prepare.prepare import PrepareConfig, prepare_frame
-from wass_tpu_torch.stereo import flow_kernels, sgm_kernels
+from wass_tpu_torch.stereo import flow_kernels, frame_graphs, sgm_kernels
 from wass_tpu_torch.stereo.dense import (
     DenseStereoConfig,
     DenseStereoPipeline,
@@ -96,7 +104,7 @@ from wass_tpu_torch.stereo.dense import (
     export_u16,
     fetch_u16,
     prepare_frame_geometry,
-    rectify_on_device,
+    rectify_pair,
 )
 from wass_tpu_torch.stereo.flow import FlowConfig, flow_reconstruct_frame
 from wass_tpu_torch.utils import render
@@ -223,13 +231,14 @@ class SequencePipeline:
 
     # -- stage 4: dense stereo --------------------------------------------
     def _frame_geometry(self, cache: dict, K0, K1, R, T, shape, device):
-        """Geometry + device pack, cached by rig parameters."""
+        """Geometry + device pack, cached by rig parameters; returns (geometry,
+        pack, cache key)."""
         key = (K0.tobytes(), K1.tobytes(), np.asarray(R).tobytes(), np.asarray(T).tobytes(), shape, str(device))
         hit = cache.get(key)
         if hit is None:
             H, W = shape
             geom = prepare_frame_geometry(K0, K1, R, T, (W, H), cam_distance=self.cfg.stereo.cam_distance)
-            hit = (geom, build_geom_pack(geom, shape, device))
+            hit = (geom, build_geom_pack(geom, shape, device), key)
             cache[key] = hit
         return hit
 
@@ -458,7 +467,13 @@ class SequencePipeline:
                 # The thread's JPEG encoders, whose buffers its frames reuse.
                 extras["jpeg_encoders"] = writer_local.__dict__.setdefault("jpeg_encoders", {})
                 with torch.cuda.stream(stream):
-                    return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras, whole)
+                    try:
+                        return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras, whole)
+                    finally:
+                        if "done" in extras:
+                            # After the frame's last device read: its graph
+                            # instance may take the next frame.
+                            extras["done"].record(stream)
 
         return finalize
 
@@ -504,6 +519,7 @@ class SequencePipeline:
             """Slot `slot`'s frames on its device; returns its frames still
             in flight."""
             device, pipe = mesh[slot].device, pipes[slot]
+            graphs = frame_graphs.engages(device)
             inflight: deque = deque()
             with torch.cuda.device(device) if on_card else contextlib.nullcontext():
                 for i in range(slot, len(wds), n_slots):
@@ -517,20 +533,35 @@ class SequencePipeline:
                             with span("loop.rig"):
                                 K0, K1 = wd.load_intrinsics(0), wd.load_intrinsics(1)
                                 R, T = wd.load_extrinsics()
-                                geom, gp = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape, device)
+                                geom, gp, geom_key = self._frame_geometry(geom_cache, K0, K1, R, T, img0.shape,
+                                                                          device)
                                 b_img, m_img = (img0, img1) if geom.base_is_cam0 else (img1, img0)
                                 H, W = img0.shape
-                            with span("loop.upload"):
-                                # uint8 upload from pinned memory, cast on the device.
-                                b8, m8 = (to_device(torch.from_numpy(x), device) for x in (b_img, m_img))
-                                b, m = b8.to(torch.float32), m8.to(torch.float32)
-                            with span("loop.rectify"):
-                                base_rect = rectify_on_device(b, gp["H_base"], (H, W))
-                                match_rect = rectify_on_device(m, gp["H_match"], (H, W))
-                            res = pipe(base_rect, match_rect, gp)
+                                extras = {"launches": launches, "frame": (i, recorder), "pipe": pipe}
+                                if graphs:
+                                    ring = frame_graphs.ring_for(slot, device, (H, W), b_img.dtype, pipe.cfg,
+                                                                 geom_key, gp)
+                                    inst = ring.instance(frame_graphs.instance_index(i, n_slots, depth))
+                                    gp = ring.geom_pack
+                                    extras["done"] = inst.done
+                            if graphs:
+                                with span("loop.upload"):
+                                    b8, m8 = inst.upload(b_img, m_img)
+                                with span("loop.rectify"):
+                                    base_rect, match_rect = inst.rectify(ring)
+                                with span("dense.frame"):
+                                    c2f = inst.dense(ring, pipe).c2f
+                                    res = inst.finish(ring, pipe)
+                            else:
+                                with span("loop.upload"):
+                                    # uint8 upload from pinned memory.
+                                    b8, m8 = (to_device(torch.from_numpy(x), device) for x in (b_img, m_img))
+                                with span("loop.rectify"):
+                                    base_rect, match_rect = rectify_pair(b8, m8, gp, (H, W))
+                                res = pipe(base_rect, match_rect, gp)
+                                c2f = pipe.last_c2f
                             with span("loop.submit"):
-                                extras = {"launches": launches, "frame": (i, recorder), "c2f": pipe.last_c2f,
-                                          "pipe": pipe, "rect": (base_rect, match_rect), "imgs": (b8, m8), "gp": gp}
+                                extras.update(c2f=c2f, rect=(base_rect, match_rect), imgs=(b8, m8), gp=gp)
                                 if on_card:
                                     extras["ready"] = torch.cuda.Event()
                                     extras["ready"].record()

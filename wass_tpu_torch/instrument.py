@@ -8,7 +8,10 @@ writer thread may re-run a frame at full range (the deferred c2f
 fallback).  So an increment takes a lock, and a thread that opens
 `frame_scope(launches, index, recorder)` also collects its own launches
 into `launches`: the frame's dispatch and its re-run add to the same dict,
-and no other frame's launches do.
+and no other frame's launches do.  Inside `captured_launches` (a CUDA
+graph's capture) a thread's launches are recorded instead of counted, and
+`replay_launches` counts them at each replay of the graph, as the eager
+calls would have been counted.
 
 A `span(name)` times a block of the thread that runs it, for the frame of
 the thread's scope, on `time.time_ns()`'s clock (torch.profiler's):
@@ -45,6 +48,10 @@ class LaunchCounts(dict):
 
     def add(self, key: str) -> None:
         with _lock:
+            captured = getattr(_local, "captured", None)
+            if captured is not None:
+                captured.append((self, key))
+                return
             self[key] += 1
             scope = getattr(_local, "scope", None)
             if scope is not None:
@@ -54,6 +61,26 @@ class LaunchCounts(dict):
         with _lock:
             for k in self:
                 self[k] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Record this thread's kernel launches in the block, in the list it
+    yields, instead of counting them: the block is a CUDA graph's capture,
+    whose kernels run at each replay (replay_launches)."""
+    outer = getattr(_local, "captured", None)
+    _local.captured = recorded = []
+    try:
+        yield recorded
+    finally:
+        _local.captured = outer
+
+
+def replay_launches(recorded: list) -> None:
+    """Count the launches a capture recorded, in the totals and for the
+    thread's frame, as each kernel call of the capture would have been."""
+    for counts, key in recorded:
+        counts.add(key)
 
 
 class Recorder:

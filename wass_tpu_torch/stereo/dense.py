@@ -14,10 +14,15 @@ for 2 paths) when the shapes conform, the full-range one (K1 + K3, or
 K1 + K5 for 2/4 paths and the left-right check) otherwise or when the
 coarse windows miss too much.  The component labels run K7.  On CUDA
 tensors these are the hand-written kernels, on CPU tensors their plain
-versions.  Inside a recorder's scope (instrument.py) the frame's stages
-are spans: dense.frame around the census (dense.census), the disparity
-search (dense.disparity), the postprocess, triangulation and z-gap
-components (dense.post) and the plane (dense.plane).
+versions.  A frame is three parts: `DenseStereoPipeline.device_part`, the
+device work up to the plane's covariance; the plane's normal from its one
+host read (plane.read, `plane_normal_read`); and `tail`, the plane and
+its final crop on the device.  On a card the sequence loop replays the
+device parts and the rectification from CUDA graphs (stereo/frame_graphs.py).
+Inside a recorder's scope (instrument.py) the frame's stages are spans:
+dense.frame around the census (dense.census), the disparity search
+(dense.disparity), the postprocess, triangulation and z-gap components
+(dense.post) and the plane (dense.plane).
 """
 
 from __future__ import annotations
@@ -31,13 +36,21 @@ import torch
 from wass_tpu_torch.core.geometry import homogeneous_transform, rt_from_plane
 from wass_tpu_torch.core.rectify import stereo_rectify_homographies
 from wass_tpu_torch.core.triangulate import triangulate_normalized
-from wass_tpu_torch.instrument import span
+from wass_tpu_torch.device import to_device
+from wass_tpu_torch.instrument import host_read, span
 from wass_tpu_torch.ops.components import biggest_component_mask, zgap_component_mask
 from wass_tpu_torch.ops.morphology import dilate_zero, erode_zero, median_filter, sobel
 from wass_tpu_torch.ops.sampling import resize, warp_homography
 from wass_tpu_torch.stereo import sgm_kernels
 from wass_tpu_torch.stereo.c2f import c2f_supported, coarse_disparity, compute_row_windows, windowed_disparity
-from wass_tpu_torch.stereo.plane import crop_plane, ransac_find_plane, refine_plane
+from wass_tpu_torch.stereo.plane import (
+    PlaneFit,
+    crop_plane,
+    plane_covariance,
+    plane_from_normal,
+    plane_normal,
+    ransac_find_plane,
+)
 from wass_tpu_torch.stereo.sgm import sgm_disparity_census
 
 
@@ -193,6 +206,13 @@ def rectify_on_device(img: torch.Tensor, Hm, out_shape) -> torch.Tensor:
     return warp_homography(img, Hm, out_shape)
 
 
+def rectify_pair(b8: torch.Tensor, m8: torch.Tensor, geom_pack: dict, out_shape):
+    """The rectified base and match images from the uploaded (uint8) pair,
+    cast to float32 on the device."""
+    return (rectify_on_device(b8.to(torch.float32), geom_pack["H_base"], out_shape),
+            rectify_on_device(m8.to(torch.float32), geom_pack["H_match"], out_shape))
+
+
 # --------------------------------------------------------------------------
 # Device-side stages
 # --------------------------------------------------------------------------
@@ -341,18 +361,51 @@ def outlier_removal(pts: torch.Tensor, valid: torch.Tensor, cfg: DenseStereoConf
     return zgap_component_mask(z, valid, zgap), zgap
 
 
-def plane_stage(pts: torch.Tensor, valid: torch.Tensor, cfg: DenseStereoConfig, uv: Optional[torch.Tensor] = None):
-    """RANSAC -> crop -> refine -> final crop.  Returns (plane (nan when the
-    fit failed), plane_ok, valid)."""
+class PlaneParts(NamedTuple):
+    """plane_stage's device part: RANSAC's fit, the validity before and
+    after its crop, and the refinement's covariance and centroid."""
+
+    fit: PlaneFit
+    valid: torch.Tensor
+    valid_c: torch.Tensor
+    A: torch.Tensor
+    centroid: torch.Tensor
+
+
+def plane_stage_device(pts: torch.Tensor, valid: torch.Tensor, cfg: DenseStereoConfig,
+                       uv: Optional[torch.Tensor] = None) -> PlaneParts:
+    """RANSAC -> crop -> the refinement's covariance, on the device."""
     fit = ransac_find_plane(
         pts, valid, cfg.plane_ransac_rounds, cfg.plane_ransac_threshold, seed=cfg.random_seed, uv=uv
     )
     valid_c = crop_plane(fit.plane, pts, valid, cfg.plane_ransac_threshold)
-    plane = refine_plane(
-        pts, valid_c, max_distance=cfg.plane_refine_max_distance, weight_by_distance=cfg.plane_weight_by_distance
-    )
-    valid_f = torch.where(fit.ok, crop_plane(plane, pts, valid, cfg.plane_max_distance), valid_c)
+    A, centroid = plane_covariance(pts, valid_c, cfg.plane_refine_max_distance, cfg.plane_weight_by_distance)
+    return PlaneParts(fit, valid, valid_c, A, centroid)
+
+
+def plane_stage_tail(pts: torch.Tensor, parts: PlaneParts, n: torch.Tensor, cfg: DenseStereoConfig):
+    """The refined plane from its normal n (plane_normal's, on the points'
+    device), then the final crop.  Returns (plane (nan when the fit
+    failed), plane_ok, valid)."""
+    fit = parts.fit
+    plane = plane_from_normal(n, parts.centroid)
+    valid_f = torch.where(fit.ok, crop_plane(plane, pts, parts.valid, cfg.plane_max_distance), parts.valid_c)
     return torch.where(fit.ok, plane, torch.full_like(plane, float("nan"))), fit.ok, valid_f
+
+
+def plane_normal_read(parts: PlaneParts) -> torch.Tensor:
+    """The plane's normal from its covariance read on the host: the frame's
+    one host read on the dispatching thread (plane.read; the plane parity
+    with the reference rests on these float bits)."""
+    return plane_normal(host_read(parts.A, "plane.read"))
+
+
+def plane_stage(pts: torch.Tensor, valid: torch.Tensor, cfg: DenseStereoConfig, uv: Optional[torch.Tensor] = None):
+    """RANSAC -> crop -> refine -> final crop: the device part, the normal
+    from the host read, the tail.  Returns (plane (nan when the fit
+    failed), plane_ok, valid)."""
+    parts = plane_stage_device(pts, valid, cfg, uv)
+    return plane_stage_tail(pts, parts, to_device(plane_normal_read(parts), pts.device), cfg)
 
 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -441,6 +494,17 @@ def c2f_should_fallback(coverage: float, offband: float, cfg: DenseStereoConfig)
     return coverage < cfg.c2f_min_coverage or offband > cfg.c2f_max_offband
 
 
+class FrameParts(NamedTuple):
+    """A dense frame's device work up to the plane's host read
+    (DenseStereoPipeline.device_part), the input of its finish."""
+
+    points: torch.Tensor
+    reasons: torch.Tensor
+    disparity: torch.Tensor
+    plane: PlaneParts
+    c2f: Optional[dict]  # the frame's last_c2f
+
+
 class DenseStereoPipeline:
     """One dense frame on the device of its inputs: census x2, disparity
     (the c2f or full-range branch, see the module docstring), postprocess,
@@ -498,22 +562,40 @@ class DenseStereoPipeline:
         with span("dense.post"):
             return disparity_postprocess(disp, cfg)
 
+    def device_part(self, base_rect, match_rect, geom_pack, uv=None) -> FrameParts:
+        """A frame's device work from its rectified pair up to the plane's
+        covariance: nothing in it reads the device on the host."""
+        cfg = self.cfg
+        disp = self.disparity(base_rect, match_rect)
+        with span("dense.post"):
+            pts, valid, reasons = triangulate_dense(disp, geom_pack, base_rect, match_rect, cfg)
+            keep, _ = outlier_removal(pts, valid, cfg)
+        with span("dense.plane"):
+            plane = plane_stage_device(pts, valid & keep, cfg, uv)
+        return FrameParts(pts, reasons, disp, plane, self.last_c2f)
+
+    def tail(self, parts: FrameParts, n: torch.Tensor) -> DenseFrameResult:
+        """The frame's result from its device part and the plane's normal on
+        the device (plane_stage_tail), with the point count."""
+        plane, ok, valid = plane_stage_tail(parts.points, parts.plane, n, self.cfg)
+        return DenseFrameResult(
+            points=parts.points, valid=valid, plane=plane, plane_ok=ok,
+            disparity=parts.disparity, n_points=valid.sum(), fail_reasons=parts.reasons,
+        )
+
+    def finish(self, parts: FrameParts) -> DenseFrameResult:
+        """The frame's result from its device part: the plane's normal from
+        the host read, then the tail."""
+        return self.tail(parts, to_device(plane_normal_read(parts.plane), parts.points.device))
+
     def __call__(self, base_rect, match_rect, geom_pack, uv=None) -> DenseFrameResult:
         """One frame from its rectified pair; uv optionally injects the
         RANSAC pixel picks.  (The reference's signature also takes the
         unrectified images, which nothing in it reads.)"""
-        cfg = self.cfg
         with span("dense.frame"):
-            disp = self.disparity(base_rect, match_rect)
-            with span("dense.post"):
-                pts, valid, reasons = triangulate_dense(disp, geom_pack, base_rect, match_rect, cfg)
-                keep, _ = outlier_removal(pts, valid, cfg)
+            parts = self.device_part(base_rect, match_rect, geom_pack, uv)
             with span("dense.plane"):
-                plane, ok, valid = plane_stage(pts, valid & keep, cfg, uv)
-        return DenseFrameResult(
-            points=pts, valid=valid, plane=plane, plane_ok=ok,
-            disparity=disp, n_points=valid.sum(), fail_reasons=reasons,
-        )
+                return self.finish(parts)
 
     def resolve_fallback(self, res, c2f_info, base_rect, match_rect, geom_pack, uv=None):
         """Consume the deferred c2f diagnostics of one frame: read the two

@@ -4,7 +4,11 @@ Counterpart of wass_tpu/stereo/plane.py (PovMesh::ransac_find_plane /
 crop_plane / refine_plane): all hypotheses are drawn and scored in one
 batched pass.  The pixel picks come from a torch.Generator (the
 reference's jax.random draws cannot be reproduced), or are passed in as
-`uv` so that a test can feed both packages the same picks.
+`uv` so that a test can feed both packages the same picks.  The
+refinement (the reference's refine_plane) is three parts around its one
+host read: `plane_covariance` on the device, `plane_normal` on the host
+from the covariance read there, `plane_from_normal` on the device
+(stereo/dense.py:plane_stage).
 """
 
 from __future__ import annotations
@@ -14,7 +18,6 @@ from typing import NamedTuple, Optional
 import torch
 
 from wass_tpu_torch.device import to_device
-from wass_tpu_torch.instrument import host_read
 
 
 class PlaneFit(NamedTuple):
@@ -36,6 +39,30 @@ def draw_pixels(rounds: int, height: int, width: int, seed: int) -> torch.Tensor
     return torch.stack([x, y], dim=-1)
 
 
+# (draw_pixels, rounds, height, width, seed, device) -> the picks on that
+# device.  The function is part of the key: a test may put another in its
+# place.
+_DRAWS: dict = {}
+
+
+def ransac_draws(rounds: int, height: int, width: int, seed: int, device) -> torch.Tensor:
+    """draw_pixels(rounds, height, width, seed) on `device`, copied there once
+    and kept: a frame's picks depend on its configuration and shape only,
+    and a copy made inside a CUDA graph's capture would read, at each
+    replay, a pinned buffer freed after the capture."""
+    device = torch.device(device)
+    key = (draw_pixels, rounds, height, width, seed, device)
+    uv = _DRAWS.get(key)
+    if uv is None:
+        uv = to_device(torch.as_tensor(draw_pixels(rounds, height, width, seed)), device).to(torch.int64)
+        if device.type == "cuda":
+            # Copied on this thread's stream, then read from every stream
+            # (the writers' re-runs): let it land first.
+            torch.cuda.current_stream(device).synchronize()
+        _DRAWS[key] = uv
+    return uv
+
+
 def ransac_find_plane(
     points: torch.Tensor,
     valid: torch.Tensor,
@@ -50,8 +77,9 @@ def ransac_find_plane(
     H, W, _ = points.shape
     mindist = H * 0.01
     if uv is None:
-        uv = draw_pixels(rounds, H, W, seed)
-    uv = to_device(torch.as_tensor(uv), points.device).to(torch.int64)
+        uv = ransac_draws(rounds, H, W, seed, points.device)
+    else:
+        uv = to_device(torch.as_tensor(uv), points.device).to(torch.int64)
 
     npix = H * W
     stride = 4 if npix > (1 << 21) else (2 if npix > (1 << 20) else 1)
@@ -93,14 +121,14 @@ def crop_plane(plane: torch.Tensor, points: torch.Tensor, valid: torch.Tensor, t
     return valid & (plane_distance(plane, points) < threshold)
 
 
-def refine_plane(
+def plane_covariance(
     points: torch.Tensor,
     valid: torch.Tensor,
     max_distance: float = 70.0,
     weight_by_distance: bool = True,
-) -> torch.Tensor:
-    """Weighted LLS plane: camera-distance weights, weighted centroid and
-    covariance, normal = smallest eigenvector, flipped toward the camera."""
+):
+    """The weighted LLS plane's device part: camera-distance weights, the
+    weighted centroid and 3x3 covariance.  Returns (covariance, centroid)."""
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     dist = torch.sqrt(x * x + y * y + z * z)
     m = valid & (dist < max_distance)
@@ -109,11 +137,20 @@ def refine_plane(
     centroid = torch.einsum("...c,...->c", points, w) / wsum
     diff = torch.where(m[..., None], points - centroid, 0.0)
     A = torch.einsum("...i,...j,...->ij", diff, diff, w)
-    # The 3x3 eigenproblem runs on the host (LAPACK), not worth a device
-    # solver: the frame's one host read on the dispatching thread (the
-    # plane parity with the reference rests on these float bits).
-    _evals, evecs = torch.linalg.eigh(host_read(A, "plane.read"))
-    n = to_device(evecs[:, 0], points.device)
+    return A, centroid
+
+
+def plane_normal(A: torch.Tensor) -> torch.Tensor:
+    """The weighted LLS plane's normal, unnormalized and unflipped: the
+    smallest eigenvector of its covariance A, on the host (LAPACK, not
+    worth a device solver for a 3x3)."""
+    _evals, evecs = torch.linalg.eigh(A)
+    return evecs[:, 0]
+
+
+def plane_from_normal(n: torch.Tensor, centroid: torch.Tensor) -> torch.Tensor:
+    """The plane through the centroid with normal n (on the centroid's
+    device), normalized and flipped toward the camera."""
     n = n / torch.clamp_min(torch.linalg.norm(n), 1e-20)
     n = torch.where(n[2] < 0, -n, n)
     d = -(n * centroid).sum()
