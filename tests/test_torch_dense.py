@@ -238,6 +238,108 @@ def test_fma32_rounds_once(rng):
     assert out[-1] == np.float32(1 + 2.0**-23)
 
 
+def _doubtful(a, b, c) -> bool:
+    """Whether a float64 sum a * b + c of fma32's lands where rounding it to
+    float32 alone could round the exact value the wrong way: on a float32
+    tie, or, not 0, below float32's normal range."""
+    s = a.double() * b.double() + c.double()
+    return bool((((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | ((s != 0) & (s.abs() < 2.0**-126))).any())
+
+
+def _fma_triples(rng, case):
+    """2000 float32 triples: in float32's normal range with no doubtful sum,
+    or with products and sums below it."""
+    a = (rng.standard_normal(2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    b = rng.standard_normal(2000).astype(np.float32)
+    c = (rng.standard_normal(2000) * 10.0 ** rng.integers(-3, 4, 2000)).astype(np.float32)
+    if case == "subnormal":
+        a = (a * np.float32(1e-19)).astype(np.float32)
+        b = (b * np.float32(1e-20)).astype(np.float32)
+        c = (rng.standard_normal(2000) * 1e-39).astype(np.float32)
+    return a, b, c
+
+
+@pytest.mark.parametrize("case", ["no_doubt", "subnormal"])
+def test_fma32_rounds_once_on_every_element(rng, case):
+    """fma32 takes its step to odd on every element, doubtful or not:
+    against exact rational arithmetic on triples with no doubtful sum, where
+    rounding the float64 sum alone is already right, and on sums below
+    float32's normal range, where it is not."""
+    from fractions import Fraction
+
+    a, b, c = _fma_triples(rng, case)
+    assert _doubtful(_t(a), _t(b), _t(c)) == (case == "subnormal")
+    exact = np.array([_round_f32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                      for x, y, z in zip(a, b, c)], np.float32)
+    out = td.fma32(_t(a), _t(b), _t(c)).numpy()
+    np.testing.assert_array_equal(out.view(np.int32), exact.view(np.int32))
+    if case == "no_doubt":
+        # Rounded once from float64, as the fix's absence would have it.
+        direct = (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
+        np.testing.assert_array_equal(out.view(np.int32), direct.view(np.int32))
+
+
+def _frame_result(pts, valid, plane, ok=True):
+    H, W = valid.shape
+    return td.DenseFrameResult(points=_t(pts), valid=_t(valid), plane=_t(plane), plane_ok=torch.tensor(ok),
+                               disparity=torch.zeros((H, W)), n_points=_t(valid).sum())
+
+
+# export_frame's cases: a surface of SURFACES, and whether the float64 sums
+# of its plane-frame transform hold a doubtful one (a float32 tie: the step
+# and narrow surfaces hold some; "subnormal" plants a point whose z lies
+# below float32's normal range on the wide smooth one).
+EXPORT_CASES = {"wide_smooth": False, "wide_speckled": False, "step": True, "narrow": True, "subnormal": True}
+
+
+@pytest.mark.parametrize("c2f", [False, True], ids=["full_range", "c2f"])
+@pytest.mark.parametrize("case", sorted(EXPORT_CASES))
+def test_export_frame_is_the_writers_export(rng, case, c2f):
+    """export_frame's payload rows [:n_points] and its header, bit for bit,
+    are what the writer read through export_u16, fetch_u16 and the plane's
+    reads: on frames with a doubtful fma32 sum in their plane-frame
+    transform and on frames without."""
+    from wass_tpu_torch.core.geometry import rt_from_plane
+
+    pts, valid, plane = SURFACES["wide_smooth" if case == "subnormal" else case](rng)
+    if case == "subnormal":
+        pts[0, 0] = (0.0, 0.0, 1e-40)
+        valid[0, 0] = True
+    res = _frame_result(pts, valid, plane)
+    Rp = rt_from_plane(res.plane)[0]
+    P = res.points.reshape(-1, 3)
+    acc = P[:, 0:1] * Rp[:, 0]
+    doubt = _doubtful(P[:, 1:2], Rp[:, 1], acc) or _doubtful(P[:, 2:3], Rp[:, 2], td.fma32(P[:, 1:2], Rp[:, 1], acc))
+    assert doubt == EXPORT_CASES[case]
+    diag = {"coverage": torch.tensor(0.8125), "offband": torch.tensor(3e-4), "fallback": None} if c2f else None
+
+    ex = td.export_frame(res, diag)
+    H, W = valid.shape
+    n = int(valid.sum())
+    assert ex.payload.shape == (H * W + 1, 3) and ex.payload.dtype == torch.int16
+    assert ex.header.shape == (td.HEADER_LEN,) and ex.header.dtype == torch.float64
+    q, mins, scales = td.export_u16(res.points, res.valid, res.plane, int(res.n_points))
+    assert ex.payload[:n].numpy().view(np.uint16).tobytes() == td.fetch_u16(q).tobytes()
+    head = td.unpack_header(ex.header.numpy())
+    assert head["n_points"] == int(res.n_points) and head["plane_ok"] is bool(res.plane_ok)
+    assert head["plane"].tobytes() == res.plane.cpu().numpy().astype(np.float64).tobytes()
+    assert head["mins"].tobytes() == mins.cpu().numpy().astype(np.float64).tobytes()
+    assert head["scales"].tobytes() == scales.cpu().numpy().astype(np.float64).tobytes()
+    if c2f:
+        assert (head["coverage"], head["offband"]) == (float(diag["coverage"]), float(diag["offband"]))
+    else:
+        assert np.isnan(head["coverage"]) and np.isnan(head["offband"])
+
+
+def test_export_frame_of_a_failed_fit(rng):
+    """A frame whose plane fit failed (a nan plane, plane_ok false) exports
+    without error; its header says so, and the writer reads no payload."""
+    pts, valid, _plane = SURFACES["narrow"](rng)
+    ex = td.export_frame(_frame_result(pts, valid, np.full(4, np.nan, np.float32), ok=False))
+    head = td.unpack_header(ex.header.numpy())
+    assert head["plane_ok"] is False and np.isnan(head["plane"]).all() and head["n_points"] == int(valid.sum())
+
+
 @pytest.mark.parametrize("sigma", [0.0, -1.0], ids=["sigma0", "auto"])
 def test_slice_given_rectified_images(frame, eager_float_stages, sigma):
     """Port DenseStereoPipeline (CPU, plain versions) vs the JAX one on JAX's

@@ -79,6 +79,26 @@ def test_split_plane_stage_is_the_whole_one(seed, shape, weighted):
     assert torch.equal(again[0].view(torch.int32), plane.view(torch.int32)) and torch.equal(again[2], valid_f)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plane_read_into_a_buffer_is_the_plain_read(seed):
+    """The plane's read into a buffer of the caller's (a ring instance's
+    pinned one on a card) gives the plain read's normal bit for bit, leaves
+    the covariance in the buffer, and counts as the dispatching thread's
+    one host read all the same."""
+    from wass_tpu_torch.instrument import Recorder
+
+    pts, valid = _cloud(seed, 48, 64)
+    parts = plane_stage_device(pts, valid, DenseStereoConfig(random_seed=seed, plane_ransac_threshold=0.2))
+    buf = torch.full((3, 3), float("nan"))
+    rec = Recorder()
+    with frame_scope({}, 0, rec, dispatching=True):
+        plain = plane_normal_read(parts)
+        into = plane_normal_read(parts, buf)
+    assert torch.equal(into.view(torch.int32), plain.view(torch.int32))
+    assert torch.equal(buf.view(torch.int32), parts.A.view(torch.int32))
+    assert rec.stats()["host_reads"] == [2.0]
+
+
 def test_failed_fit_gives_nan_and_the_crop():
     """A cloud with no plane: the fit fails, the plane is nan and the mask
     the first crop's, in both compositions."""

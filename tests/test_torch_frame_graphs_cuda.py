@@ -3,7 +3,8 @@ loop that replays each frame from a ring of graph instances against the
 same loop run eagerly (frame_graphs.engages replaced), frame by frame and
 file by file, with one slot and with two slots on one card, a rig that
 changes mid-sequence, and a shape that fails the c2f gate (the full-range
-branch in graph D, with its counters).
+branch in graph D, with its counters); the frame's .xyzC export as graph
+F's static outputs, written anew at every replay.
 
 Marked `cuda`: they need an NVIDIA GPU and nvcc and skip without them.
 Run them on the GPU machine, which has no jax for the shared conftest, with
@@ -67,9 +68,13 @@ def _tilt(wd, deg: float) -> None:
     wd.save_extrinsics(Ry @ R, T)
 
 
-def _run(tmp_path, name, monkeypatch, graphs: bool, slots: int = 1, depth: int = 3, tilted=(), height=H):
+def _run(tmp_path, name, monkeypatch, graphs: bool, slots: int = 1, depth: int = 3, tilted=(), height=H,
+         scribble=None):
     """The loop over the frames; returns (every frame's tensors and c2f
-    scalars as its writer received them, every file, loop_stats)."""
+    scalars as its writer received them, every file, loop_stats).  With a
+    list `scribble`, each writer appends (its frame, the addresses of its
+    export's payload and header) and, after its reads, overwrites both (the
+    payload with -1, the header with nan) on its stream."""
     from wass_tpu_torch.io.workdir import Workdir
 
     pairs, rig = _pairs(height)
@@ -87,7 +92,13 @@ def _run(tmp_path, name, monkeypatch, graphs: bool, slots: int = 1, depth: int =
             **{f: getattr(res, f).cpu().clone() for f in ("points", "valid", "plane", "disparity", "fail_reasons")},
             **({} if c2f is None else {"coverage": float(c2f["coverage"]), "offband": float(c2f["offband"])}),
         }
-        return finalize(self, wd, geom, res, K0, K1, extras, whole)
+        plane = finalize(self, wd, geom, res, K0, K1, extras, whole)
+        if scribble is not None:
+            ex = extras["export"]
+            scribble.append((wd.path.name, (ex.payload.data_ptr(), ex.header.data_ptr())))
+            ex.payload.fill_(-1)
+            ex.header.fill_(float("nan"))
+        return plane
 
     monkeypatch.setattr(SequencePipeline, "_finalize_stereo_frame", keep)
     monkeypatch.setattr(frame_graphs, "engages", lambda device: graphs)
@@ -223,3 +234,29 @@ def test_evicted_rings_free_their_memory(dev, tmp_path, monkeypatch, fresh_rings
         assert len(rings) == min(k + 1, frame_graphs.KEYS_PER_SLOT)
     assert first() is None
     assert reserved[-1] <= 2 * reserved[1], reserved
+
+
+@pytest.mark.parametrize("height", [H, H_FULL], ids=["c2f", "full_range"])
+def test_graph_f_writes_the_export_every_replay(dev, tmp_path, monkeypatch, fresh_rings, height):
+    """The export's payload and header are graph F's static outputs: frames
+    k and k + 4 of a ring of depth 3 get the same two tensors, other frames
+    others.  Each writer overwrites its frame's export after its two reads,
+    yet every frame's .xyzC and plane.txt (every file) equal the eager
+    loop's, in the c2f and the full-range branch: each replay of F writes
+    the export anew."""
+    seen = []
+    graph = _run(tmp_path, "graph", monkeypatch, True, height=height, scribble=seen)
+    eager = _run(tmp_path, "eager", monkeypatch, False, height=height)
+    _same(graph, eager, full_range=height == H_FULL)
+    ptrs = dict(seen)
+    names = sorted(ptrs)
+    assert len(names) == N_FRAMES
+    for k, a in enumerate(names):
+        for j, b in enumerate(names):
+            assert (ptrs[a] == ptrs[b]) == (k % 4 == j % 4), (a, b)
+    for stats in (graph[2], eager[2]):
+        assert stats["writer_host_reads"] == [2.0] * N_FRAMES
+    # The plane's read lands in pinned memory: a pageable one would hold
+    # the CUDA driver, and the writers' reads with it, until D ends.
+    (ring,) = frame_graphs._RINGS[(0, "cuda:0")].values()
+    assert len(ring.instances) == 4 and all(inst.cov_staging.is_pinned() for inst in ring.instances.values())

@@ -107,6 +107,21 @@ def test_progress_lines_in_order_and_windowed(serial):
         assert [ln.split("] ")[1].split()[-1] for ln in log.splitlines() if "c2f window coverage" in ln] == ["windowed"]
 
 
+def test_returned_planes_are_the_frames_own(serial):
+    """stereo() returns, and output/planes.txt holds, each frame's own plane
+    (its plane.txt), though one writer reads every frame's export header
+    into the same buffer."""
+    seq, planes, _ = serial
+    wds = sorted(seq.glob("*_wd"))
+    rows = np.loadtxt(seq / "output" / "planes.txt")
+    assert len(wds) == len(planes) == len(rows) == N_FRAMES
+    for i, wd in enumerate(wds):
+        own = np.loadtxt(wd / "plane.txt")
+        np.testing.assert_array_equal(planes[i], own)
+        np.testing.assert_array_equal(rows[i], own)
+    assert len({tuple(p) for p in planes}) == 2  # the two scenes
+
+
 def test_deferred_fallback_equals_full_range(base):
     """A frame whose guard trips (coverage never reaches 1.01) is re-run at
     full range by its writer: byte for byte the c2f_window = 0 frame, and

@@ -9,7 +9,9 @@ render_device_images, render_images) inside writer.render, none with the
 renders off, and the
 benchmark's readers of them; and the profiler ranges: one
 record_function range a span, on the span's clock, while a profiler
-records, and none otherwise."""
+records, and none otherwise; the writers' two counted host reads a frame
+(the export's header and payload), whose .xyzC files are the old
+writer-side export's, byte for byte."""
 
 import dataclasses
 import io
@@ -20,6 +22,7 @@ import types
 from collections import Counter
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,9 +31,11 @@ from wass_tpu_torch import instrument
 from wass_tpu_torch.cli import pipeline as pipeline_mod
 from wass_tpu_torch.cli.main import load_pipeline
 from wass_tpu_torch.cli.pipeline import LEGACY_KEYS, SequenceConfig, SequencePipeline
+from wass_tpu_torch.core.geometry import rt_from_plane
 from wass_tpu_torch.instrument import Recorder, count, frame_scope, host_read, span
+from wass_tpu_torch.io.xyzc import save_xyz_quantized
 from wass_tpu_torch.parallel import mesh as tmesh
-from wass_tpu_torch.stereo.dense import DenseStereoConfig
+from wass_tpu_torch.stereo.dense import DenseStereoConfig, export_u16, fetch_u16
 from wass_tpu_torch.testing import write_pairs, write_sequence
 from wass_tpu_torch.testing.synthetic import make_rig, make_scene
 from torch_registries import reset_registries  # noqa: F401  (autouse)
@@ -393,3 +398,46 @@ def test_renders_off_record_no_render_phase(plain, norender):
         assert read(types.SimpleNamespace(loop_stats=on)) == pytest.approx(scale * sum(on[key]) / N_FRAMES), name
     assert bench_spec.metric_reader("writers.render_mb")(types.SimpleNamespace(loop_stats=on)) == pytest.approx(
         20 * 192 * 256 / 1e6)
+
+
+@pytest.mark.parametrize("loop", ["pipelined", "sharded"])
+def test_two_writer_reads_a_frame(plain, sharded, loop):
+    """Every frame's writer reads its export twice (the header, the payload
+    rows), counted apart from the dispatching thread's one read, and the
+    benchmark's reader gives their mean."""
+    stats, n = (plain[0].loop_stats, N_FRAMES) if loop == "pipelined" else (sharded.loop_stats, 5)
+    assert stats["writer_host_reads"] == [2.0] * n
+    assert stats["host_reads"] == [1.0] * n
+    read = bench_spec.metric_reader("writers.host_reads")
+    assert read(types.SimpleNamespace(loop_stats=stats)) == 2.0
+
+
+def test_xyzc_files_are_the_writers_old_export(seq, tmp_path, monkeypatch):
+    """Each frame's mesh_cam.xyzC, from the export made with the frame and
+    two reads, is byte for byte the file of the writer's old export: the
+    plane read on the host, export_u16 and fetch_u16 on the writer, the
+    plane's inverse transform from the host's copy."""
+    pipe = _pipelined(seq, "old_export")
+    pipe.cfg.debug_renders = False
+    old = {}
+    finalize = SequencePipeline._finalize_stereo_frame
+
+    def keep(self, wd, geom, res, K0, K1, extras, whole):
+        plane = finalize(self, wd, geom, res, K0, K1, extras, whole)
+        plane32 = torch.as_tensor(res.plane.cpu().numpy().astype(np.float64), dtype=torch.float32)
+        _Rp, _Tp, Rinv, Tinv = (a.numpy().astype(np.float64) for a in rt_from_plane(plane32))
+        q, mins, scales = export_u16(res.points, res.valid, plane32, int(res.n_points))
+        path = tmp_path / f"{wd.path.name}.xyzC"
+        save_xyz_quantized(path, fetch_u16(q), scales.numpy().astype(np.float64), mins.numpy().astype(np.float64),
+                           Rinv, Tinv)
+        old[wd.path.name] = path.read_bytes()
+        return plane
+
+    monkeypatch.setattr(SequencePipeline, "_finalize_stereo_frame", keep)
+    pipe.stereo(progress_stream=io.StringIO())
+    wds = sorted(Path(pipe.outdir).glob("*_wd"))
+    assert sorted(old) == [wd.name for wd in wds] and len(wds) == N_FRAMES
+    for wd in wds:
+        assert "windowed" in (wd / "wass_stereo_log.txt").read_text()
+        assert (wd / "mesh_cam.xyzC").read_bytes() == old[wd.name], wd.name
+    assert pipe.loop_stats["writer_host_reads"] == [2.0] * N_FRAMES

@@ -45,7 +45,12 @@ are shared.  Under a process group each rank writes its own frames' files;
 after the drain the planes are gathered, rank 0 writes output/planes.txt
 and workspaces.txt, and a barrier ends stereo().
 
-The .xyzC payload crosses the link as u16 rows, 6 bytes a point.
+Each frame's .xyzC export is made on the device with the frame (on a card
+at the end of graph F): its payload, u16 rows of 6 bytes a point, and a
+float64 header (the point count, the plane, the quantization's mins and
+scales, the c2f diagnostics).  A writer copies the header, then the
+payload's first n_points rows, each in one read into buffers of its
+thread (pinned on a card).
 
 Each stereo() call leaves its spans and counters (instrument.py), summed
 per frame, in loop_stats.  The dispatching thread is always inside one of
@@ -54,9 +59,12 @@ frame's loop.take (its prefetched pair), loop.dispatch
 (loop.rig, loop.upload, loop.rectify, the dense frame's dense.frame span
 with plane.read, the frame's one counted host read, and loop.submit) and
 loop.writer_wait (the oldest frame's writer), and loop.drain.  A writer's
-writer.finalize holds writer.device_wait (the first read that waits for
-the frame's device work), writer.rerun, writer.fetch (the export and its
-reads), writer.write (every file), writer.render and writer.flow; a
+writer.finalize holds writer.device_wait (the read of the export's header,
+the first that waits for the frame's device work), writer.rerun,
+writer.fetch (the read of its payload rows), writer.write (every file),
+writer.render and writer.flow, and the counter writer_host_reads (the
+writer's reads through instrument.host_read: 2 a frame, 1 where the
+frame fails, more where it re-runs or has no usable plane); a
 prefetch thread's decode is prefetch.decode.  writer.render holds
 writer.render.build, .fetch, .encode and .write, and the counters
 render_bytes (the uint8 bytes fetched) and render_images (the files).  The
@@ -88,7 +96,7 @@ import torch
 from wass_tpu_torch.calib.autocalibrate import AutocalConfig, autocalibrate_sequence
 from wass_tpu_torch.core.geometry import rt_from_plane
 from wass_tpu_torch.device import on_cuda, resolve_device, to_device
-from wass_tpu_torch.instrument import Recorder, count, current, frame_scope, span
+from wass_tpu_torch.instrument import Recorder, count, current, frame_scope, host_read, span
 from wass_tpu_torch.io import jpeg
 from wass_tpu_torch.io.image import RENDER_QUALITY, encode_jpeg
 from wass_tpu_torch.io.ply import save_ply_points
@@ -102,14 +110,17 @@ from wass_tpu_torch.parallel.mesh import all_gather_host, local_frame_indices, m
 from wass_tpu_torch.prepare.prepare import PrepareConfig, prepare_frame
 from wass_tpu_torch.stereo import flow_kernels, frame_graphs, sgm_kernels
 from wass_tpu_torch.stereo.dense import (
+    HEADER_LEN,
     DenseStereoConfig,
     DenseStereoPipeline,
+    FrameExport,
     build_geom_pack,
     c2f_should_fallback,
+    export_frame,
     export_u16,
-    fetch_u16,
     prepare_frame_geometry,
     rectify_pair,
+    unpack_header,
 )
 from wass_tpu_torch.stereo.flow import FlowConfig, flow_reconstruct_frame
 from wass_tpu_torch.utils import render
@@ -119,6 +130,39 @@ from wass_tpu_torch.utils.progress import progress
 # loop_stats keys that hold every duration of a span, in the order they end:
 # one an image, one a frame, one a rendered frame.
 LEGACY_KEYS = {"prefetch.decode": "decode_s", "loop.dispatch": "dispatch_s", "writer.render": "render_s"}
+
+
+def frame_export(res, c2f) -> FrameExport:
+    """A frame's .xyzC export on its device (dense.export_frame, its rows
+    quantized by export_u16): at the end of graph F on a card, right after
+    the frame's dense work where it runs eagerly, and after a writer's
+    full-range re-run."""
+    return export_frame(res, c2f, export_u16)
+
+
+def _host_buffer(buffers: dict, key: str, like: torch.Tensor, rows: int) -> torch.Tensor:
+    """The first `rows` rows of the writer thread's host buffer `key`, made
+    in like's shape and type (pinned where like is on a card), and made
+    again where it is of another type or holds fewer rows."""
+    buf = buffers.get(key)
+    if buf is None or buf.dtype != like.dtype or buf.shape[0] < rows:
+        buf = buffers[key] = torch.empty(like.shape, dtype=like.dtype, pin_memory=like.is_cuda)
+    return buf[:rows]
+
+
+def _read_header(export: FrameExport, buffers: dict) -> dict:
+    """The export's header on the host, by field (writer.device_wait): one
+    read, into the thread's buffer."""
+    out = _host_buffer(buffers, "header", export.header, HEADER_LEN)
+    return unpack_header(host_read(export.header, "writer.device_wait", out).numpy())
+
+
+def _read_payload(export: FrameExport, n_points: int, buffers: dict) -> np.ndarray:
+    """The export's first n_points rows as uint16 on the host
+    (writer.fetch): one read, into the thread's buffer, whose view it
+    returns, valid until the thread's next frame."""
+    out = _host_buffer(buffers, "payload", export.payload, n_points)
+    return host_read(export.payload[:n_points], "writer.fetch", out).numpy().view(np.uint16)
 
 
 @dataclasses.dataclass
@@ -250,31 +294,35 @@ class SequencePipeline:
     def _finalize_stereo_frame(self, wd: Workdir, geom, res, K0, K1, extras: dict, whole) -> np.ndarray:
         """Per-frame outputs, on a writer thread; the first host reads of the
         frame's results.  extras: the frame's kernel launches ("launches"),
-        the uploaded uint8 base and match images ("imgs") and the rectified
-        pair ("rect") for the renders, and, when c2f ran, its deferred
-        diagnostics ("c2f"), the pipeline ("pipe") and the geometry pack
-        ("gp") for a full-range re-run.  The frame's flow kernels count in
-        its launches too.  whole: the writer.finalize span, whose seconds so
+        its .xyzC export made on the device with the frame ("export",
+        frame_export's), the uploaded uint8 base and match images ("imgs")
+        and the rectified pair ("rect") for the renders, and, when c2f ran,
+        its deferred diagnostics ("c2f"), the pipeline ("pipe") and the
+        geometry pack ("gp") for a full-range re-run, and the writer
+        thread's host buffers ("host_buffers").  A frame's writer
+        reads its export's header, then its payload rows: two reads
+        (writer_host_reads), one where the frame fails, more where it
+        re-runs or has no usable plane.  The frame's flow kernels count in its
+        launches too.  whole: the writer.finalize span, whose seconds so
         far the log's wall time line gives."""
         c2f = extras.get("c2f")
         pending = c2f is not None and c2f["fallback"] is None
-        n_points = None
-        with span("writer.device_wait"):
-            # The first host read waits for the frame's device work: the
-            # deferred c2f scalars, or the point count.
-            if pending:
-                c2f = {**c2f, "coverage": float(c2f["coverage"]), "offband": float(c2f["offband"])}
-            else:
-                n_points = int(res.n_points)
+        export, buffers = extras["export"], extras["host_buffers"]
+        # The first host read waits for the frame's device work.
+        head = _read_header(export, buffers)
         if pending:
             # Deferred c2f fallback: re-run the frame at full range if the
             # guard trips; its launches count for this frame.
+            c2f = {**c2f, "coverage": head["coverage"], "offband": head["offband"]}
             pipe = extras["pipe"]
             rerun = c2f_should_fallback(c2f["coverage"], c2f["offband"], pipe.cfg)
             with span("writer.rerun") if rerun else contextlib.nullcontext():
                 res, c2f = pipe.resolve_fallback(res, c2f, *extras["rect"], extras["gp"])
-            with span("writer.device_wait"):
-                n_points = int(res.n_points)
+                if rerun:
+                    export = frame_export(res, None)
+            if rerun:
+                head = _read_header(export, buffers)
+        n_points = head["n_points"]
         log_lines = []
         if c2f is not None:
             log_lines.append(
@@ -301,28 +349,22 @@ class SequencePipeline:
                 self._write_stereo_log(wd, [self._launch_line(extras["launches"])] + log_lines, whole)
             return np.full(4, np.nan)
 
-        with span("writer.fetch"):
-            plane = res.plane.cpu().numpy().astype(np.float64)
-            if not bool(res.plane_ok):
-                plane = np.full(4, np.nan)
-            log_lines.append("plane: " + " ".join(f"{v:.6g}" for v in plane))
-            finite = bool(np.all(np.isfinite(plane)))
-            if finite:
-                # Sea-plane-frame u16 payload quantized and compacted on the
-                # device; the host fetches exactly the n_points payload rows.
-                plane32 = torch.as_tensor(plane, dtype=torch.float32)
-                _Rp, _Tp, Rinv, Tinv = (a.numpy().astype(np.float64) for a in rt_from_plane(plane32))
-                q, mins, scales = export_u16(res.points, res.valid, plane32.to(res.points.device), n_points)
-                quant = fetch_u16(q)
-                scales = scales.cpu().numpy().astype(np.float64)
-                mins = mins.cpu().numpy().astype(np.float64)
-            else:
-                valid = res.valid.cpu().numpy()
-                pts = res.points.cpu().numpy().astype(np.float64)[valid]
+        plane = head["plane"] if head["plane_ok"] else np.full(4, np.nan)
+        log_lines.append("plane: " + " ".join(f"{v:.6g}" for v in plane))
+        finite = bool(np.all(np.isfinite(plane)))
+        if finite:
+            # The sea-plane-frame u16 payload, quantized and compacted on the
+            # device; the host fetches exactly the n_points payload rows.
+            _Rp, _Tp, Rinv, Tinv = (a.numpy().astype(np.float64)
+                                    for a in rt_from_plane(torch.as_tensor(plane, dtype=torch.float32)))
+            quant = _read_payload(export, n_points, buffers)
+        else:
+            valid = host_read(res.valid, "writer.fetch").numpy()
+            pts = host_read(res.points, "writer.fetch").numpy().astype(np.float64)[valid]
         with span("writer.write"):
             wd.save_plane(plane if finite else None)
             if finite:
-                save_xyz_quantized(wd.path / "mesh_cam.xyzC", quant, scales, mins, Rinv, Tinv)
+                save_xyz_quantized(wd.path / "mesh_cam.xyzC", quant, head["scales"], head["mins"], Rinv, Tinv)
             else:
                 wd.save_mesh(pts, np.eye(3), np.zeros(3))
 
@@ -448,13 +490,15 @@ class SequencePipeline:
         return make_frame_mesh(devices=[device])
 
     def _writer_finalizer(self, on_card: bool):
-        """The writers' finalize: on a card each writer thread reads its
-        frames on a CUDA stream of its own for each device, after the
-        frame's `ready` event, and keeps its JPEG encoders."""
+        """The writers' finalize: each writer thread keeps the host buffers
+        it reads its frames' exports into (pinned on a card); on a card it
+        reads its frames on a CUDA stream of its own for each device, after
+        the frame's `ready` event, and keeps its JPEG encoders."""
         writer_local = threading.local()
 
         def finalize(wd, geom, res, K0, K1, extras):
             index, recorder = extras["frame"]
+            extras["host_buffers"] = writer_local.__dict__.setdefault("host_buffers", {})
             with frame_scope(extras["launches"], index, recorder), span("writer.finalize") as whole:
                 if not on_card:
                     return self._finalize_stereo_frame(wd, geom, res, K0, K1, extras, whole)
@@ -466,7 +510,8 @@ class SequencePipeline:
                         stream = streams[dev] = torch.cuda.Stream(dev)
                     stream.wait_event(extras["ready"])
                     c2f = extras["c2f"] or {}
-                    for t in (*res, *extras["rect"], *extras["imgs"], c2f.get("coverage"), c2f.get("offband")):
+                    for t in (*res, *extras["export"], *extras["rect"], *extras["imgs"], c2f.get("coverage"),
+                              c2f.get("offband")):
                         if isinstance(t, torch.Tensor):
                             t.record_stream(stream)
                 # The thread's JPEG encoders, whose buffers its frames reuse.
@@ -556,7 +601,7 @@ class SequencePipeline:
                                     base_rect, match_rect = inst.rectify(ring)
                                 with span("dense.frame"):
                                     c2f = inst.dense(ring, pipe).c2f
-                                    res = inst.finish(ring, pipe)
+                                    res, export = inst.finish(ring, pipe, frame_export)
                             else:
                                 with span("loop.upload"):
                                     # uint8 upload from pinned memory.
@@ -565,12 +610,14 @@ class SequencePipeline:
                                     base_rect, match_rect = rectify_pair(b8, m8, gp, (H, W))
                                 res = pipe(base_rect, match_rect, gp)
                                 c2f = pipe.last_c2f
+                                export = frame_export(res, c2f)
                             # The frame's branch (no c2f diagnostics: the gate
                             # did not hold) and its ring's pool, 0 if eager.
                             count("dense_full_range", float(c2f is None))
                             count("dense_graph_pool_bytes", float(ring.pool_bytes) if graphs else 0.0)
                             with span("loop.submit"):
-                                extras.update(c2f=c2f, rect=(base_rect, match_rect), imgs=(b8, m8), gp=gp)
+                                extras.update(c2f=c2f, export=export, rect=(base_rect, match_rect), imgs=(b8, m8),
+                                              gp=gp)
                                 if on_card:
                                     extras["ready"] = torch.cuda.Event()
                                     extras["ready"].record()

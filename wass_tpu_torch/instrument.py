@@ -25,8 +25,9 @@ the same name, with the frame index as its args, and keep its record whole
 the scope a span only reads the clock; with no profiler recording it costs
 a flag test and two clock reads besides the sums.  `count(key)` adds to a
 counter of the frame the same way, and `host_read` is the one place a
-dispatching thread reads the device on purpose: the read's span, and one
-count of `host_reads`.
+thread reads the device on purpose: the read's span, and one count of
+`host_reads` on the dispatching thread or of `writer_host_reads` on a
+writer.
 """
 
 from __future__ import annotations
@@ -154,7 +155,7 @@ def frame_scope(launches: dict, index: int = 0, recorder: Optional[Recorder] = N
     totals), and its spans and counters into `recorder` under frame
     `index`, for the duration of the block.  `dispatching` marks the
     thread that dispatches the frame (or a thread working for it), whose
-    device reads `host_read` counts."""
+    device reads `host_read` counts as `host_reads`, not as a writer's."""
     outer = getattr(_local, "scope", None)
     _local.scope = _Scope(launches, index, recorder, dispatching)
     try:
@@ -220,13 +221,18 @@ def count(key: str, n: float = 1.0) -> None:
         scope.recorder.add(key, scope.index, n)
 
 
-def host_read(t: torch.Tensor, name: str) -> torch.Tensor:
-    """`t` on the host: a read that waits for the device work behind it,
-    timed as the span `name` and, on a dispatching thread, counted under
-    `host_reads`."""
+def host_read(t: torch.Tensor, name: str, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`t` on the host, or copied into `out` (a host tensor of its shape
+    and type, pinned where `t` is on a card): a read that waits for the
+    device work behind it, timed as the span `name` and counted for the
+    thread's frame, under `host_reads` on a dispatching thread and under
+    `writer_host_reads` on any other (a writer)."""
     with span(name):
-        out = t.cpu()
+        if out is None:
+            out = t.cpu()
+        else:
+            out.copy_(t)
     scope = getattr(_local, "scope", None)
-    if scope is not None and scope.dispatching:
-        count("host_reads")
+    if scope is not None:
+        count("host_reads" if scope.dispatching else "writer_host_reads")
     return out

@@ -17,8 +17,10 @@ tensors these are the hand-written kernels, on CPU tensors their plain
 versions.  A frame is three parts: `DenseStereoPipeline.device_part`, the
 device work up to the plane's covariance; the plane's normal from its one
 host read (plane.read, `plane_normal_read`); and `tail`, the plane and
-its final crop on the device.  On a card the sequence loop replays the
-device parts and the rectification from CUDA graphs (stereo/frame_graphs.py).
+its final crop on the device.  The frame's .xyzC export (export_frame:
+the u16 payload rows and a float64 header) reads nothing on the host
+either.  On a card the sequence loop replays the device parts, the
+export and the rectification from CUDA graphs (stereo/frame_graphs.py).
 Inside a recorder's scope (instrument.py) the frame's stages are spans:
 dense.frame around the census (dense.census), the disparity search
 (dense.disparity), the postprocess, triangulation and z-gap components
@@ -393,11 +395,14 @@ def plane_stage_tail(pts: torch.Tensor, parts: PlaneParts, n: torch.Tensor, cfg:
     return torch.where(fit.ok, plane, torch.full_like(plane, float("nan"))), fit.ok, valid_f
 
 
-def plane_normal_read(parts: PlaneParts) -> torch.Tensor:
-    """The plane's normal from its covariance read on the host: the frame's
-    one host read on the dispatching thread (plane.read; the plane parity
-    with the reference rests on these float bits)."""
-    return plane_normal(host_read(parts.A, "plane.read"))
+def plane_normal_read(parts: PlaneParts, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plane's normal from its covariance read on the host, into `out`
+    where given: the frame's one host read on the dispatching thread
+    (plane.read; the plane parity with the reference rests on these float
+    bits).  On a card `out` is pinned: a read into pageable memory holds
+    the CUDA driver while it waits for the device, and the writers' CUDA
+    calls would wait with it."""
+    return plane_normal(host_read(parts.A, "plane.read", out))
 
 
 def plane_stage(pts: torch.Tensor, valid: torch.Tensor, cfg: DenseStereoConfig, uv: Optional[torch.Tensor] = None):
@@ -411,19 +416,19 @@ def plane_stage(pts: torch.Tensor, valid: torch.Tensor, cfg: DenseStereoConfig, 
 def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """float32 a * b + c rounded once, as a fused multiply-add, with the
     same bits on every host and device.  The product is exact in float64,
-    and rounding the float64 sum s to float32 rounds the exact value once,
-    unless s landed on a float32 tie (its low 29 bits 1000...0) or, not 0,
-    below float32's normal range.  Only then (rarely; a host read decides)
-    is s first rounded to odd, with TwoSum's error as the sticky bit."""
+    and the float64 sum s is first rounded to odd, with TwoSum's error as
+    the sticky bit; then rounding to float32 rounds the exact value once,
+    float32 ties and values below its normal range included.  Where s is
+    no float32 tie the step to odd changes nothing: an even s that is no
+    tie has odd neighbours, which are no ties either.  So every element
+    takes the step and nothing is read on the host."""
     p = a.double() * b.double()
     c = c.double()
     s = p + c
-    doubtful = ((s.view(torch.int64) & 0x1FFFFFFF) == 0x10000000) | ((s != 0) & (s.abs() < 2.0**-126))
-    if bool(doubtful.any()):
-        t = s - p
-        err = (p - (s - t)) + (c - t)
-        fix = (err != 0) & torch.isfinite(err) & ((s.view(torch.int64) & 1) == 0)
-        s = torch.where(fix, torch.nextafter(s, torch.copysign(torch.full_like(s, float("inf")), err)), s)
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    fix = (err != 0) & torch.isfinite(err) & ((s.view(torch.int64) & 1) == 0)
+    s = torch.where(fix, torch.nextafter(s, torch.copysign(torch.full_like(s, float("inf")), err)), s)
     return s.float()
 
 
@@ -469,11 +474,61 @@ def export_u16(pts: torch.Tensor, valid: torch.Tensor, plane: torch.Tensor, n_po
     return out[:n_points], mins, scales
 
 
+def u16_bits(q: torch.Tensor) -> torch.Tensor:
+    """int32 values in [0, 65535] as int16 with the same low 16 bits, on
+    their device, so 2 bytes a value cross the link."""
+    return torch.where(q > 32767, q - 65536, q).to(torch.int16)
+
+
 def fetch_u16(q: torch.Tensor) -> np.ndarray:
     """(n, 3) int32 values in [0, 65535] (export_u16's q) as uint16 on the
     host: cast to int16 bits on the device, so 2 bytes a value cross the
     link (6 a point), as the JAX package's u16 buffer."""
-    return torch.where(q > 32767, q - 65536, q).to(torch.int16).cpu().numpy().view(np.uint16)
+    return u16_bits(q).cpu().numpy().view(np.uint16)
+
+
+# The fields of export_frame's float64 header and where each lies.
+HEADER = {"n_points": 0, "plane_ok": 1, "plane": slice(2, 6), "mins": slice(6, 9), "scales": slice(9, 12),
+          "coverage": 12, "offband": 13}
+HEADER_LEN = 14
+
+
+class FrameExport(NamedTuple):
+    """A frame's .xyzC export on its device (export_frame)."""
+
+    payload: torch.Tensor  # (H*W + 1, 3) int16: the u16 bits of the rows, the first n_points the file's
+    header: torch.Tensor  # (HEADER_LEN,) float64, laid out as HEADER
+
+
+def export_frame(res: DenseFrameResult, c2f: Optional[dict] = None, rows=export_u16) -> FrameExport:
+    """The frame's .xyzC export on the device of its result, with no host
+    read and shapes fixed by the frame's, so that a CUDA graph can hold it
+    (graph F, stereo/frame_graphs.py): `rows` (export_u16, or a function of
+    its signature) over the whole (H*W + 1, 3) buffer, cast to int16 bits
+    as fetch_u16 casts, and the header: the point count, plane_ok, the
+    plane, mins, scales and the coverage and offband of `c2f` (the frame's
+    last_c2f; nan where it is None).  Each is a float32, a bool or a count
+    below 2^53, so float64 holds it exactly.  The payload rows of an
+    unusable plane are not the file's: the writer does not read them."""
+    q, mins, scales = rows(res.points, res.valid, res.plane, res.valid.numel() + 1)
+    if c2f is None:
+        diag = torch.full((2,), float("nan"), dtype=torch.float64, device=q.device)
+    else:
+        diag = torch.stack([torch.as_tensor(c2f[k], dtype=torch.float64, device=q.device)
+                            for k in ("coverage", "offband")])
+    header = torch.cat([res.n_points.reshape(1).double(), res.plane_ok.reshape(1).double(), res.plane.double(),
+                        mins.double(), scales.double(), diag])
+    return FrameExport(u16_bits(q), header)
+
+
+def unpack_header(h: np.ndarray) -> dict:
+    """export_frame's header on the host by field (HEADER): n_points an
+    int, plane_ok a bool, the rest float64, copied out of `h` (a buffer
+    that the next read may overwrite)."""
+    h = np.array(h, dtype=np.float64)
+    out = {k: h[at] for k, at in HEADER.items()}
+    out["n_points"], out["plane_ok"] = int(out["n_points"]), bool(out["plane_ok"])
+    return out
 
 
 def _c2f_active(cfg: DenseStereoConfig, shape) -> bool:

@@ -8,12 +8,18 @@ read (DenseStereoPipeline.device_part: census, the c2f coarse pass and row
 windows, the windowed SGM, the postprocess, triangulation, z-gap
 components, RANSAC, the first crop and the plane's covariance).  After D
 the loop reads the covariance on the host and solves the 3x3
-eigenproblem there (dense.plane_normal_read), copies the normal into a
-static device buffer and replays F, the plane's tail
-(DenseStereoPipeline.tail: the plane, its final crop, the point count),
-whose ~20 small launches cost ~0.25 ms each on a host whose other threads
-are busy.  Every hand-written kernel is launched from the graphs; the
-outputs are the eager path's, bit for bit.  CPU runs stay eager.
+eigenproblem there (dense.plane_normal_read, into a pinned buffer of the
+instance: a read into pageable memory holds the CUDA driver until D
+ends, and every writer's CUDA call waits with it), copies the normal into
+a static device buffer and replays F, the plane's tail
+(DenseStereoPipeline.tail: the plane, its final crop, the point count)
+and the frame's .xyzC export (dense.export_frame: the payload rows as u16
+bits and a small float64 header, which the writers only copy to the
+host), whose ~50 small launches cost ~0.25 ms each on a host whose other
+threads are busy.  F runs on the dispatching stream behind D, so the
+export never shares the card with another frame's D.  Every hand-written
+kernel is launched from the graphs; the outputs are the eager path's, bit
+for bit.  CPU runs stay eager.
 
 A slot's frames take turns on a ring of instances (FrameRing): frame i of
 a slot uses instance `instance_index(i, n_slots, depth)`, one of
@@ -22,8 +28,9 @@ slot in flight, so by the time an instance is used again the writer of
 its previous frame has returned; that writer also records the instance's
 `done` event on its stream after its last read, and the dispatching
 stream waits on it before the instance's next upload.  Each instance owns
-pinned staging buffers, its static device inputs (the uint8 base and match
-images, the plane's normal), graphs R, D and F and their static outputs,
+pinned staging buffers (the decoded pair, the plane's covariance and
+normal), its static device inputs (the uint8 base and match images, the
+plane's normal), graphs R, D and F and their static outputs,
 which each replay overwrites.  The graphs of a ring share one memory pool,
 the size of one frame's intermediates: each graph copies its outputs out
 of the pool into its instance's static tensors, so nothing in the pool
@@ -64,7 +71,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +82,7 @@ from wass_tpu_torch.stereo import sgm_kernels
 from wass_tpu_torch.stereo.dense import (
     DenseFrameResult,
     DenseStereoPipeline,
+    FrameExport,
     FrameParts,
     plane_normal_read,
     rectify_pair,
@@ -222,6 +230,7 @@ class FrameInstance:
         dtype = torch.from_numpy(np.empty(0, ring.dtype)).dtype
         self.staging = [torch.empty((H, W), dtype=dtype, pin_memory=True) for _ in range(2)]
         self.inputs = tuple(torch.empty((H, W), dtype=dtype, device=ring.device) for _ in range(2))
+        self.cov_staging = torch.empty((3, 3), dtype=torch.float32, pin_memory=True)
         self.normal_staging = torch.empty(3, dtype=torch.float32, pin_memory=True)
         self.normal = torch.zeros(3, dtype=torch.float32, device=ring.device)
         # The inputs' copies out of the staging buffers; the writer of the
@@ -280,15 +289,23 @@ class FrameInstance:
         self.parts = self._replayed(ring, "dense", lambda: pipe.device_part(*self.rect, ring.geom_pack), self.rect)
         return self.parts
 
-    def finish(self, ring: "FrameRing", pipe: DenseStereoPipeline) -> DenseFrameResult:
+    def finish(self, ring: "FrameRing", pipe: DenseStereoPipeline,
+               export: Callable) -> Tuple[DenseFrameResult, FrameExport]:
         """The plane's normal from the host read (after dense), copied to the
-        device, then graph F replayed: the frame's result."""
+        device, then graph F replayed: the frame's result and its export,
+        export(result, the frame's c2f diagnostics), whose capture F holds
+        (the loop passes the same function every frame)."""
         new = "tail" not in self.graphs
         # The staging buffer's last copy is done: the writer of the
         # instance's last frame, which has returned, read F's outputs.
-        self.normal_staging.copy_(plane_normal_read(self.parts.plane))
+        self.normal_staging.copy_(plane_normal_read(self.parts.plane, self.cov_staging))
         self.normal.copy_(self.normal_staging, non_blocking=True)
-        result = self._replayed(ring, "tail", lambda: pipe.tail(self.parts, self.normal), (self.parts, self.normal))
+
+        def tail():
+            res = pipe.tail(self.parts, self.normal)
+            return res, export(res, self.parts.c2f)
+
+        result = self._replayed(ring, "tail", tail, (self.parts, self.normal))
         if new:
             ring.pool_bytes = pool_bytes(ring.pool, ring.device)
             count("dense_graph_captures")
